@@ -6,29 +6,48 @@
 Phases, each printed on its own line; any failure exits non-zero and
 prints no result line:
 
-1. device   - a CUDA card must be present; prints its name and power limit.
-2. build    - builds the CUDA kernels from ``zig_gpt2_tpu_torch/ops/csrc``.
-3. attention- the decode-attention kernel against its plain PyTorch version
-              at GPT-2 124M shapes (L=12, H=12, S=1024, D=64), B=1 and B=4,
-              lengths {0, 1, 17, 1023}, f32 and bf16 caches.
-4. sampler  - the Gumbel-max sampler kernel against its plain version,
-              B=4, V=50257, with and without a top-k/top-p threshold:
-              identical ids.
-5. serve    - GPT-2 124M at full width (random weights from a fixed seed,
-              a BPE trained in-process, vocab padded to 50257 rows) on
-              ``InferenceEngine(device="cuda")``: three prompts x 32 new
-              tokens (greedy; T=0.8; T=0.8 with top-k 40 and top-p 0.9).
-              Kernel launch counts must match the decode steps; the greedy
-              run's teacher-forced logits are held against the same model
-              on the CPU.
-6. trace    - ``torch.profiler`` over 32 decode steps of the main path
-              (fp32, T=0.8, one host sync per token as the engine runs
-              them): the device's busy and idle share of the traced
-              window, kernels launched per step, the top kernels.
-7. times    - each kernel's time per call at the main path's shapes, its
-              bound, its plain version's time and one PyTorch library call
-              computing the same function (timed only, never used by the
-              port).
+1. device    - a CUDA card must be present; prints its name and power limit.
+2. build     - builds the CUDA kernels from ``zig_gpt2_tpu_torch/ops/csrc``.
+3. attention - the float decode-attention kernel against its plain PyTorch
+               version at GPT-2 124M shapes (L=12, H=12, S=1024, D=64), B=1
+               and B=4, lengths {0, 1, 17, 1023}, f32 and bf16 caches.
+4. attention-int8 - the INT8-cache decode-attention kernel against its
+               plain version at GPT-2 1.5B shapes (L=48, H=25, S=1024,
+               D=64), B=1 and B=4, lengths {0, 1, 17, 1023}, f32 and bf16 q,
+               layers 0 and 47.
+5. sampler   - the Gumbel-max sampler kernel against its plain version,
+               B=4, V=50257, with and without a top-k/top-p threshold:
+               identical ids.
+6. serve     - GPT-2 124M, fp32, at full width (random weights from a fixed
+               seed, a BPE trained in-process, vocab padded to 50257 rows)
+               on ``InferenceEngine(device="cuda")``: three prompts x 32 new
+               tokens (greedy; T=0.8; T=0.8 with top-k 40 and top-p 0.9).
+               Kernel launch counts must match the decode steps; the greedy
+               run's teacher-forced logits are held against the same model
+               on the CPU.
+7. trace     - ``torch.profiler`` over 32 decode steps of the 124M path
+               (fp32, T=0.8, one host sync per token as the engine runs
+               them): the device's busy and idle share of the traced
+               window, kernels launched per step, the top kernels.
+8. qmm       - the dequant-GEMV kernel against its plain version on the
+               1.5B model's quantized weights: the six block linears at
+               layers 0 and 47 (INT4, grouped) and the lm_head (INT8
+               per-channel, K=1600, N=50257), rows 1, 32 and 256, f32 and
+               bf16 activations.
+9. serve-1.5B - GPT-2 1.5B at full width and depth (48 layers, 25 heads,
+               1600 wide; random bf16 weights from a fixed seed, INT4
+               weights and an INT8 lm_head by ``quantize_params``) on
+               ``InferenceEngine(kv_quant="int8", device="cuda")``: the same
+               three requests. Launch counts: qmm 289 per decode step and
+               per prefill, INT8 attention 48 per decode step, float
+               attention none. The greedy request is teacher-forced through
+               the same quantized weights with f32 float leaves on the card
+               and on the CPU (plain versions), and the logits compared.
+10. trace-1.5B - as 7, for the 1.5B INT4 + INT8-KV decode step (bf16).
+11. times    - each kernel's device time per call at the main paths'
+               shapes (CUDA-graph replay of many calls), its bound, its
+               plain version's time and one PyTorch library call computing
+               the same function (timed only, never used by the port).
 
 fp32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 The line before the last is a JSON object listing the kernels; the last
@@ -55,7 +74,16 @@ SAMPLER_OPS_PER_ELEM = 114
 # (atol, rtol). bf16: one bf16 ulp, since kernel and plain version each
 # round one f32 result to bf16 once.
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-4, 8e-3)}
+# qmm returns f32 for both activation dtypes (a bf16 x times a bf16 or int8
+# weight is exact in f32); the kernel sums up to 6400 products per output
+# in another order than cuBLAS in the plain version.
+QMM_TOL = (1e-4, 1e-4)
 E2E_ATOL, E2E_RTOL = 1e-3, 1e-3
+
+BLOCK_LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "c_proj"),
+                 ("mlp", "c_fc"), ("mlp", "c_proj"))
+DEMO_TEXT = ("the quick brown fox jumps over the lazy dog. "
+             "hello world, streaming tokens from a random model on the card. ") * 8
 
 
 def log(msg: str) -> None:
@@ -74,18 +102,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, n: int, warmup: int = 3) -> float:
-    """Mean device time of fn(i) over n calls, by CUDA events."""
+def time_ms(fn, n: int, warmup: int = 3, graph: bool = True) -> float:
+    """Mean device time of fn(i) over n calls, by CUDA events. With
+    ``graph`` the n calls are captured once in a CUDA graph and the replay
+    is timed, so that the host's cost of issuing each call (the wrappers'
+    checks, allocation and launch: tens of us) does not stand in for the
+    device's; without it (for code that copies from the host, which a
+    graph cannot capture) the calls are issued back to back."""
     import torch
 
     for i in range(warmup):
         fn(i)
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(n):
-        fn(i)
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(n):
+                fn(i)
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for i in range(n):
+            fn(i)
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
 
@@ -93,6 +138,19 @@ def time_ms(fn, n: int, warmup: int = 3) -> float:
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_close(name: str, got, want, atol: float, rtol: float, torch) -> float:
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    if (err > atol + rtol * want.float().abs()).any() or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max_abs_err {err.max().item():.3e})")
+    return err.max().item()
 
 
 def check_attention(att, torch) -> None:
@@ -110,14 +168,41 @@ def check_attention(att, torch) -> None:
                 got = att.decode_attention_deferred(q, kn, vn, kc, vc, length, layer=layer)
                 want = att.decode_attention_deferred_plain(q, kn, vn, kc, vc, length,
                                                            layer=layer)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                bad = err > atol + rtol * want.float().abs()
+                err = check_close(f"attention B={B} {dtype} layer={layer}", got, want,
+                                  atol, rtol, torch)
                 log(f"attention B={B} len={lengths} {dtype} layer={layer}: "
-                    f"max_abs_err={err.max().item():.3e} (atol {atol}, rtol {rtol})")
-                if bad.any() or not torch.isfinite(got).all():
-                    raise AssertionError(f"attention kernel disagrees: B={B} {dtype} "
-                                         f"layer={layer}")
+                    f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol})")
+
+
+def int8_attention_inputs(ops, torch, g, L, B, H, S, D, dtype):
+    """Random INT8 caches with scale planes of the size quantize_kv gives
+    GPT-2-like rows, quantized current rows, and q in ``dtype``."""
+    kc, vc = (torch.randint(-127, 128, (L, B, H, S, D), device="cuda", generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(L, B, H, S, device="cuda", generator=g) * 0.03 + 0.01
+              for _ in range(2))
+    (kn, ksn), (vn, vsn) = (ops.quantize_kv(torch.randn(B, H, D, device="cuda",
+                                                        generator=g))
+                            for _ in range(2))
+    q = torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
+    return [q, kn, ksn, vn, vsn, kc, ks, vc, vs]
+
+
+def check_attention_int8(att, ops, torch) -> None:
+    L, H, S, D = 48, 25, 1024, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for B, lengths in ((1, [17]), (1, [1023]), (4, [0, 1, 17, 1023])):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = int8_attention_inputs(ops, torch, g, L, B, H, S, D, dtype)
+            length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            atol, rtol = ATTN_TOL[str(dtype).split(".")[-1]]
+            for layer in (0, L - 1):
+                got = att.decode_attention_quant_deferred(*args, length, layer=layer)
+                want = att.decode_attention_quant_deferred_plain(*args, length, layer=layer)
+                err = check_close(f"attention-int8 B={B} {dtype} layer={layer}", got,
+                                  want, atol, rtol, torch)
+                log(f"attention-int8 B={B} len={lengths} {dtype} layer={layer}: "
+                    f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol})")
 
 
 def check_sampler(sk, sampling, torch) -> None:
@@ -143,56 +228,134 @@ def check_sampler(sk, sampling, torch) -> None:
                     raise AssertionError("sampler drew an id below its threshold")
 
 
-def serve(pkg, torch, card: str):
-    """Phase 5. Returns the kernels' launch counts and the engine."""
-    config_mod, gpt2, engine_mod, tok, att, sk, weights = pkg
-    demo_text = ("the quick brown fox jumps over the lazy dog. "
-                 "hello world, streaming tokens from a random model on the card. ") * 8
-    vocab, merges = tok.train_bpe(demo_text, vocab_size=512)
-    encoder = tok.Encoder(vocab, merges)
+def linears(params, layer):
+    """(name, qw, scale, int4) of the six block linears at ``layer`` and,
+    for layer None, of the lm_head."""
+    if layer is None:
+        p = params["lm_head"]
+        return [("lm_head", p["qw"], p["scale"], False)]
+    out = []
+    for mod, name in BLOCK_LINEARS:
+        p = params["blocks"][mod][name]
+        int4 = "qw4" in p
+        out.append((f"{mod}.{name}[{layer}]", (p["qw4"] if int4 else p["qw"])[layer],
+                    p["scale"][layer], int4))
+    return out
+
+
+def check_qmm(qk, params, torch) -> None:
+    g = torch.Generator(device="cuda").manual_seed(6)
+    atol, rtol = QMM_TOL
+    last = params["blocks"]["attn"]["wq"]["scale"].shape[0] - 1
+    for name, qw, scale, int4 in linears(params, 0) + linears(params, last) + linears(
+            params, None):
+        k = qw.shape[0] * (2 if int4 else 1)
+        errs = []
+        for rows in (1, 32, 256):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(rows, k, device="cuda", generator=g).to(dtype)
+                got = qk.qmm(x, qw, scale, int4=int4)
+                want = qk.qmm_plain(x, qw, scale, int4=int4)
+                errs.append(check_close(f"qmm {name} rows={rows} {dtype}", got, want,
+                                        atol, rtol, torch))
+        log(f"qmm {name} K={k} N={qw.shape[1]} groups={scale.shape[0]} "
+            f"{'int4' if int4 else 'int8'}: rows 1/32/256 x f32/bf16 "
+            f"max_abs_err={max(errs):.3e} (atol {atol}, rtol {rtol})")
+
+
+REQUESTS = (("greedy", "the quick brown fox", dict(temperature=0.0)),
+            ("T=0.8", "hello world, streaming", dict(temperature=0.8, seed=1)),
+            ("T=0.8 top-k 40 top-p 0.9", "the lazy dog",
+             dict(temperature=0.8, top_k=40, top_p=0.9, seed=2)))
+
+
+def run_requests(engine_mod, config_mod, engine, label: str, card: str):
+    """The three requests, 32 new tokens each; returns [(name, prompt,
+    sampling, text, metrics)], the decode steps and the sampled steps."""
+    results = []
+    for name, prompt, kw in REQUESTS:
+        sampling = config_mod.SamplingConfig(**kw)
+        m = engine_mod.GenerationMetrics()
+        text = engine.generate_text(prompt, 32, sampling, metrics=m)
+        results.append((name, prompt, sampling, text, m))
+    for name, prompt, _, text, m in results:
+        log(f"{label} [{name}] {prompt!r} -> {text!r}")
+        log(f"{label} [{name}] prefill_ms={m.prefill_ms:.3f} "
+            f"ms_per_token_p50={m.ms_per_token_percentile(50):.3f} "
+            f"tok_per_s={m.tokens_per_sec:.1f} generated={m.generated_tokens} ({card})")
+        if m.generated_tokens != 32:
+            raise AssertionError(f"{label} {name}: {m.generated_tokens} tokens, expected 32")
+    decode_steps = sum(m.generated_tokens for *_, m in results)
+    sampled = sum(m.generated_tokens + 1 for _, _, s, _, m in results if s.temperature > 0)
+    return results, decode_steps, sampled
+
+
+def teacher_forced(gpt2, params, config, ids, tokens, device, torch, kv_quant=None):
+    """(len(tokens) + 1, vocab) logits: prefill of ``ids`` padded to 32 (the
+    engine's first prompt bucket, so that the served run's arithmetic is
+    repeated exactly), then one decode step per token of ``tokens``."""
+    cache = gpt2.init_kv_cache(config, 1, 64, device=device, quant=kv_quant,
+                               dtype=params["wte"].dtype)
+    prompt = torch.zeros((1, 32), dtype=torch.int32, device=device)
+    prompt[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    cache, logits = gpt2.prefill(params, cache, prompt,
+                                 torch.tensor([len(ids)], dtype=torch.int32, device=device),
+                                 config)
+    rows = [logits[0]]
+    for t in tokens:
+        cache, logits = gpt2.decode_step(params, cache, torch.tensor([t], dtype=torch.int32,
+                                                                     device=device), config)
+        rows.append(logits[0])
+    return torch.stack(rows).float().cpu()[:, :config.vocab_size]
+
+
+def compare_logits(label: str, gpu, cpu, torch, atol: float = E2E_ATOL) -> None:
+    err = (gpu - cpu).abs()
+    top2 = cpu.topk(2, -1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) < 2 * (atol + E2E_RTOL * top2[:, 0].abs())
+    flips = (cpu.argmax(-1) != gpu.argmax(-1)) & ~near_tie
+    log(f"{label} teacher-forced fp32 logits, card vs CPU over {gpu.shape[0]} positions: "
+        f"max_abs_err={err.max().item():.3e} (atol {atol:.3e}, rtol {E2E_RTOL}), "
+        f"argmax flips outside near-ties={int(flips.sum())}")
+    if (err > atol + E2E_RTOL * cpu.abs()).any() or flips.any():
+        raise AssertionError(f"{label}: card logits disagree with the CPU run")
+    if not torch.isfinite(gpu).all():
+        raise AssertionError(f"{label}: non-finite logits")
+
+
+def serve(pkg, torch, encoder, card: str):
+    """Phase 6. Returns the kernels' launch counts and the engine."""
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, _ = pkg
     # Full 124M width; the tokenizer knows len(vocab) ids, the other rows
     # of the 50257-row vocab are padding that the lm_head masks.
-    config = dataclasses.replace(config_mod.get_config("124M"), vocab_size=len(vocab),
+    config = dataclasses.replace(config_mod.get_config("124M"), vocab_size=len(encoder.vocab),
                                  padded_vocab_size=50257)
     params = gpt2.init_params(config, torch.Generator(device="cuda").manual_seed(0),
                               torch.float32)
     engine = engine_mod.InferenceEngine(config, params, encoder, device="cuda")
-    S = config_mod.SamplingConfig
-    requests = [("greedy", "the quick brown fox", S(temperature=0.0)),
-                ("T=0.8", "hello world, streaming", S(temperature=0.8, seed=1)),
-                ("T=0.8 top-k 40 top-p 0.9", "the lazy dog",
-                 S(temperature=0.8, top_k=40, top_p=0.9, seed=2))]
-    engine.generate_text("warm up", 2, S(temperature=0.8))  # first-call costs
+    engine.generate_text("warm up", 2, config_mod.SamplingConfig(temperature=0.8))
     torch.cuda.synchronize()
 
     att.decode_attention_deferred.launches = 0
+    att.decode_attention_quant_deferred.launches = 0
     sk.sample_categorical.launches = 0
-    results = []
-    for name, prompt, sampling in requests:
-        m = engine_mod.GenerationMetrics()
-        text = engine.generate_text(prompt, 32, sampling, metrics=m)
-        results.append((name, prompt, sampling, text, m))
+    qk.qmm.launches = 0
+    results, decode_steps, sampled = run_requests(engine_mod, config_mod, engine, "serve",
+                                                  f"fp32, B=1, {card}")
     torch.cuda.synchronize()
     counts = {"attention": att.decode_attention_deferred.launches,
-              "sampler": sk.sample_categorical.launches}
-
-    decode_steps = sum(m.generated_tokens for *_, m in results)
-    sampled = sum(m.generated_tokens + 1 for _, _, s, _, m in results if s.temperature > 0)
-    for name, prompt, sampling, text, m in results:
-        log(f"serve [{name}] {prompt!r} -> {text!r}")
-        log(f"serve [{name}] prefill_ms={m.prefill_ms:.3f} "
-            f"ms_per_token_p50={m.ms_per_token_percentile(50):.3f} "
-            f"tok_per_s={m.tokens_per_sec:.1f} generated={m.generated_tokens} "
-            f"(fp32, B=1, {card})")
-        if m.generated_tokens != 32:
-            raise AssertionError(f"{name}: {m.generated_tokens} tokens, expected 32")
+              "attention_int8": att.decode_attention_quant_deferred.launches,
+              "sampler": sk.sample_categorical.launches, "qmm": qk.qmm.launches}
     log(f"serve launches: attention={counts['attention']} (expected "
         f"{config.n_layers} x {decode_steps} = {config.n_layers * decode_steps}), "
-        f"sampler={counts['sampler']} (expected {sampled})")
+        f"sampler={counts['sampler']} (expected {sampled}), "
+        f"attention-int8={counts['attention_int8']} and qmm={counts['qmm']} (expected 0)")
     if counts["attention"] != config.n_layers * decode_steps:
         raise AssertionError("attention launches do not match the decode steps")
     if counts["sampler"] != sampled:
         raise AssertionError("sampler launches do not match the sampled steps")
+    if counts["attention_int8"] or counts["qmm"]:
+        raise AssertionError("the float path launched a quantized kernel")
 
     # Teacher-forced check of the greedy request against the CPU.
     _, prompt, sampling, text, _ = results[0]
@@ -200,40 +363,119 @@ def serve(pkg, torch, card: str):
     greedy = engine.generate(ids, 32, sampling)
     if encoder.decode(greedy) != text:
         raise AssertionError("greedy rerun differs from the served text")
-    seq = torch.tensor([ids + greedy[:-1]], dtype=torch.int32)
-    n = len(ids)
-    cache = gpt2.init_kv_cache(config, 1, 64, device="cuda")
-    prompt_t = torch.tensor([ids], dtype=torch.int32, device="cuda")
-    cache, logits = gpt2.prefill(engine.params, cache, prompt_t,
-                                 torch.tensor([n], dtype=torch.int32, device="cuda"), config)
-    rows = [logits[0]]
-    for t in greedy[:-1]:
-        cache, logits = gpt2.decode_step(engine.params, cache,
-                                         torch.tensor([t], dtype=torch.int32, device="cuda"),
-                                         config)
-        rows.append(logits[0])
-    gpu = torch.stack(rows).cpu()[:, :config.vocab_size]
+    gpu = teacher_forced(gpt2, engine.params, config, ids, greedy[:-1], "cuda", torch)
     if gpu.argmax(-1).tolist() != greedy:
         raise AssertionError("teacher-forced argmax differs from the greedy tokens")
+    seq = torch.tensor([ids + greedy[:-1]], dtype=torch.int32)
     cpu_params = weights.tree_map(lambda t: t.cpu(), engine.params)
-    cpu = gpt2.forward(cpu_params, seq, config)[0, n - 1:][:, :config.vocab_size]
-    err = (gpu - cpu).abs()
-    top2 = cpu.topk(2, -1).values
-    near_tie = (top2[:, 0] - top2[:, 1]) < 2 * (E2E_ATOL + E2E_RTOL * top2[:, 0].abs())
-    flips = (cpu.argmax(-1) != gpu.argmax(-1)) & ~near_tie
-    log(f"serve teacher-forced fp32 logits, card vs CPU over {gpu.shape[0]} positions: "
-        f"max_abs_err={err.max().item():.3e} (atol {E2E_ATOL}, rtol {E2E_RTOL}), "
-        f"argmax flips outside near-ties={int(flips.sum())}")
-    if (err > E2E_ATOL + E2E_RTOL * cpu.abs()).any() or flips.any():
-        raise AssertionError("card logits disagree with the CPU run")
-    if not torch.isfinite(gpu).all():
-        raise AssertionError("non-finite logits")
+    cpu = gpt2.forward(cpu_params, seq, config)[0, len(ids) - 1:][:, :config.vocab_size]
+    compare_logits("serve", gpu, cpu, torch)
     return counts, engine, ids
 
 
-def trace_decode(gpt2, sampling, engine, ids, torch, card: str) -> None:
-    """Phase 6: trace 32 decode steps after a prefill, as the engine's
-    per-token loop runs them (decode, sample, one host sync)."""
+def dequantized(quantize, params):
+    """The tree with every quantized linear replaced by its f32
+    dequantized weight: the reference formulation dequantize-then-matmul."""
+    out = dict(params, blocks=dict(params["blocks"]))
+    for mod, name in BLOCK_LINEARS:
+        sub = dict(out["blocks"][mod])
+        sub[name] = quantize.dequantize_linear(sub[name])
+        out["blocks"][mod] = sub
+    out["lm_head"] = quantize.dequantize_linear(params["lm_head"])
+    return out
+
+
+def build_1p5b(config_mod, gpt2, quantize, encoder, torch):
+    """GPT-2 1.5B at full width and depth, random bf16 weights from a
+    fixed seed, INT4 block linears and the INT8 lm_head."""
+    config = dataclasses.replace(config_mod.get_config("1558M"), vocab_size=len(encoder.vocab),
+                                 padded_vocab_size=50257)
+    params = gpt2.init_params(config, torch.Generator(device="cuda").manual_seed(0),
+                              torch.bfloat16)
+    params = quantize.quantize_params(params, mode="int4")
+    torch.cuda.synchronize()
+    return config, params
+
+
+def serve_1p5b(pkg, torch, encoder, config, params, card: str):
+    """Phase 9. Returns the kernels' launch counts and the engine."""
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, quantize = pkg
+    engine = engine_mod.InferenceEngine(config, params, encoder, kv_quant="int8",
+                                        device="cuda")
+    engine.generate_text("warm up", 2, config_mod.SamplingConfig(temperature=0.8))
+    torch.cuda.synchronize()
+
+    att.decode_attention_deferred.launches = 0
+    att.decode_attention_quant_deferred.launches = 0
+    sk.sample_categorical.launches = 0
+    qk.qmm.launches = 0
+    results, decode_steps, sampled = run_requests(
+        engine_mod, config_mod, engine, "serve-1.5B",
+        f"INT4 weights, INT8 lm_head and KV cache, bf16 activations, B=1, {card}")
+    torch.cuda.synchronize()
+    counts = {"attention": att.decode_attention_deferred.launches,
+              "attention_int8": att.decode_attention_quant_deferred.launches,
+              "sampler": sk.sample_categorical.launches, "qmm": qk.qmm.launches}
+    per_pass = 6 * config.n_layers + 1  # block linears + the lm_head
+    passes = decode_steps + len(results)  # decode steps + prefills
+    log(f"serve-1.5B launches: qmm={counts['qmm']} (expected {per_pass} x {passes} = "
+        f"{per_pass * passes}), attention-int8={counts['attention_int8']} (expected "
+        f"{config.n_layers} x {decode_steps} = {config.n_layers * decode_steps}), "
+        f"sampler={counts['sampler']} (expected {sampled}), "
+        f"attention={counts['attention']} (expected 0)")
+    if counts["qmm"] != per_pass * passes:
+        raise AssertionError("qmm launches do not match the decode steps and prefills")
+    if counts["attention_int8"] != config.n_layers * decode_steps:
+        raise AssertionError("INT8 attention launches do not match the decode steps")
+    if counts["sampler"] != sampled:
+        raise AssertionError("sampler launches do not match the sampled steps")
+    if counts["attention"]:
+        raise AssertionError("the INT8-cache path launched the float attention kernel")
+
+    _, prompt, sampling, text, _ = results[0]
+    ids = encoder.encode(prompt)
+    greedy = engine.generate(ids, 32, sampling)
+    if encoder.decode(greedy) != text:
+        raise AssertionError("greedy rerun differs from the served text")
+    served = teacher_forced(gpt2, engine.params, config, ids, greedy[:-1], "cuda", torch,
+                            kv_quant="int8")
+    if served.argmax(-1).tolist() != greedy:
+        raise AssertionError("teacher-forced argmax differs from the greedy tokens")
+    # The same quantized weights with f32 float leaves (the scales are f32
+    # already), teacher-forced on the card and on the CPU.
+    t0 = time.perf_counter()
+    f32 = weights.tree_map(lambda t: t.float() if t.is_floating_point() else t, engine.params)
+    cpu_q = weights.tree_map(lambda t: t.cpu(), f32)
+    cpu_w = dequantized(quantize, cpu_q)
+    # 1. Float KV cache: the INT4/INT8 GEMVs through 48 layers, against the
+    #    same weights dequantized to f32 on the CPU (one plain matmul each).
+    gpu = teacher_forced(gpt2, f32, config, ids, greedy[:-1], "cuda", torch)
+    cpu = teacher_forced(gpt2, cpu_w, config, ids, greedy[:-1], "cpu", torch)
+    compare_logits("serve-1.5B float KV cache", gpu, cpu, torch)
+    # 2. INT8 KV cache, the served configuration: against the CPU through the
+    #    plain versions. An INT8 row rounds each element to a step of
+    #    absmax/127, so a roundoff-sized difference before the rounding
+    #    flips a few elements by a whole step and moves the logits by far
+    #    more than roundoff. The floor is measured here: the same model on
+    #    the CPU with f64 float leaves against the f32 run. The card is held
+    #    to 1e-3 or three times that floor, whichever is larger.
+    gpu = teacher_forced(gpt2, f32, config, ids, greedy[:-1], "cuda", torch, kv_quant="int8")
+    cpu = teacher_forced(gpt2, cpu_q, config, ids, greedy[:-1], "cpu", torch, kv_quant="int8")
+    del cpu_q
+    cpu_w = weights.tree_map(lambda t: t.double() if t.is_floating_point() else t, cpu_w)
+    f64 = teacher_forced(gpt2, cpu_w, config, ids, greedy[:-1], "cpu", torch, kv_quant="int8")
+    del cpu_w
+    floor = (f64 - cpu).abs().max().item()
+    log(f"serve-1.5B INT8 KV floor: the CPU run in f64 and in f32 differ by max_abs_err="
+        f"{floor:.3e} over {cpu.shape[0]} positions")
+    compare_logits("serve-1.5B INT8 KV cache", gpu, cpu, torch, atol=max(E2E_ATOL, 3 * floor))
+    log(f"serve-1.5B teacher-forced runs (2 on the card, 3 on the CPU): {time.perf_counter() - t0:.1f} s")
+    return counts, engine, ids
+
+
+def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str) -> None:
+    """Trace 32 decode steps after a prefill, as the engine's per-token
+    loop runs them (decode, sample, one host sync)."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -258,8 +500,8 @@ def trace_decode(gpt2, sampling, engine, ids, torch, card: str) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
                if e.device_type == DeviceType.CUDA]
-    row = {"model": "124M", "dtype": "float32", "batch": 1, "temperature": 0.8,
-           "traced_decode_steps": steps, "traced_wall_ms": wall_us / 1e3, "card": card}
+    row = {**label, "batch": 1, "temperature": 0.8, "traced_decode_steps": steps,
+           "traced_wall_ms": wall_us / 1e3, "card": card}
     if kernels:
         busy = sum(us for _, us in kernels)
         by_name = defaultdict(float)
@@ -276,7 +518,7 @@ def trace_decode(gpt2, sampling, engine, ids, torch, card: str) -> None:
     log(f"trace {json.dumps(row)}")
 
 
-def time_kernels(att, sk, sampling, torch, counts, card: str):
+def time_float_kernels(att, sk, torch, counts, card: str):
     import torch.nn.functional as F
 
     entries = []
@@ -290,9 +532,9 @@ def time_kernels(att, sk, sampling, torch, counts, card: str):
         q, kn, vn = (torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
                      for _ in range(3))
         length = torch.full((B,), n, dtype=torch.int32, device="cuda")
-        err = (att.decode_attention_deferred(q, kn, vn, kc, vc, length, layer=0).float()
-               - att.decode_attention_deferred_plain(q, kn, vn, kc, vc, length,
-                                                     layer=0).float()).abs().max().item()
+        err = max_err(att.decode_attention_deferred(q, kn, vn, kc, vc, length, layer=0),
+                      att.decode_attention_deferred_plain(q, kn, vn, kc, vc, length,
+                                                          layer=0))
         ms = time_ms(lambda i: att.decode_attention_deferred(q, kn, vn, kc, vc, length,
                                                              layer=i % L), 240)
         plain_ms = time_ms(lambda i: att.decode_attention_deferred_plain(
@@ -323,7 +565,8 @@ def time_kernels(att, sk, sampling, torch, counts, card: str):
     err = float((sk.sample_categorical(logits, seeds, T).long()
                  - sk.sample_categorical_plain(logits, seeds, T).long()).abs().max().item())
     ms = time_ms(lambda i: sk.sample_categorical(logits, seeds, T), 400)
-    plain_ms = time_ms(lambda i: sk.sample_categorical_plain(logits, seeds, T), 40)
+    plain_ms = time_ms(lambda i: sk.sample_categorical_plain(logits, seeds, T), 40,
+                       graph=False)  # it copies 1/T from the host
     u = torch.rand(B, V, device="cuda", generator=g)
     lib_ms = time_ms(lambda i: torch.argmax(logits / T - torch.log(-torch.log(u)), -1), 400)
     bms, by = bound_ms(V * 4 * B + 8 * B, SAMPLER_OPS_PER_ELEM * V * B)
@@ -336,6 +579,112 @@ def time_kernels(att, sk, sampling, torch, counts, card: str):
         "replaces": "zig_gpt2_tpu/ops/sampling_kernel.py:37",
         "launches": counts["sampler"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    return entries
+
+
+def qmm_work(qw, scale, int4: bool, rows: int, x_bytes: int):
+    """(bytes, operations) of one qmm call: the weight, its scales, x and
+    the f32 output once each; 2 operations per weight per row (multiply,
+    add) and, for grouped scales, 1 more per weight (the dequant multiply)."""
+    kp, n = qw.shape
+    k = kp * (2 if int4 else 1)
+    nbytes = qw.numel() + scale.numel() * 4 + rows * k * x_bytes + rows * n * 4
+    nops = 2 * rows * k * n + (k * n if scale.shape[0] > 1 else 0)
+    return nbytes, nops
+
+
+def time_quant_kernels(att, ops, qk, quantize, params, torch, counts, card: str):
+    import torch.nn.functional as F
+
+    entries = []
+    # INT8 attention: B=1, 1.5B shapes, len 1023 old rows, rotating over the
+    # 48 layers (the int8 cache is 157 MB, more than L2). The yardstick is
+    # SDPA over the same cache dequantized ahead of time (f32 rows times
+    # their scales, cast to q's dtype): it reads 2x or 4x the bytes.
+    L, B, H, S, D, n = 48, 1, 25, 1024, 64, 1023
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = int8_attention_inputs(ops, torch, g, L, B, H, S, D, dtype)
+        q, kn, ksn, vn, vsn, kc, ks, vc, vs = args
+        length = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        err = max_err(att.decode_attention_quant_deferred(*args, length, layer=0),
+                      att.decode_attention_quant_deferred_plain(*args, length, layer=0))
+        ms = time_ms(lambda i: att.decode_attention_quant_deferred(
+            *args[:5], kc, ks, vc, vs, length, layer=i % L), 480)
+        plain_ms = time_ms(lambda i: att.decode_attention_quant_deferred_plain(
+            *args[:5], kc, ks, vc, vs, length, layer=i % L), 48)
+        kd = (kc[:, :, :, :n + 1].float() * ks[..., :n + 1, None]).to(dtype)
+        vd = (vc[:, :, :, :n + 1].float() * vs[..., :n + 1, None]).to(dtype)
+        q4 = q[:, :, None, :]
+        lib_ms = time_ms(lambda i: F.scaled_dot_product_attention(q4, kd[i % L], vd[i % L]),
+                         480)
+        del kd, vd
+        qsz = q.element_size()
+        nbytes = (2 * B * H * n * D + 2 * B * H * n * 4  # int8 rows and their scales
+                  + 2 * B * H * D * qsz + 2 * B * H * D + 2 * B * H * 4 + 4 * B)
+        bms, by = bound_ms(nbytes, (4 * D + 4) * B * H * (n + 1))
+        log(f"time attention-int8 {dtype} B={B} H={H} len={n}: kernel {ms * 1e3:.2f} us, "
+            f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, "
+            f"sdpa over a pre-dequantized {dtype} cache {lib_ms * 1e3:.2f} us, "
+            f"max_abs_err={err:.3e} ({card})")
+        if dtype == torch.bfloat16:
+            entries.append({
+                "name": "decode_attention_quant_deferred", "route": "cuda",
+                "source": "zig_gpt2_tpu_torch/ops/csrc/decode_attention.cu",
+                "replaces": "zig_gpt2_tpu/ops/attention.py:928",
+                "launches": counts["attention_int8"], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": lib_ms})
+        del args, kc, vc, ks, vs
+
+    # qmm at B=1 (rows 1), bf16 activations as served, per linear shape,
+    # rotating over the 48 layers so that the weights come from HBM (the
+    # lm_head alone is 80 MB). The yardstick is torch.matmul on the same
+    # weights dequantized ahead of time to bf16: it reads 4x the INT4 bytes.
+    g = torch.Generator(device="cuda").manual_seed(8)
+    L = params["blocks"]["attn"]["wq"]["scale"].shape[0]
+    shapes = [("attn.wq/wk/wv/c_proj", [linears(params, i)[0][1:] for i in range(L)]),
+              ("mlp.c_fc", [linears(params, i)[4][1:] for i in range(L)]),
+              ("mlp.c_proj", [linears(params, i)[5][1:] for i in range(L)]),
+              ("lm_head", [linears(params, None)[0][1:]])]
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    errs = []
+    for label, layers in shapes:
+        qw, scale, int4 = layers[0]
+        k = qw.shape[0] * (2 if int4 else 1)
+        x = torch.randn(1, k, device="cuda", generator=g).to(torch.bfloat16)
+        dq = [quantize.dequantize_linear({"qw4" if i4 else "qw": w, "scale": s},
+                                         torch.bfloat16)["w"] for w, s, i4 in layers]
+        errs.append(max_err(qk.qmm(x, qw, scale, int4=int4),
+                            qk.qmm_plain(x, qw, scale, int4=int4)))
+        nl = len(layers)
+        ms = time_ms(lambda i: qk.qmm(x, *layers[i % nl][:2], int4=int4), max(8 * nl, 64))
+        plain_ms = time_ms(lambda i: qk.qmm_plain(x, *layers[i % nl][:2], int4=int4),
+                           max(2 * nl, 8))
+        lib_ms = time_ms(lambda i: torch.matmul(x, dq[i % nl]), max(8 * nl, 64))
+        nbytes, nops = qmm_work(qw, scale, int4, 1, x.element_size())
+        bms, by = bound_ms(nbytes, nops)
+        log(f"time qmm {label} K={k} N={qw.shape[1]} {'int4' if int4 else 'int8'} "
+            f"groups={scale.shape[0]} B=1 bf16: kernel {ms * 1e3:.2f} us, "
+            f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, "
+            f"torch.matmul on a pre-dequantized bf16 weight {lib_ms * 1e3:.2f} us, "
+            f"max_abs_err={errs[-1]:.3e} ({card})")
+        calls = 4 * L if label.startswith("attn") else (L if label.startswith("mlp") else 1)
+        step["ms"] += calls * ms
+        step["plain_ms"] += calls * plain_ms
+        step["library_ms"] += calls * lib_ms
+        step["bytes"] += calls * nbytes
+        step["ops"] += calls * nops
+        del dq
+    bms, by = bound_ms(step["bytes"], step["ops"])
+    log(f"time qmm per decode step (289 calls, B=1, bf16): kernel {step['ms']:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
+        f"torch.matmul on pre-dequantized bf16 weights {step['library_ms']:.4f} ms ({card})")
+    entries.append({
+        "name": "qmm", "route": "cuda", "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
+        "replaces": "zig_gpt2_tpu/quant/kernels.py:256", "launches": counts["qmm"],
+        "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]})
     return entries
 
 
@@ -354,34 +703,68 @@ def main() -> int:
         from zig_gpt2_tpu_torch.models import gpt2
         from zig_gpt2_tpu_torch.ops import _build
         from zig_gpt2_tpu_torch.ops import attention as att
+        from zig_gpt2_tpu_torch.ops import layers as ops
         from zig_gpt2_tpu_torch.ops import sampling_kernel as sk
+        from zig_gpt2_tpu_torch.quant import kernels as qk
+        from zig_gpt2_tpu_torch.quant import quantize
         from zig_gpt2_tpu_torch.runtime import engine as engine_mod
         from zig_gpt2_tpu_torch.runtime import sampling
     except ImportError as e:
         return fail(f"the zig_gpt2_tpu_torch package is not importable: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    pkg = (config_mod, gpt2, engine_mod, att, sk, qk, weights, quantize)
 
     card = card_line()
     log(f"phase device: {torch.cuda.get_device_name(0)}; card: {card}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t_phase = time.perf_counter()
+
+    def phase(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"phase {name} (previous phase {now - t_phase:.1f} s)")
+        t_phase = now
+
     try:
         lib, secs, build_log = _build.build()
         log(f"phase build: {secs:.1f} s -> {lib.name}")
         for line in build_log.splitlines():
             if "registers" in line:
                 log(f"  ptxas: {line.split(':', 1)[1].strip()}")
-        log("phase attention: kernel vs plain at 124M shapes")
+        phase("attention: float kernel vs plain at 124M shapes")
         check_attention(att, torch)
-        log("phase sampler: kernel vs plain, B=4 V=50257")
+        phase("attention-int8: INT8-cache kernel vs plain at 1.5B shapes")
+        check_attention_int8(att, ops, torch)
+        phase("sampler: kernel vs plain, B=4 V=50257")
         check_sampler(sk, sampling, torch)
-        log("phase serve: GPT-2 124M full width on InferenceEngine(device='cuda')")
-        counts, engine, ids = serve((config_mod, gpt2, engine_mod, tok, att, sk, weights),
-                                    torch, card)
-        log("phase trace: torch.profiler over 32 decode steps of the main path")
-        trace_decode(gpt2, sampling, engine, ids, torch, card)
-        log("phase times")
-        entries = time_kernels(att, sk, sampling, torch, counts, card)
+        vocab, merges = tok.train_bpe(DEMO_TEXT, vocab_size=512)
+        encoder = tok.Encoder(vocab, merges)
+        phase("serve: GPT-2 124M full width on InferenceEngine(device='cuda')")
+        counts_124m, engine, ids = serve(pkg, torch, encoder, card)
+        phase("trace: torch.profiler over 32 decode steps of the 124M path")
+        trace_decode(gpt2, sampling, engine, ids, torch,
+                     {"model": "124M", "weights": "float32", "kv_cache": "float32"}, card)
+        del engine
+        phase("qmm: dequant-GEMV kernel vs plain on the 1.5B INT4 weights")
+        config_1p5b, params_1p5b = build_1p5b(config_mod, gpt2, quantize, encoder, torch)
+        check_qmm(qk, params_1p5b, torch)
+        phase("serve-1.5B: GPT-2 1.5B INT4 + INT8 KV on "
+              "InferenceEngine(kv_quant='int8', device='cuda')")
+        counts_1p5b, engine, ids = serve_1p5b(pkg, torch, encoder, config_1p5b,
+                                              params_1p5b, card)
+        phase("trace-1.5B: torch.profiler over 32 decode steps of the 1.5B path")
+        trace_decode(gpt2, sampling, engine, ids, torch,
+                     {"model": "1558M", "weights": "INT4 (lm_head INT8), bf16 activations",
+                      "kv_cache": "int8"}, card)
+        del engine
+        phase("times")
+        counts = {k: counts_124m[k] + counts_1p5b[k] for k in counts_124m}
+        log(f"launches on the main paths (124M + 1.5B serve phases): {counts}")
+        entries = time_float_kernels(att, sk, torch, counts, card)
+        entries += time_quant_kernels(att, ops, qk, quantize, params_1p5b, torch, counts,
+                                      card)
+        phase("done")
     except Exception as e:  # a failed phase ends the run with its traceback
         import traceback
 

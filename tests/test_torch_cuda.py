@@ -6,9 +6,12 @@ PyTorch, without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: attention f32 atol/rtol 2e-5 (the same f32 online softmax in
-another order), bf16 one bf16 ulp (rtol 8e-3, atol 1e-4: kernel and plain
-version each round one f32 result to bf16 once); sampler ids identical.
+Tolerances: attention, float or INT8 cache, f32 atol/rtol 2e-5 (the same
+f32 online softmax in another order), bf16 one bf16 ulp (rtol 8e-3, atol
+1e-4: kernel and plain version each round one f32 result to bf16 once);
+qmm atol/rtol 2e-5 for f32 and bf16 activations alike (f32 sums in another
+order; a bf16 x times a bf16 or int8 weight is exact in f32); sampler ids
+identical.
 """
 
 import numpy as np
@@ -19,7 +22,10 @@ from zig_gpt2_tpu_torch import config as tconfig
 from zig_gpt2_tpu_torch.config import SamplingConfig
 from zig_gpt2_tpu_torch.models import gpt2
 from zig_gpt2_tpu_torch.ops import attention as att
+from zig_gpt2_tpu_torch.ops import layers as ops
 from zig_gpt2_tpu_torch.ops import sampling_kernel as sk
+from zig_gpt2_tpu_torch.quant import kernels as qk
+from zig_gpt2_tpu_torch.quant import quantize as quant
 from zig_gpt2_tpu_torch.runtime.engine import InferenceEngine
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +81,83 @@ def test_attention_wrapper_validates(dev):
         att.decode_attention_deferred(q, q, q, kc, kc, length.cpu(), layer=0)
 
 
+def _quant_attention_inputs(dev, g, L, B, H, S, D, dtype):
+    kc, vc = (torch.randint(-127, 128, (L, B, H, S, D), device=dev, generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(L, B, H, S, device=dev, generator=g) * 0.02 + 1e-3
+              for _ in range(2))
+    (kn, ksn), (vn, vsn) = (ops.quantize_kv(torch.randn(B, H, D, device=dev, generator=g))
+                            for _ in range(2))
+    q = torch.randn(B, H, D, device=dev, generator=g).to(dtype)
+    return [q, kn, ksn, vn, vsn, kc, ks, vc, vs]
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_attention_kernel_matches_plain(dev, D, dtype):
+    g = torch.Generator(device=dev).manual_seed(D + 1)
+    args = _quant_attention_inputs(dev, g, 3, 3, 5, 200, D, dtype)
+    length = torch.tensor([0, 65, 200], dtype=torch.int32, device=dev)
+    before = att.decode_attention_quant_deferred.launches
+    got = att.decode_attention_quant_deferred(*args, length, layer=2)
+    want = att.decode_attention_quant_deferred_plain(*args, length, layer=2)
+    assert att.decode_attention_quant_deferred.launches == before + 1
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-4, 8e-3)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert got.dtype == dtype
+
+
+def test_quant_attention_kernel_never_reads_past_length(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    args = _quant_attention_inputs(dev, g, 1, 2, 2, 64, 64, torch.float32)
+    length = torch.tensor([10, 0], dtype=torch.int32, device=dev)
+    clean = att.decode_attention_quant_deferred(*args, length, layer=0)
+    ks, vs = args[6], args[8]
+    ks[0, 0, :, 10:] = float("nan")
+    vs[0, :, :, 10:] = float("nan")
+    ks[0, 1] = float("nan")
+    assert torch.equal(att.decode_attention_quant_deferred(*args, length, layer=0), clean)
+    torch.testing.assert_close(clean[1], args[3][1].float() * args[4][1][:, None])
+
+
+@pytest.mark.parametrize("rows", [1, 5, 40, 256])
+@pytest.mark.parametrize("mode,k,n,group", [
+    ("int8", 256, 150, None),   # per-channel, ragged N
+    ("int8", 320, 96, 64),      # grouped INT8, K not a power of two
+    ("int4", 1600, 200, None),  # G = 32, K/2 = 800 (1.5B's K)
+    ("int4", 640, 1000, 64),    # K/2 = 320 is not a multiple of G = 64
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qmm_kernel_matches_plain(dev, rows, mode, k, n, group, dtype):
+    g = torch.Generator(device=dev).manual_seed(rows + k)
+    w = torch.randn(k, n, device=dev, generator=g) * 0.05
+    p = quant.quantize_linear({"w": w}, mode, group)
+    qw = p["qw4"] if mode == "int4" else p["qw"]
+    x = torch.randn(rows, k, device=dev, generator=g).to(dtype)
+    before = qk.qmm.launches
+    got = qk.qmm(x, qw, p["scale"], int4=mode == "int4")
+    want = qk.qmm_plain(x, qw, p["scale"], int4=mode == "int4")
+    assert qk.qmm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (rows, n)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_qmm_wrapper_validates(dev):
+    x = torch.zeros(2, 64, device=dev)
+    qw = torch.zeros(64, 8, dtype=torch.int8, device=dev)
+    s = torch.ones(1, 8, device=dev)
+    with pytest.raises(ValueError):
+        qk.qmm(torch.zeros(257, 64, device=dev), qw, s)
+    with pytest.raises(ValueError):
+        qk.qmm(x, qw, s, int4=True)
+    with pytest.raises(ValueError):
+        qk.qmm(x, qw, s.double())
+    with pytest.raises(ValueError):
+        qk.qmm(x, qw.t().contiguous().t(), s)
+    with pytest.raises(ValueError):
+        qk.qmm(x, qw.cpu(), s)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("V", [7, 1000, 50257])
 def test_sampler_kernel_matches_plain(dev, dtype, V):
@@ -112,3 +195,23 @@ def test_engine_cuda_greedy_matches_cpu(dev):
     np.testing.assert_array_equal(
         gpu.generate_scan(np.array([[1, 2, 3, 0]]), [3], 5, SamplingConfig(temperature=0.0)),
         cpu.generate_scan(np.array([[1, 2, 3, 0]]), [3], 5, SamplingConfig(temperature=0.0)))
+
+
+def test_engine_cuda_int4_int8kv_greedy_matches_cpu(dev):
+    cfg = tconfig.GPT2_NANO
+    params = quant.quantize_params(gpt2.init_params(cfg, torch.Generator().manual_seed(7)),
+                                   "int4")
+    kw = dict(max_seq=48, prompt_buckets=(8,), kv_quant="int8")
+    cpu = InferenceEngine(cfg, params, device="cpu", **kw)
+    gpu = InferenceEngine(cfg, params, device="cuda", **kw)
+    before = (qk.qmm.launches, att.decode_attention_quant_deferred.launches,
+              att.decode_attention_deferred.launches)
+    want = cpu.generate([1, 2, 3, 4], 16, SamplingConfig(temperature=0.0))
+    got = gpu.generate([1, 2, 3, 4], 16, SamplingConfig(temperature=0.0))
+    assert got == want
+    after = (qk.qmm.launches, att.decode_attention_quant_deferred.launches,
+             att.decode_attention_deferred.launches)
+    per_pass = 6 * cfg.n_layers + 1  # block linears + the lm_head
+    assert after[0] - before[0] == per_pass * (16 + 1)
+    assert after[1] - before[1] == cfg.n_layers * 16
+    assert after[2] == before[2]

@@ -14,6 +14,7 @@ import torch
 from tests.tolerance import assert_tensors_close
 from zig_gpt2_tpu.config import GPT2_NANO, SamplingConfig as JSampling
 from zig_gpt2_tpu.models import gpt2 as jgpt2
+from zig_gpt2_tpu.quant import quantize as jquant
 from zig_gpt2_tpu.runtime.engine import InferenceEngine as JEngine
 from zig_gpt2_tpu.tokenizer import Encoder as JEncoder
 from zig_gpt2_tpu.tokenizer import train_bpe as jtrain_bpe
@@ -21,6 +22,7 @@ from zig_gpt2_tpu.utils import io as jio
 from zig_gpt2_tpu_torch import cli as tcli
 from zig_gpt2_tpu_torch import config as tconfig
 from zig_gpt2_tpu_torch.config import SamplingConfig
+from zig_gpt2_tpu_torch.quant import quantize as tquant
 from zig_gpt2_tpu_torch.runtime.engine import InferenceEngine, StreamDecoder
 from zig_gpt2_tpu_torch.tokenizer import Encoder, train_bpe
 from zig_gpt2_tpu_torch.utils import io as tio
@@ -55,6 +57,25 @@ def test_greedy_tokens_identical_to_jax(engines, prompt):
     want = jeng.generate(prompt, 12, JSampling(temperature=0.0))
     got = teng.generate(prompt, 12, SamplingConfig(temperature=0.0))
     assert got == want
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+def test_quantized_greedy_tokens_identical_to_jax(monkeypatch, nano_params, mode):
+    """INT4 or INT8 weights with an INT8 KV cache. The JAX engine runs the
+    deferred Pallas kernel in interpret mode (ZG2_FUSED_ATTN=interpret),
+    whose all-f32 INT8 attention the port follows; nano's head_dim of 32
+    keeps the JAX engine on the unpacked layout."""
+    monkeypatch.setenv("ZG2_FUSED_ATTN", "interpret")
+    jp, tp = nano_params
+    jeng = JEngine(GPT2_NANO, jquant.quantize_params(jp, mode), max_seq=32,
+                   prompt_buckets=(8,), kv_quant="int8")
+    assert not jeng.config.kv_packed
+    teng = InferenceEngine(TCFG, tquant.quantize_params(tp, mode), max_seq=32,
+                           prompt_buckets=(8,), device="cpu", kv_quant="int8")
+    assert teng.new_cache()["k"].dtype == torch.int8
+    for prompt in ([1, 2, 3, 4], [100, 7]):
+        want = jeng.generate(prompt, 12, JSampling(temperature=0.0))
+        assert teng.generate(prompt, 12, SamplingConfig(temperature=0.0)) == want
 
 
 def test_context_budget_and_stop(engines):
@@ -93,8 +114,10 @@ def test_generate_scan_matches_streaming(engines):
 
 def test_engine_refuses_unported_options(nano_params):
     _, tp = nano_params
+    with pytest.raises(ValueError, match="KV quantization"):
+        InferenceEngine(TCFG, tp, kv_quant="int4", device="cpu")
     with pytest.raises(TypeError):
-        InferenceEngine(TCFG, tp, kv_quant="int8", device="cpu")
+        InferenceEngine(TCFG, tp, mesh="1x2", device="cpu")
     with pytest.raises(NotImplementedError):
         InferenceEngine(TCFG, tp, device="cpu").register_prefix([1, 2])
 
@@ -161,11 +184,21 @@ def test_cli_demo_cpu(capsys):
     assert '"generated_tokens": 6' in err and '"device": "cpu"' in err
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--kv-quant"], ["--mesh", "1x2"],
-                                  ["--batch-file", "x"], ["--draft-model", "ngram"]])
+@pytest.mark.parametrize("flag", [["--quant", "w8a8"], ["--quant", "w8a8", "--kv-quant"],
+                                  ["--mesh", "1x2"], ["--batch-file", "x"],
+                                  ["--draft-model", "ngram"]])
 def test_cli_refuses_later_slices(flag):
     with pytest.raises(SystemExit, match="not in the PyTorch port yet"):
         tcli.main(["--demo", "--device", "cpu", *flag, "hi"])
+
+
+def test_cli_demo_quantized_cpu(capsys):
+    """--quant int4 --kv-quant: INT4 weights, INT8 lm_head and KV cache."""
+    tcli.main(["--demo", "--device", "cpu", "--quant", "int4", "--kv-quant",
+               "--max-tokens", "6", "--temp", "0", "--metrics", "the quick"])
+    out, err = capsys.readouterr()
+    assert out.startswith("the quick")
+    assert '"generated_tokens": 6' in err
 
 
 def test_port_imports_no_jax():

@@ -1,9 +1,13 @@
 """The PyTorch port's GPT-2 model against the JAX package on the same
-weights (CPU, nano/micro configs, f32).
+weights (CPU, nano/micro configs, f32), float and INT8/INT4 weights with a
+float or INT8 KV cache.
 
 Tolerance: ``tests.tolerance.assert_logits_close`` (atol 1e-4, rtol 2e-3),
 the repo's end-to-end logits gate: torch's and XLA's CPU matmuls reduce in
-different orders, so bit equality is not expected.
+different orders, so bit equality is not expected. For the INT8 cache the
+JAX model runs under ``ZG2_FUSED_ATTN=interpret``, so that it takes the
+deferred Pallas kernel (all f32, which the port follows) and not the jnp
+reference, which rounds q and p * v_scale to bf16.
 """
 
 import jax
@@ -15,8 +19,10 @@ import torch
 from tests.tolerance import assert_logits_close
 from zig_gpt2_tpu.config import GPT2_MICRO, GPT2_NANO, GPTConfig
 from zig_gpt2_tpu.models import gpt2 as jgpt2
+from zig_gpt2_tpu.quant import quantize as jquant
 from zig_gpt2_tpu_torch import config as tconfig
 from zig_gpt2_tpu_torch.models import gpt2 as tgpt2
+from zig_gpt2_tpu_torch.quant import quantize as tquant
 from zig_gpt2_tpu_torch.weights import params_from_numpy, params_to_numpy
 
 
@@ -107,6 +113,40 @@ def test_prefill_and_decode_match_jax():
         assert_logits_close(tc["v"][:, b, :, :n].numpy(), np.asarray(jc["v"])[:, b, :, :n])
 
 
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+@pytest.mark.parametrize("cfg", [GPT2_NANO, GPT2_MICRO], ids=["nano", "micro"])
+def test_quantized_prefill_and_decode_match_jax(monkeypatch, cfg, mode):
+    """Weights quantized by each package from the same float tree, an INT8
+    KV cache: bucket-padded prefill of two prompts, then three decode
+    steps. Logits match step by step; the valid cache rows' scales match
+    and their int8 values differ by at most one step (a value that lands
+    on a rounding boundary in one package's f32 and not the other's)."""
+    monkeypatch.setenv("ZG2_FUSED_ATTN", "interpret")
+    jp, tp, tcfg = _both(cfg)
+    jp, tp = jquant.quantize_params(jp, mode), tquant.quantize_params(tp, mode)
+    rng = np.random.default_rng(4)
+    T, lengths = 16, np.array([5, 11], np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (2, T)).astype(np.int32)
+    jc = jgpt2.init_kv_cache(cfg, 2, 32, quant="int8")
+    tc = tgpt2.init_kv_cache(tcfg, 2, 32, quant="int8")
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1]) for k, v in tc.items()} == \
+        {k: (tuple(v.shape), str(v.dtype)) for k, v in jc.items()}
+    jc, jl = jgpt2.prefill(jp, jc, jnp.asarray(toks), jnp.asarray(lengths), cfg)
+    tc, tl = tgpt2.prefill(tp, tc, torch.from_numpy(toks), torch.from_numpy(lengths), tcfg)
+    assert_logits_close(tl.numpy(), np.asarray(jl), msg="prefill")
+    for step in range(3):
+        nxt = rng.integers(0, cfg.vocab_size, (2,)).astype(np.int32)
+        jc, jl = jgpt2.decode_step(jp, jc, jnp.asarray(nxt), cfg)
+        tc, tl = tgpt2.decode_step(tp, tc, torch.from_numpy(nxt), tcfg)
+        assert_logits_close(tl.numpy(), np.asarray(jl), msg=f"step {step}")
+    for b, n in enumerate(np.asarray(jc["length"])):
+        for name in ("k", "v"):
+            got, want = tc[name][:, b, :, :n].numpy(), np.asarray(jc[name])[:, b, :, :n]
+            assert np.abs(got.astype(np.int32) - want).max() <= 1, name
+            assert_logits_close(tc[name + "_scale"][:, b, :, :n].numpy(),
+                                np.asarray(jc[name + "_scale"])[:, b, :, :n])
+
+
 def test_prefill_decode_equals_forward():
     """Prefill of a prefix then one decode step per remaining token gives
     the full forward's logits at every position (the port alone)."""
@@ -140,6 +180,10 @@ def test_unported_cache_layouts_raise():
                             n_heads=2, n_embed=64, kv_packed=True)
     with pytest.raises(NotImplementedError):
         tgpt2.init_kv_cache(cfg)
+    with pytest.raises(NotImplementedError):
+        tgpt2.init_kv_cache(cfg, quant="int8")
+    with pytest.raises(ValueError):
+        tgpt2.init_kv_cache(tconfig.GPT2_NANO, quant="int4")
 
 
 def test_init_params_seeded():

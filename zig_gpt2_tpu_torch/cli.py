@@ -2,11 +2,13 @@
 
 Same interface and defaults as ``zig_gpt2_tpu.cli`` (temperature 0.8,
 running to the end of the context window), for what this port serves:
-float GPT-2 on one device, single prompt, streamed to stdout.
+GPT-2 on one device, float or INT8/INT4 weights (``--quant``), float or
+INT8 KV cache (``--kv-quant``), single prompt, streamed to stdout.
 
 Examples::
 
     python -m zig_gpt2_tpu_torch.cli --demo "the quick brown"
+    python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo "the quick"
     python -m zig_gpt2_tpu_torch.cli --model 124M --weights models/124M/raw \\
         --encoder-dir models/124M "Hello, my name is"
 """
@@ -14,6 +16,7 @@ Examples::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -21,8 +24,6 @@ from pathlib import Path
 # Options of the JAX CLI that this port does not serve yet, with the slice
 # of the port that brings each.
 _LATER = {
-    "quant": "INT8/INT4 weights come with slice 2 (1.5B INT4 + INT8 KV)",
-    "kv_quant": "the INT8 KV cache comes with slice 2 (1.5B INT4 + INT8 KV)",
     "mesh": "tensor-parallel serving comes with the multi-GPU slice",
     "batch_file": "continuous batching comes with the batcher slice",
     "draft_model": "speculative decoding comes with the extend/speculation slice",
@@ -33,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="zig-gpt2-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("prompt", nargs="?", default=None, help="prompt text")
-    p.add_argument("--model", default="124M", help="config name: 124M/355M/774M/1558M/nano/micro")
+    p.add_argument("--model", default=None,
+                   help="config name: 124M/355M/774M/1558M/nano/micro (default 124M)")
     p.add_argument("--weights", default=None, help="raw checkpoint dir (e.g. models/124M/raw)")
     p.add_argument("--encoder-dir", default=None, help="dir holding encoder.json + vocab.bpe")
     p.add_argument("--dtype", default="bf16", choices=["fp32", "bf16"], help="weight/activation dtype")
@@ -48,10 +50,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop token: an id, or 'eos' for <|endoftext|>")
     p.add_argument("--metrics", action="store_true", help="print timing metrics to stderr")
     p.add_argument("--demo", action="store_true",
-                   help="random tiny model + tokenizer trained on the fly (no weights needed)")
+                   help="random weights + a tokenizer trained on the fly (no files "
+                        "needed): a tiny model, or --model's shape when given")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("--quant", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--kv-quant", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--quant", default=None, choices=["int8", "int4", "w8a8"],
+                   help="weight-only INT8 (per-channel) or INT4 (grouped); the lm_head is INT8")
+    p.add_argument("--kv-quant", action="store_true", help="INT8 KV cache")
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     p.add_argument("--batch-file", default=None, help=argparse.SUPPRESS)
     p.add_argument("--draft-model", default=None, help=argparse.SUPPRESS)
@@ -61,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _load_encoder(args):
     from zig_gpt2_tpu_torch.tokenizer import Encoder
 
-    d = Path(args.encoder_dir or f"models/{args.model}")
+    d = Path(args.encoder_dir or f"models/{args.model or '124M'}")
     enc_json, bpe = d / "encoder.json", d / "vocab.bpe"
     if not enc_json.exists():
         sys.exit(f"error: {enc_json} not found (use --demo for a self-contained run)")
@@ -74,6 +78,9 @@ def main(argv=None) -> None:
     for name, why in _LATER.items():
         if getattr(args, name):
             sys.exit(f"error: --{name.replace('_', '-')} is not in the PyTorch port yet: {why}")
+    if args.quant == "w8a8":
+        sys.exit("error: --quant w8a8 is not in the PyTorch port yet: the w8a8 "
+                 "variant of the qmm kernel comes with a later slice")
     if args.prompt is None:
         sys.exit('error: missing prompt (usage: zig-gpt2-torch "<prompt>")')
 
@@ -100,21 +107,30 @@ def main(argv=None) -> None:
         ) * 4 + args.prompt
         vocab, merges = train_bpe(demo_text, vocab_size=320)
         encoder = Encoder(vocab, merges)
-        config = GPTConfig(vocab_size=len(vocab), context_size=256,
-                           n_layers=2, n_heads=4, n_embed=128)
+        if args.model is None:
+            config = GPTConfig(vocab_size=len(vocab), context_size=256,
+                               n_layers=2, n_heads=4, n_embed=128)
+        else:  # the named shape; vocab rows past the tokenizer's are masked
+            full = get_config(args.model)
+            config = dataclasses.replace(full, vocab_size=len(vocab),
+                                         padded_vocab_size=full.vocab_rows)
         gen = torch.Generator(device=args.device).manual_seed(args.seed)
         params = gpt2.init_params(config, gen, dtype)
     else:
-        config = get_config(args.model)
+        config = get_config(args.model or "124M")
         encoder = _load_encoder(args)
         if args.weights is None:
             sys.exit("error: --weights required (or use --demo)")
         if str(args.weights).endswith(".npz"):
-            sys.exit("error: .npz checkpoints come with slice 2 of the port; "
+            sys.exit("error: .npz checkpoints come with a later slice of the port; "
                      "pass a raw checkpoint directory")
         from zig_gpt2_tpu_torch.utils import io as zio
 
         params = zio.load_gpt2_raw(args.weights, config, dtype=dtype, device=args.device)
+    if args.quant:
+        from zig_gpt2_tpu_torch.quant.quantize import quantize_params
+
+        params = quantize_params(params, mode=args.quant)
 
     sampling = SamplingConfig(temperature=args.temp, top_k=args.top_k,
                               top_p=args.top_p, seed=args.seed)
@@ -129,7 +145,8 @@ def main(argv=None) -> None:
             stop_tokens = [int(args.stop)]
 
     engine = InferenceEngine(config, params, encoder, max_seq=args.max_seq,
-                             device=args.device)
+                             device=args.device,
+                             kv_quant="int8" if args.kv_quant else None)
     metrics = GenerationMetrics()
     print(args.prompt, end="", flush=True)
     engine.generate_text(args.prompt, args.max_tokens, sampling, stream_to=sys.stdout,

@@ -1,21 +1,28 @@
 """GPT-2 as plain functions over a dict of stacked parameter tensors.
 
-Counterpart of ``zig_gpt2_tpu.models.gpt2``, main serving path, float
-weights:
+Counterpart of ``zig_gpt2_tpu.models.gpt2``, main serving path, float or
+INT8/INT4 weights, float or INT8 KV cache:
 
 - Parameters mirror the JAX pytree: every per-block leaf carries a leading
   ``n_layers`` axis, linears are ``(in, out)``, Q/K/V are separate. The
   layer loop is a Python loop over views ``w[idx]`` (no copies).
 - The KV cache is ``{"k", "v": (L, B, H, S, D), "length": (B,) int32}``,
-  unpacked. ``prefill`` and ``decode_step`` update it IN PLACE and return
-  the same dict: the PyTorch analogue of the JAX package donating the
-  cache to jit. A caller that needs the old cache must clone it first.
+  unpacked; an INT8 cache (``init_kv_cache(quant="int8")``) holds int8
+  ``k``/``v`` and f32 per-(token, head) scale planes ``k_scale``/``v_scale``
+  (L, B, H, S). ``prefill`` and ``decode_step`` update it IN PLACE and
+  return the same dict: the PyTorch analogue of the JAX package donating
+  the cache to jit. A caller that needs the old cache must clone it first.
 - ``decode_step`` runs the deferred order of the JAX kernel path: each
   layer attends over the ``length`` old rows plus the current token's K/V
-  as a self-term (``ops.attention.decode_attention_deferred``: the CUDA
-  kernel on the card, its plain version on the CPU), then appends the row.
-  The kernel never reads the row it appends.
-- The lm_head is tied to wte and runs only on the positions that need
+  as a self-term (``ops.attention.decode_attention_deferred``, or
+  ``decode_attention_quant_deferred`` over the current rows already
+  quantized: the CUDA kernel on the card, its plain version on the CPU),
+  then appends the row. The kernel never reads the row it appends.
+- A linear stored quantized (``quant.quantize``) runs ``quantized_linear``
+  (the dequant-GEMV kernel ``qmm`` up to 256 rows); the layer loop passes
+  it the views ``qw[idx]``/``scale[idx]``, which copy nothing.
+- The lm_head is tied to wte unless ``params["lm_head"]`` exists (the
+  quantized tree unties it), and runs only on the positions that need
   logits; padded vocab rows are masked.
 """
 
@@ -27,7 +34,9 @@ import torch
 
 from zig_gpt2_tpu_torch.config import GPTConfig
 from zig_gpt2_tpu_torch.ops import layers as ops
-from zig_gpt2_tpu_torch.ops.attention import decode_attention_deferred
+from zig_gpt2_tpu_torch.ops.attention import (decode_attention_deferred,
+                                              decode_attention_quant_deferred)
+from zig_gpt2_tpu_torch.quant.quantize import is_quantized, quantized_linear
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -80,19 +89,28 @@ def init_params(config: GPTConfig, generator: torch.Generator,
 def init_kv_cache(config: GPTConfig, batch_size: int = 1,
                   max_seq: Optional[int] = None,
                   dtype: torch.dtype = torch.float32,
-                  device="cpu") -> KVCache:
-    """Preallocate the fixed-shape float KV cache, unpacked layout."""
+                  device="cpu", quant: Optional[str] = None) -> KVCache:
+    """Preallocate the fixed-shape KV cache, unpacked layout: float in
+    ``dtype``, or with ``quant="int8"`` int8 rows with f32 per-(token,
+    head) scale planes (``dtype`` is then unused)."""
     if config.kv_packed or config.ring_cache:
         raise NotImplementedError("packed and ring KV caches are not ported "
-                                  "(packed comes with the INT8 cache slice, "
-                                  "ring with the batcher slice)")
+                                  "(packed, with its per-pair INT8 scales, and "
+                                  "ring come with later slices)")
+    if quant not in (None, "int8"):
+        raise ValueError(f"unknown KV quantization {quant!r}")
     max_seq = max_seq or config.context_size
     shape = (config.n_layers, batch_size, config.attn_heads, max_seq, config.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "length": torch.zeros((batch_size,), dtype=torch.int32, device=device),
-    }
+    cache = {"length": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
+    if quant == "int8":
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[name + "_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                                 device=device)
+    else:
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -100,9 +118,9 @@ def init_kv_cache(config: GPTConfig, batch_size: int = 1,
 # ---------------------------------------------------------------------------
 
 def _linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Apply one (already layer-sliced) float linear."""
-    if "qw" in p or "qw4" in p:
-        raise NotImplementedError("quantized weights come with the INT8/INT4 slice")
+    """Apply one (already layer-sliced) linear, float or quantized."""
+    if is_quantized(p):
+        return quantized_linear(p, x)
     return ops.linear(x, p["w"], p.get("b"))
 
 
@@ -141,9 +159,10 @@ def _block_prefill(x: torch.Tensor, bp: Params, config: GPTConfig,
 def _put_row_stacked(stack: torch.Tensor, row: torch.Tensor, idx: int,
                      pos: torch.Tensor) -> None:
     """Write (B, H, D) rows into the stacked (L, B, H, S, D) cache at
-    (idx, b, :, pos[b], :), in place, with one indexed assignment."""
+    (idx, b, :, pos[b], :), or (B, H) scales into a stacked (L, B, H, S)
+    plane at (idx, b, :, pos[b]), in place, with one indexed assignment."""
     lanes = torch.arange(row.shape[0], device=stack.device)
-    stack[idx, lanes, :, pos.long(), :] = row.to(stack.dtype)
+    stack[idx, lanes, :, pos.long()] = row.to(stack.dtype)
 
 
 def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
@@ -154,10 +173,18 @@ def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
     bp = _layer(blocks, idx)
     h = ops.layer_norm(x, bp["ln_1"]["w"], bp["ln_1"]["b"], config.layer_norm_eps)
     q, k, v = _qkv(bp["attn"], h, config.attn_heads)  # (B, H, D)
-    attn = decode_attention_deferred(q, k, v, caches["k"], caches["v"], pos,
-                                     layer=idx)
-    _put_row_stacked(caches["k"], k, idx, pos)
-    _put_row_stacked(caches["v"], v, idx, pos)
+    if "k_scale" in caches:  # INT8 cache: quantize, attend, then append
+        (kq, ks), (vq, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
+        attn = decode_attention_quant_deferred(
+            q, kq, ks, vq, vs, caches["k"], caches["k_scale"], caches["v"],
+            caches["v_scale"], pos, layer=idx)
+        for name, row in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
+            _put_row_stacked(caches[name], row, idx, pos)
+    else:
+        attn = decode_attention_deferred(q, k, v, caches["k"], caches["v"], pos,
+                                         layer=idx)
+        _put_row_stacked(caches["k"], k, idx, pos)
+        _put_row_stacked(caches["v"], v, idx, pos)
     x = x + _linear(bp["attn"]["c_proj"], attn.reshape(x.shape[0], -1))
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
     h = ops.gelu(_linear(bp["mlp"]["c_fc"], h))
@@ -165,11 +192,12 @@ def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
 
 
 def _lm_head(params: Params, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
-    """Tied lm_head, logits = x @ wte^T; padded vocab rows are masked."""
+    """logits = x @ wte^T, or ``params["lm_head"]`` (untied, quantized by
+    ``quantize_params``) when present; padded vocab rows are masked."""
     if "lm_head" in params:
-        raise NotImplementedError("an untied or quantized lm_head comes with "
-                                  "the INT8/INT4 slice")
-    logits = torch.matmul(x, params["wte"].T)
+        logits = _linear(params["lm_head"], x)
+    else:
+        logits = torch.matmul(x, params["wte"].T)
     if config.padded_vocab_size is not None:
         ids = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(ids >= config.vocab_size, ops.MASK_VALUE)
@@ -211,6 +239,10 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
     length_mask = pos[None, :] < lengths[:, None]
     for idx in range(config.n_layers):
         x, k, v = _block_prefill(x, _layer(params["blocks"], idx), config, length_mask)
+        if "k_scale" in cache:  # INT8 cache: quantize on append
+            (k, ks), (v, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
+            cache["k_scale"][idx, :, :, :T] = ks
+            cache["v_scale"][idx, :, :, :T] = vs
         cache["k"][idx, :, :, :T] = k.to(cache["k"].dtype)
         cache["v"][idx, :, :, :T] = v.to(cache["v"].dtype)
     x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)

@@ -1,10 +1,15 @@
-"""Deferred-append decode attention: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Deferred-append decode attention: the CUDA kernel's wrappers and their
+plain PyTorch versions.
 
-Counterpart of ``zig_gpt2_tpu.ops.attention.decode_attention_deferred_fused``
-(float cache, unpacked layout, prefix mask). The kernel is
-``csrc/decode_attention.cu``. A CUDA tensor launches it (or the wrapper
-raises); a CPU tensor runs ``decode_attention_deferred_plain``.
+Counterparts of ``zig_gpt2_tpu.ops.attention.decode_attention_deferred_fused``
+(float cache) and ``decode_attention_quant_deferred_fused`` (INT8 cache),
+unpacked layout, prefix mask. The kernel is ``csrc/decode_attention.cu``,
+one body with the cache type as a template parameter. A CUDA tensor
+launches it (or the wrapper raises); a CPU tensor runs the plain version.
+
+The INT8 variant follows the TPU kernel's all-f32 arithmetic, not the JAX
+package's jnp reference ``ops.layers.decode_attention_quant``, which rounds
+q and p * v_scale to bf16.
 """
 
 from __future__ import annotations
@@ -18,6 +23,26 @@ from zig_gpt2_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _softmax_with_self_term(s_self, scores, v_self, v, valid):
+    """Softmax over {s_self} U {scores[s] : valid[s]} applied to
+    {v_self} U {v[s]}, in f32. s_self (B, H, 1), scores (B, H, S), v_self
+    (B, H, D), v (B, H, S, D) already weighted (rows past length may hold
+    anything: they are masked out of both sums)."""
+    scores = scores.masked_fill(~valid, -math.inf)
+    m = torch.maximum(s_self, scores.amax(-1, keepdim=True))
+    p_self = torch.exp(s_self - m)
+    p = torch.exp(scores - m)  # exactly 0 where masked
+    den = p_self + p.sum(-1, keepdim=True)
+    v = v.masked_fill(~valid[..., None], 0.0)
+    return (p_self * v_self + torch.einsum("bhs,bhsd->bhd", p, v)) / den
+
+
+def _valid(length, rows, device):
+    """(B, 1, S) bool: rows [0, length[b]) of each lane."""
+    return (torch.arange(rows, device=device)[None, :]
+            < length.to(device)[:, None])[:, None, :]
+
+
 def decode_attention_deferred_plain(q, k_new, v_new, k_cache, v_cache, length,
                                     *, layer):
     """The reference's math in plain PyTorch: the self-term seeds the
@@ -27,19 +52,56 @@ def decode_attention_deferred_plain(q, k_new, v_new, k_cache, v_cache, length,
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf = q.float()
     k = k_cache[layer].float()  # (B, H, S, D)
-    v = v_cache[layer].float()
     s_self = (qf * k_new.float()).sum(-1, keepdim=True) * scale  # (B, H, 1)
     scores = torch.einsum("bhd,bhsd->bhs", qf, k) * scale
-    rows = torch.arange(k.shape[-2], device=q.device)
-    valid = (rows[None, :] < length.to(q.device)[:, None])[:, None, :]  # (B, 1, S)
-    scores = scores.masked_fill(~valid, -math.inf)
-    m = torch.maximum(s_self, scores.amax(-1, keepdim=True))
-    p_self = torch.exp(s_self - m)
-    p = torch.exp(scores - m)  # exactly 0 where masked
-    den = p_self + p.sum(-1, keepdim=True)
-    v = v.masked_fill(~valid[..., None], 0.0)
-    acc = p_self * v_new.float() + torch.einsum("bhs,bhsd->bhd", p, v)
-    return (acc / den).to(q.dtype)
+    out = _softmax_with_self_term(s_self, scores, v_new.float(),
+                                  v_cache[layer].float(),
+                                  _valid(length, k.shape[-2], q.device))
+    return out.to(q.dtype)
+
+
+def decode_attention_quant_deferred_plain(q, k_new, ks_new, v_new, vs_new,
+                                          k_cache, k_scale, v_cache, v_scale,
+                                          length, *, layer):
+    """The INT8 kernel's math in plain PyTorch, all in f32: a row's score is
+    (q . k[s]) * scale * k_scale[s], and v_scale[s] weights v[s] only, never
+    the denominator. The self-term is (k_new, ks_new, v_new, vs_new)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.float()
+    k = k_cache[layer].float()  # (B, H, S, D)
+    valid = _valid(length, k.shape[-2], q.device)
+    s_self = ((qf * k_new.float()).sum(-1, keepdim=True) * scale
+              * ks_new.float()[..., None])
+    scores = torch.einsum("bhd,bhsd->bhs", qf, k) * scale * k_scale[layer].float()
+    # Scale planes past length may hold anything (NaN included): zero them
+    # before they weight V, since 0 * NaN is NaN.
+    vs = v_scale[layer].float().masked_fill(~valid, 0.0)
+    v = v_cache[layer].float() * vs[..., None]
+    out = _softmax_with_self_term(s_self, scores, v_new.float() * vs_new.float()[..., None],
+                                  v, valid)
+    return out.to(q.dtype)
+
+
+def _check(q, tensors, length, layer, L):
+    """Shape, device and contiguity checks shared by both wrappers:
+    ``tensors`` is [(name, tensor, expected shape, expected dtype)]."""
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype} (float32 or bfloat16)")
+    for name, t, shape, dtype in tensors + [("length", length, (q.shape[0],),
+                                              torch.int32)]:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    D = q.shape[-1]
+    if D % 32 or not 32 <= D <= 128:
+        raise ValueError(f"head_dim {D} unsupported (32, 64, 96 or 128)")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
 
 
 def decode_attention_deferred(q, k_new, v_new, k_cache, v_cache, length, *,
@@ -57,31 +119,12 @@ def decode_attention_deferred(q, k_new, v_new, k_cache, v_cache, length, *,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_deferred: no kernel for {q.device}")
     L, B, H, S, D = k_cache.shape
-    for name, t, shape in (("q", q, (B, H, D)), ("k_new", k_new, (B, H, D)),
-                           ("v_new", v_new, (B, H, D)),
-                           ("v_cache", v_cache, (L, B, H, S, D)),
-                           ("length", length, (B,))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not (k_cache.is_contiguous() and k_cache.device == q.device):
-        raise ValueError("k_cache must be contiguous and on q's device")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"unsupported dtype {q.dtype} (float32 or bfloat16)")
-    if any(t.dtype != q.dtype for t in (k_new, v_new, k_cache, v_cache)):
-        raise ValueError("q, k_new, v_new and both caches must share a dtype")
-    if length.dtype != torch.int32:
-        raise ValueError("length must be int32")
-    if D % 32 or not 32 <= D <= 128:
-        raise ValueError(f"head_dim {D} unsupported (32, 64, 96 or 128)")
-    if not 0 <= layer < L:
-        raise ValueError(f"layer {layer} out of range [0, {L})")
+    row, cache = ((B, H, D), q.dtype), ((L, B, H, S, D), q.dtype)
+    _check(q, [("q", q, *row), ("k_new", k_new, *row), ("v_new", v_new, *row),
+               ("k_cache", k_cache, *cache), ("v_cache", v_cache, *cache)],
+           length, layer, L)
     out = torch.empty_like(q)
-    lib = _build.library()
-    err = lib.zg2_decode_attention_deferred(
+    err = _build.library().zg2_decode_attention_deferred(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), length.data_ptr(), out.data_ptr(),
         B, H, S, D, int(layer), 1.0 / math.sqrt(D),
@@ -93,3 +136,43 @@ def decode_attention_deferred(q, k_new, v_new, k_cache, v_cache, length, *,
 
 
 decode_attention_deferred.launches = 0
+
+
+def decode_attention_quant_deferred(q, k_new, ks_new, v_new, vs_new, k_cache,
+                                    k_scale, v_cache, v_scale, length, *, layer):
+    """``decode_attention_deferred`` over an INT8 cache.
+
+    q: (B, H, D) float32 or bfloat16; k_new, v_new: (B, H, D) int8, the
+    already-quantized rows that the caller appends next, with (B, H) f32
+    scales ks_new, vs_new; k_cache, v_cache: (L, B, H, S, D) int8 with f32
+    scale planes k_scale, v_scale (L, B, H, S); length: (B,) int32. Returns
+    (B, H, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_quant_deferred_plain(
+            q, k_new, ks_new, v_new, vs_new, k_cache, k_scale, v_cache, v_scale,
+            length, layer=layer)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_quant_deferred: no kernel for {q.device}")
+    L, B, H, S, D = k_cache.shape
+    i8, f32 = torch.int8, torch.float32
+    _check(q, [("q", q, (B, H, D), q.dtype),
+               ("k_new", k_new, (B, H, D), i8), ("ks_new", ks_new, (B, H), f32),
+               ("v_new", v_new, (B, H, D), i8), ("vs_new", vs_new, (B, H), f32),
+               ("k_cache", k_cache, (L, B, H, S, D), i8),
+               ("k_scale", k_scale, (L, B, H, S), f32),
+               ("v_cache", v_cache, (L, B, H, S, D), i8),
+               ("v_scale", v_scale, (L, B, H, S), f32)],
+           length, layer, L)
+    out = torch.empty_like(q)
+    err = _build.library().zg2_decode_attention_quant_deferred(
+        q.data_ptr(), k_new.data_ptr(), ks_new.data_ptr(), v_new.data_ptr(),
+        vs_new.data_ptr(), k_cache.data_ptr(), k_scale.data_ptr(),
+        v_cache.data_ptr(), v_scale.data_ptr(), length.data_ptr(), out.data_ptr(),
+        B, H, S, D, int(layer), 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "decode_attention_quant_deferred")
+    decode_attention_quant_deferred.launches += 1
+    return out
+
+
+decode_attention_quant_deferred.launches = 0

@@ -1,9 +1,11 @@
-// Deferred-append single-query decode attention for Hopper (sm_90a).
+// Deferred-append single-query decode attention for Hopper (sm_90a), over a
+// float cache or an INT8 cache.
 //
 // Replaces: zig_gpt2_tpu/ops/attention.py, decode_attention_deferred_fused
-// (body _build_kernel, float, unpacked, prefix mask). Same contract: q, k_new,
-// v_new (B, H, D); stacked caches (L, B, H, S, D); length (B,) int32; layer
-// index. Output (B, H, D) in q's dtype:
+// and decode_attention_quant_deferred_fused (body _build_kernel, unpacked,
+// prefix mask). Same contract: q, k_new, v_new (B, H, D); stacked caches
+// (L, B, H, S, D); length (B,) int32; layer index. Output (B, H, D) in q's
+// dtype:
 //
 //   softmax over {q.k_new * scale} U {q.k_cache[layer, b, h, s] * scale : s < length[b]}
 //   applied to {v_new} U {v_cache[layer, b, h, s]}
@@ -13,23 +15,36 @@
 // den = 1, acc = v_new). Rows at or past length[b] are never read: they hold
 // stale data and, in the deferred order, the row being appended this step.
 //
+// INT8 cache (QUANT): k_new, v_new and the caches are int8, with f32 scales
+// ks_new, vs_new (B, H) and planes k_scale, v_scale (L, B, H, S) read at the
+// cache's (layer, b, h) offset. Dequantization is folded into the softmax,
+// all in f32: a row's score is (q.k[s]) * scale * k_scale[s]; e = exp(s - m)
+// goes into den, and e * v_scale[s] weights v[s] in acc (V scales never
+// enter the denominator). The self-term seeds m = (q.k_new) * scale * ks_new
+// and acc = v_new * vs_new.
+//
 // Bound on the H100: device-memory bytes. One call reads 2 * B * H * len * D
-// cache elements and does 4 flops per element read, far below the ~20 flops
-// per byte where the f32 (non-tensor) units would become the limit. At GPT-2
-// 124M (H=12, D=64), len 1024, f32: 6.3 MB, 1.9 us at 3.35 TB/s.
+// cache elements (plus 2 * B * H * len scales for INT8) and does about 4
+// flops per element read, far below the ~20 flops per byte where the f32
+// (non-tensor) units would become the limit. At GPT-2 124M (H=12, D=64),
+// len 1024, f32: 6.3 MB, 1.9 us at 3.35 TB/s. At GPT-2 1.5B INT8 (H=25,
+// D=64), len 1023, B=1: 3.3 MB of int8 plus 0.2 MB of scales, 1.0 us.
 //
 // Design against that bound: one block per (b, h) reads its layer slice by
 // pointer offset ((layer * B + b) * H + h) * S * D, so no slice is copied.
 // Eight warps each take tiles of ROWS consecutive rows; a tile's K and V rows
-// are all loaded before any arithmetic so that every warp keeps ROWS row
-// loads in flight, and each lane reads D / 32 neighbouring elements so a
-// warp's row load is one contiguous segment. Each warp keeps its own online
-// softmax state; the eight states are merged once through shared memory.
+// (and scales) are all loaded before any arithmetic so that every warp keeps
+// ROWS row loads in flight, and each lane reads D / 32 neighbouring elements
+// so a warp's row load is one contiguous segment. Each warp keeps its own
+// online softmax state; the eight states are merged once through shared
+// memory.
 //
-// What it leaves to a later PR: at B = 1 the grid is B * H = 12 blocks, so
-// 120 of the 132 SMs idle and one block's latency sets the time. The fix is a
-// split-S flash-decode: several blocks per (b, h), each over a range of rows,
-// and a combine pass over their (m, den, acc) partials.
+// What it leaves to a later PR: the grid is B * H blocks, 12 at 124M and 25
+// at 1.5B for B = 1, so most of the 132 SMs idle and one block's latency
+// sets the time (an INT8 row is 64 bytes, 2 bytes per lane: the loads are
+// narrow too). The fix is a split-S flash-decode: several blocks per
+// (b, h), each over a range of rows, and a combine pass over their
+// (m, den, acc) partials.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -43,6 +58,7 @@ constexpr int kRows = 8;  // rows per warp tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -56,14 +72,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// T: storage type of q, k_new, v_new, the caches and out. DPL: D / 32.
-template <typename T, int DPL>
+// T: type of q and out. C: type of k_new, v_new and the caches (T, or int8_t
+// when QUANT). DPL: D / 32.
+template <typename T, typename C, bool QUANT, int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_deferred_kernel(const T* __restrict__ q,
-                                 const T* __restrict__ k_new,
-                                 const T* __restrict__ v_new,
-                                 const T* __restrict__ k_cache,
-                                 const T* __restrict__ v_cache,
+                                 const C* __restrict__ k_new,
+                                 const float* __restrict__ ks_new,
+                                 const C* __restrict__ v_new,
+                                 const float* __restrict__ vs_new,
+                                 const C* __restrict__ k_cache,
+                                 const float* __restrict__ k_scale,
+                                 const C* __restrict__ v_cache,
+                                 const float* __restrict__ v_scale,
                                  const int32_t* __restrict__ length,
                                  T* __restrict__ out,
                                  int B, int H, int S, int layer, float scale) {
@@ -73,10 +94,13 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  const int64_t row_off = ((int64_t)b * H + h) * D;
-  const int64_t cache_off = (((int64_t)layer * B + b) * H + h) * (int64_t)S * D;
-  const T* kc = k_cache + cache_off;
-  const T* vc = v_cache + cache_off;
+  const int64_t head = (int64_t)b * H + h;
+  const int64_t row_off = head * D;
+  const int64_t plane_off = ((int64_t)layer * B + b) * H + h;  // in rows of S
+  const C* kc = k_cache + plane_off * S * D;
+  const C* vc = v_cache + plane_off * S * D;
+  const float* ksc = QUANT ? k_scale + plane_off * S : nullptr;
+  const float* vsc = QUANT ? v_scale + plane_off * S : nullptr;
   int len = length[b];
   len = len < 0 ? 0 : (len > S ? S : len);
 
@@ -90,9 +114,14 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < DPL; ++i) s += qf[i] * to_f32(k_new[row_off + lane * DPL + i]);
     m = warp_sum(s) * scale;
+    const float vs = QUANT ? vs_new[head] : 1.f;
+    if (QUANT) m *= ks_new[head];
     den = 1.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] = to_f32(v_new[row_off + lane * DPL + i]);
+    for (int i = 0; i < DPL; ++i) {
+      const float v = to_f32(v_new[row_off + lane * DPL + i]);
+      acc[i] = QUANT ? v * vs : v;
+    }
   } else {
     m = -INFINITY;
     den = 0.f;
@@ -102,7 +131,7 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
 
   // Each tile starts below len, so its first row is valid and its max finite.
   for (int t0 = warp * kRows; t0 < len; t0 += kWarps * kRows) {
-    float kr[kRows][DPL], vr[kRows][DPL];
+    float kr[kRows][DPL], vr[kRows][DPL], ks[kRows], vs[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const bool ok = t0 + r < len;
@@ -112,6 +141,8 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
         kr[r][i] = ok ? to_f32(kc[o + i]) : 0.f;
         vr[r][i] = ok ? to_f32(vc[o + i]) : 0.f;
       }
+      ks[r] = QUANT && ok ? ksc[t0 + r] : 1.f;
+      vs[r] = QUANT && ok ? vsc[t0 + r] : 1.f;
     }
     float s[kRows];
     float tmax = -INFINITY;
@@ -120,7 +151,9 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
       float p = 0.f;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) p += qf[i] * kr[r][i];
-      s[r] = t0 + r < len ? warp_sum(p) * scale : -INFINITY;
+      p = warp_sum(p) * scale;
+      if (QUANT) p *= ks[r];
+      s[r] = t0 + r < len ? p : -INFINITY;
       tmax = fmaxf(tmax, s[r]);
     }
     const float m_new = fmaxf(m, tmax);
@@ -132,8 +165,9 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
     for (int r = 0; r < kRows; ++r) {
       const float e = t0 + r < len ? expf(s[r] - m_new) : 0.f;
       den += e;
+      const float ev = QUANT ? e * vs[r] : e;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] += e * vr[r][i];
+      for (int i = 0; i < DPL; ++i) acc[i] += ev * vr[r][i];
     }
     m = m_new;
   }
@@ -165,18 +199,20 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   const void* k_cache, const void* v_cache, const void* length,
-                   void* out, int B, int H, int S, int D, int layer, float scale,
-                   cudaStream_t stream) {
+template <typename T, typename C, bool QUANT>
+cudaError_t launch(const void* q, const void* k_new, const void* ks_new,
+                   const void* v_new, const void* vs_new, const void* k_cache,
+                   const void* k_scale, const void* v_cache, const void* v_scale,
+                   const void* length, void* out, int B, int H, int S, int D,
+                   int layer, float scale, cudaStream_t stream) {
   const dim3 grid(H, B);
   const dim3 block(kWarps * 32);
-#define ZG2_LAUNCH(DPL)                                                        \
-  decode_attention_deferred_kernel<T, DPL><<<grid, block, 0, stream>>>(       \
-      (const T*)q, (const T*)k_new, (const T*)v_new, (const T*)k_cache,        \
-      (const T*)v_cache, (const int32_t*)length, (T*)out, B, H, S, layer,      \
-      scale)
+#define ZG2_LAUNCH(DPL)                                                         \
+  decode_attention_deferred_kernel<T, C, QUANT, DPL><<<grid, block, 0, stream>>>( \
+      (const T*)q, (const C*)k_new, (const float*)ks_new, (const C*)v_new,      \
+      (const float*)vs_new, (const C*)k_cache, (const float*)k_scale,           \
+      (const C*)v_cache, (const float*)v_scale, (const int32_t*)length,         \
+      (T*)out, B, H, S, layer, scale)
   switch (D) {
     case 32: ZG2_LAUNCH(1); break;
     case 64: ZG2_LAUNCH(2); break;
@@ -198,10 +234,32 @@ extern "C" int zg2_decode_attention_deferred(
     int D, int layer, float scale, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(q, k_new, v_new, k_cache, v_cache, length, out, B, H,
-                         S, D, layer, scale, st);
+    return launch<float, float, false>(q, k_new, nullptr, v_new, nullptr, k_cache,
+                                       nullptr, v_cache, nullptr, length, out, B,
+                                       H, S, D, layer, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, length,
-                                 out, B, H, S, D, layer, scale, st);
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(
+        q, k_new, nullptr, v_new, nullptr, k_cache, nullptr, v_cache, nullptr,
+        length, out, B, H, S, D, layer, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// INT8 cache: k_new, v_new and the caches int8; ks_new, vs_new (B, H) and
+// k_scale, v_scale (L, B, H, S) f32. dtype code of q and out: 0 = float32,
+// 1 = bfloat16. Returns a cudaError_t.
+extern "C" int zg2_decode_attention_quant_deferred(
+    const void* q, const void* k_new, const void* ks_new, const void* v_new,
+    const void* vs_new, const void* k_cache, const void* k_scale,
+    const void* v_cache, const void* v_scale, const void* length, void* out,
+    int B, int H, int S, int D, int layer, float scale, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float, int8_t, true>(q, k_new, ks_new, v_new, vs_new, k_cache,
+                                       k_scale, v_cache, v_scale, length, out, B,
+                                       H, S, D, layer, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t, true>(
+        q, k_new, ks_new, v_new, vs_new, k_cache, k_scale, v_cache, v_scale,
+        length, out, B, H, S, D, layer, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -5,7 +5,8 @@ the same weights give the same numbers: LayerNorm is the single-pass
 ``E[x^2] - mean^2`` with f32 statistics and eps inside the rsqrt (not
 ``F.layer_norm``), GELU is the sigmoid form of the tanh approximation (not
 ``F.gelu``), and softmax and attention statistics are f32 whatever the
-activation dtype. Linear weights are ``(in, out)``.
+activation dtype. Linear weights are ``(in, out)``. ``quantize_kv`` gives
+the same int8 values and f32 scales as the JAX package's, bit for bit.
 """
 
 from __future__ import annotations
@@ -83,6 +84,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = softmax(scores, -1)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-row (per token, per head) symmetric INT8 quantization of K/V:
+    (..., D) float -> (int8 (..., D), f32 scale (...,)), scale =
+    absmax / 127 (at least 1e-12 / 127), values rounded half to even."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _decode_valid_mask(max_seq: int, length: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,155 @@
+"""Weight-only INT8 / INT4 quantization with grouped scales.
+
+The port's own copy of ``zig_gpt2_tpu.quant.quantize``, same scheme and
+same layouts, so a tree quantized by either package feeds the other:
+
+- Symmetric absmax along the contraction (K) axis in groups of G rows:
+  ``qw[k, n] = round(w[k, n] / scale[k // G, n])``, round half to even,
+  clipped to [-127, 127] (INT8) or [-7, 7] (INT4). INT8 defaults to one
+  group (G = K, per-channel scales); INT4 is grouped (``pick_group_size``).
+- INT4 is packed two per int8 along K in the half-split layout: packed row
+  p holds original row p in its low nibble and row p + K/2 in its high
+  nibble.
+
+Layout of a quantized linear dict (replaces ``{"w", "b"}``):
+
+- INT8: ``{"qw":  int8 (..., K,   N), "scale": f32 (..., K/G, N), "b"?}``
+- INT4: ``{"qw4": int8 (..., K/2, N), "scale": f32 (..., K/G, N), "b"?}``
+
+Leading ``...`` dims (the per-layer stack axis) pass through.
+
+``quantized_linear`` sends up to ``kernels.GEMV_MAX_ROWS`` rows to the
+dequant-GEMV ``kernels.qmm`` (the CUDA kernel on the card, its plain
+version on the CPU) and dequantizes larger row counts to the activation
+dtype for one ``torch.matmul``. The JAX package's mesh options (``tp``)
+are left out: the port serves one card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from zig_gpt2_tpu_torch.quant import kernels
+from zig_gpt2_tpu_torch.quant.kernels import unpack_int4
+
+# Candidate group sizes, best first. INT4's half-split packing also needs
+# K/2 % G == 0, which for 1.5B's K = 1600 projections gives G = 32.
+_GROUP_CANDIDATES = (128, 64, 32, 16, 8)
+
+_BLOCK_LINEARS = (
+    ("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "c_proj"),
+    ("mlp", "c_fc"), ("mlp", "c_proj"),
+)
+
+
+def pick_group_size(k: int, mode: str) -> int:
+    """Largest group size that divides K (and K/2 for INT4)."""
+    need = [k, k // 2] if mode == "int4" else [k]
+    for g in _GROUP_CANDIDATES:
+        if all(n % g == 0 for n in need):
+            return g
+    raise ValueError(f"no valid group size for K={k} ({mode})")
+
+
+def is_quantized(p: Dict[str, Any]) -> bool:
+    return "qw" in p or "qw4" in p
+
+
+def quantize_linear(p: Dict[str, Any], mode: str = "int8",
+                    group_size: Optional[int] = None) -> Dict[str, Any]:
+    """Quantize one ``{"w": (..., K, N), "b"?}`` linear. INT8 is
+    per-channel unless ``group_size`` is given; INT4 is grouped."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unknown quantization mode {mode!r}")
+    w = p["w"]
+    k, n = w.shape[-2], w.shape[-1]
+    g = k if group_size is None and mode == "int8" else (
+        group_size or pick_group_size(k, mode))
+    if k % g:
+        raise ValueError(f"K={k} not divisible by group_size={g}")
+    qmax = 7.0 if mode == "int4" else 127.0
+    grouped = w.float().reshape(*w.shape[:-2], k // g, g, n)
+    absmax = grouped.abs().amax(dim=-2, keepdim=True)
+    # All-zero columns (padded heads) have absmax 0: keep the scale finite.
+    scale = torch.clamp(absmax, min=1e-12) / qmax
+    q = torch.clamp(torch.round(grouped / scale), -qmax, qmax).to(torch.int8)
+    # Contiguous whatever w's strides (the lm_head comes from wte^T): the
+    # kernel reads rows of qw and scale in place.
+    q = q.reshape(w.shape).contiguous()
+    out: Dict[str, Any] = {"scale": scale.squeeze(-2).contiguous()}  # (..., K/G, N)
+    if mode == "int8":
+        out["qw"] = q
+    else:
+        lo, hi = q.int().split(k // 2, dim=-2)  # rows [0, K/2), [K/2, K)
+        out["qw4"] = ((hi << 4) | (lo & 0x0F)).to(torch.int8)
+    if p.get("b") is not None:
+        out["b"] = p["b"]
+    return out
+
+
+def dequantize_linear(p: Dict[str, Any], dtype=torch.float32) -> Dict[str, Any]:
+    """The float ``{"w", "b"?}`` that a quantized linear stands for: each
+    weight is float(q) * its group's scale in f32, then cast to ``dtype``."""
+    q = p["qw"] if "qw" in p else unpack_int4(p["qw4"])
+    k, n = q.shape[-2], q.shape[-1]
+    groups = p["scale"].shape[-2]
+    grouped = q.float().reshape(*q.shape[:-2], groups, k // groups, n)
+    w = (grouped * p["scale"][..., :, None, :]).reshape(q.shape)
+    out = {"w": w.to(dtype)}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def grouped_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The JAX package's CPU formulation (``_grouped_matmul_jnp``): per-group
+    partial dots of x (B, K) with the int8 q (K, N) cast to x's dtype, f32
+    scales applied to the f32 partials. The port's own paths take ``qmm``,
+    which follows the TPU kernel instead (scale folded into each weight);
+    the two agree to f32 roundoff, which is what ties the port to the JAX
+    model's CPU logits."""
+    b, k = x.shape
+    groups, n = scale.shape
+    xg = x.reshape(b, groups, k // groups).transpose(0, 1).float()  # (groups, B, G)
+    qg = q.to(x.dtype).float().reshape(groups, k // groups, n)
+    partial = torch.bmm(xg, qg)  # (groups, B, N)
+    return (partial * scale[:, None, :].float()).sum(0)
+
+
+def quantized_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(p) (+ b), in x's dtype. Up to GEMV_MAX_ROWS rows run
+    the dequant-GEMV kernel, which never materializes the float weight;
+    more rows dequantize to x's dtype and take one matmul. The f32 product
+    is cast to x's dtype before the bias is added."""
+    int4 = "qw4" in p
+    q = p["qw4"] if int4 else p["qw"]
+    *lead, k_in = x.shape
+    x2 = x.reshape(-1, k_in)
+    n = q.shape[-1]
+    if x2.shape[0] <= kernels.GEMV_MAX_ROWS:
+        y = kernels.qmm(x2.contiguous(), q, p["scale"], int4=int4)
+    else:
+        y = torch.matmul(x2, dequantize_linear(p, dtype=x.dtype)["w"])
+    y = y.to(x.dtype).reshape(*lead, n)
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return y
+
+
+def quantize_params(params: Dict[str, Any], mode: str = "int8") -> Dict[str, Any]:
+    """Quantize every block linear of a GPT-2 tree, and untie the lm_head
+    into ``params["lm_head"]`` quantized from wte^T. Embeddings and
+    LayerNorms stay float (wte is still the embedding table). The lm_head
+    is INT8 per-channel even in INT4 mode, as in the JAX package."""
+    params = dict(params)
+    blocks = dict(params["blocks"])
+    for mod, name in _BLOCK_LINEARS:
+        sub = dict(blocks[mod])
+        sub[name] = quantize_linear(sub[name], mode)
+        blocks[mod] = sub
+    params["blocks"] = blocks
+    if "lm_head" not in params:
+        params["lm_head"] = quantize_linear({"w": params["wte"].T}, "int8")
+    return params

@@ -128,6 +128,7 @@ class InferenceEngine:
         prompt_buckets: Optional[Sequence[int]] = None,
         decode_chunk: Optional[int] = None,
         device="cuda",
+        kv_quant: Optional[str] = None,
     ):
         """``decode_chunk``: decode steps run per host sync in the streaming
         path. Stop and budget checks happen per chunk and overshoot is
@@ -135,8 +136,13 @@ class InferenceEngine:
         carries decode_chunk - 1 headroom rows for the discarded steps.
         Default 1 (no measurement on the card says otherwise yet).
 
-        The KV cache takes the weights' dtype."""
+        ``kv_quant``: None for a float KV cache in the weights' (wte's)
+        dtype, or "int8" for int8 rows with per-(token, head) f32 scales.
+        ``params`` may be float or quantized (``quant.quantize_params``)."""
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
         self.device = _resolve_device(device)
+        self.kv_quant = kv_quant
         self.config = config
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.encoder = encoder
@@ -151,7 +157,8 @@ class InferenceEngine:
 
     def new_cache(self) -> gpt2.KVCache:
         return gpt2.init_kv_cache(self.config, self.batch_size, self._cache_rows,
-                                  dtype=self.params["wte"].dtype, device=self.device)
+                                  dtype=self.params["wte"].dtype, device=self.device,
+                                  quant=self.kv_quant)
 
     def register_prefix(self, prefix_ids: Sequence[int]) -> None:
         raise NotImplementedError("prefix caching needs gpt2.extend, which comes "

@@ -26,18 +26,29 @@ def tree_map(fn: Callable, tree):
 
 def params_from_numpy(tree, device="cpu", dtype=None) -> Params:
     """Nested dict of numpy arrays (any float dtype numpy can hold,
-    including ml_dtypes' bfloat16) -> the same tree of torch tensors on
-    ``device``, cast to ``dtype`` when given (else f32 for a bfloat16 leaf
-    before the cast back, since torch cannot read that numpy dtype)."""
+    including ml_dtypes' bfloat16, and the leaves of a quantized tree) ->
+    the same tree of torch tensors on ``device``. A given ``dtype`` casts
+    the float weights only: the int8 ``qw``/``qw4`` leaves and the f32
+    quantization ``scale`` leaves keep their dtype, as both packages store
+    them. (A bfloat16 leaf goes through f32, since torch cannot read that
+    numpy dtype, and comes back bfloat16.)"""
 
-    def leaf(a):
+    def leaf(a, name):
         a = np.asarray(a)
         src_bf16 = a.dtype.name == "bfloat16"
         t = torch.from_numpy(np.array(a, dtype=np.float32 if src_bf16 else a.dtype))
-        want = dtype or (torch.bfloat16 if src_bf16 else t.dtype)
+        if dtype is not None and t.is_floating_point() and name != "scale":
+            want = dtype
+        else:
+            want = torch.bfloat16 if src_bf16 else t.dtype
         return t.to(device=device, dtype=want)
 
-    return tree_map(leaf, tree)
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return leaf(node, name)
+
+    return walk(tree)
 
 
 def params_to_numpy(params: Params) -> Dict[str, Any]:
