@@ -15,26 +15,40 @@ prints no result line:
                plain version at GPT-2 1.5B shapes (L=48, H=25, S=1024,
                D=64), B=1 and B=4, lengths {0, 1, 17, 1023}, f32 and bf16 q,
                layers 0 and 47.
-5. sampler   - the Gumbel-max sampler kernel against its plain version,
+5. attention-ring - the ring variants of both kernels (old rows
+               [start, start + length) mod R) against their plain versions:
+               float at 124M shapes, INT8 at 1.5B shapes, B=16, R=1025 (a
+               1024-row window plus the ring row), per-lane starts including
+               0 and R-1 with intervals that wrap, lengths {0, 1, 17, 1023,
+               1024}, f32 and bf16 q, layers 0 and last; and the ring kernel
+               over per-lane-rotated caches equals the prefix kernel over the
+               linear caches bit for bit.
+6. sampler   - the Gumbel-max sampler kernel against its plain version,
                B=4, V=50257, with and without a top-k/top-p threshold:
                identical ids.
-6. serve     - GPT-2 124M, fp32, at full width (random weights from a fixed
+7. serve     - GPT-2 124M, fp32, at full width (random weights from a fixed
                seed, a BPE trained in-process, vocab padded to 50257 rows)
                on ``InferenceEngine(device="cuda")``: three prompts x 32 new
                tokens (greedy; T=0.8; T=0.8 with top-k 40 and top-p 0.9).
                Kernel launch counts must match the decode steps; the greedy
                run's teacher-forced logits are held against the same model
                on the CPU.
-7. trace     - ``torch.profiler`` over 32 decode steps of the 124M path
+8. trace     - ``torch.profiler`` over 32 decode steps of the 124M path
                (fp32, T=0.8, one host sync per token as the engine runs
                them): the device's busy and idle share of the traced
                window, kernels launched per step, the top kernels.
-8. qmm       - the dequant-GEMV kernel against its plain version on the
+9. serve-batcher-124M - the same 124M model on
+               ``ContinuousBatcher(batch_size=8, max_seq=256)``, ring cache:
+               16 greedy requests of mixed prompt lengths and budgets. The
+               float ring kernel launches 12 times per decode step, the
+               prefix kernel never; two requests are held to the engine's
+               tokens up to a near-tie.
+10. qmm      - the dequant-GEMV kernel against its plain version on the
                1.5B model's quantized weights: the six block linears at
                layers 0 and 47 (INT4, grouped) and the lm_head (INT8
                per-channel, K=1600, N=50257), rows 1, 32 and 256, f32 and
                bf16 activations.
-9. serve-1.5B - GPT-2 1.5B at full width and depth (48 layers, 25 heads,
+11. serve-1.5B - GPT-2 1.5B at full width and depth (48 layers, 25 heads,
                1600 wide; random bf16 weights from a fixed seed, INT4
                weights and an INT8 lm_head by ``quantize_params``) on
                ``InferenceEngine(kv_quant="int8", device="cuda")``: the same
@@ -42,9 +56,24 @@ prints no result line:
                per prefill, INT8 attention 48 per decode step, float
                attention none. The greedy request is teacher-forced through
                the same quantized weights with f32 float leaves on the card
-               and on the CPU (plain versions), and the logits compared.
-10. trace-1.5B - as 7, for the 1.5B INT4 + INT8-KV decode step (bf16).
-11. times    - each kernel's device time per call at the main paths'
+               and on the CPU (weights dequantized to f32, plain attention),
+               and the logits compared.
+12. trace-1.5B - as 8, for the 1.5B INT4 + INT8-KV decode step (bf16).
+13. serve-batcher-1.5B - the 1.5B model of phase 11 on
+               ``ContinuousBatcher(batch_size=16, max_seq=256, decode_chunk=1,
+               kv_quant="int8")``, ring cache (R=257): 64 requests, prompt
+               lengths 8-120, budgets 32-96, the first half at T=0.8 with
+               top-k 40 and top-p 0.9, then the greedy half, so that the
+               write pointer wraps under the greedy half. Every request ends
+               at its budget; launch counts match the steps and prefills;
+               the greedy half served again on a linear cache (ZG2_RING=0)
+               gives the same tokens; four greedy requests match the
+               engine's up to a near-tie.
+14. trace-batcher-1.5B - ``torch.profiler`` over 32 batcher steps at full
+               occupancy (B=16): kernels per step, the device's busy and
+               idle share, the top kernels, and the host syncs per step
+               (``torch.cuda.set_sync_debug_mode``), which must be 1.
+15. times    - each kernel's device time per call at the main paths'
                shapes (CUDA-graph replay of many calls), its bound, its
                plain version's time and one PyTorch library call computing
                the same function (timed only, never used by the port).
@@ -205,6 +234,64 @@ def check_attention_int8(att, ops, torch) -> None:
                     f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol})")
 
 
+RING_ROWS = 1025  # a 1024-row window plus the ring's write row
+RING_LENGTHS = (0, 1, 17, 1023, 1024)
+
+
+def ring_lanes(B: int, R: int, lengths, torch):
+    """(start, length) (B,) int32 on the card: lane 0 starts at 0, lane 1
+    at R-1, the others spread over the ring; lengths cycle over
+    ``lengths``, so that many intervals wrap."""
+    starts = [0, R - 1] + [(b * 397) % R for b in range(2, B)]
+    lens = [lengths[b % len(lengths)] for b in range(B)]
+    return (torch.tensor(starts, dtype=torch.int32, device="cuda"),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def rotate_lanes(c, starts, torch):
+    """Lane b (axis 1) of a stacked (L, B, H, S[, D]) cache rolled by
+    starts[b] on its S axis: linear row i lands at ring row starts[b] + i
+    mod S."""
+    return torch.stack([torch.roll(c[:, b], st, dims=2)
+                        for b, st in enumerate(starts.tolist())], dim=1).contiguous()
+
+
+def check_attention_ring(att, ops, torch) -> None:
+    B, R, D = 16, RING_ROWS, 64
+    start, length = ring_lanes(B, R, RING_LENGTHS, torch)
+    for label, L, H, quant in (("float, 124M shapes", 12, 12, False),
+                               ("int8, 1.5B shapes", 48, 25, True)):
+        g = torch.Generator(device="cuda").manual_seed(9)
+        for dtype in (torch.float32, torch.bfloat16):
+            if quant:
+                args = int8_attention_inputs(ops, torch, g, L, B, H, R, D, dtype)
+                kernel, plain, caches = (att.decode_attention_quant_deferred,
+                                         att.decode_attention_quant_deferred_plain, (5, 6, 7, 8))
+            else:
+                args = [torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
+                        for _ in range(3)]
+                args += [torch.randn(L, B, H, R, D, device="cuda", generator=g).to(dtype)
+                         for _ in range(2)]
+                kernel, plain, caches = (att.decode_attention_deferred,
+                                         att.decode_attention_deferred_plain, (3, 4))
+            ring = [rotate_lanes(a, start, torch) if i in caches else a
+                    for i, a in enumerate(args)]
+            atol, rtol = ATTN_TOL[str(dtype).split(".")[-1]]
+            for layer in (0, L - 1):
+                got = kernel(*ring, length, layer=layer, start=start)
+                want = plain(*ring, length, layer=layer, start=start)
+                err = check_close(f"attention-ring {label} {dtype} layer={layer}", got, want,
+                                  atol, rtol, torch)
+                same = bool(torch.equal(got, kernel(*args, length, layer=layer)))
+                log(f"attention-ring {label} B={B} R={R} {dtype} layer={layer}: "
+                    f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol}); ring over rotated "
+                    f"caches == prefix over linear caches bit for bit: {same}")
+                if not same:
+                    raise AssertionError("the ring kernel over rotated caches differs from "
+                                         "the prefix kernel over the linear caches")
+            del args, ring
+
+
 def check_sampler(sk, sampling, torch) -> None:
     B, V = 4, 50257
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -263,6 +350,35 @@ def check_qmm(qk, params, torch) -> None:
             f"max_abs_err={max(errs):.3e} (atol {atol}, rtol {rtol})")
 
 
+COUNTERS = (("attention", "decode_attention_deferred", "launches"),
+            ("attention_ring", "decode_attention_deferred", "ring_launches"),
+            ("attention_int8", "decode_attention_quant_deferred", "launches"),
+            ("attention_int8_ring", "decode_attention_quant_deferred", "ring_launches"))
+
+
+def reset_counts(att, sk, qk) -> None:
+    for _, fn, attr in COUNTERS:
+        setattr(getattr(att, fn), attr, 0)
+    sk.sample_categorical.launches = 0
+    qk.qmm.launches = 0
+
+
+def read_counts(att, sk, qk, torch) -> dict:
+    torch.cuda.synchronize()
+    counts = {key: getattr(getattr(att, fn), attr) for key, fn, attr in COUNTERS}
+    counts.update(sampler=sk.sample_categorical.launches, qmm=qk.qmm.launches)
+    return counts
+
+
+def expect_counts(label: str, counts: dict, expected: dict) -> None:
+    """Every counter equals its expected value (0 where not listed)."""
+    want = {k: expected.get(k, 0) for k in counts}
+    log(f"{label} launches: {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts do not match the steps: "
+                             f"{counts} vs {want}")
+
+
 REQUESTS = (("greedy", "the quick brown fox", dict(temperature=0.0)),
             ("T=0.8", "hello world, streaming", dict(temperature=0.8, seed=1)),
             ("T=0.8 top-k 40 top-p 0.9", "the lazy dog",
@@ -290,13 +406,15 @@ def run_requests(engine_mod, config_mod, engine, label: str, card: str):
     return results, decode_steps, sampled
 
 
-def teacher_forced(gpt2, params, config, ids, tokens, device, torch, kv_quant=None):
-    """(len(tokens) + 1, vocab) logits: prefill of ``ids`` padded to 32 (the
-    engine's first prompt bucket, so that the served run's arithmetic is
-    repeated exactly), then one decode step per token of ``tokens``."""
-    cache = gpt2.init_kv_cache(config, 1, 64, device=device, quant=kv_quant,
-                               dtype=params["wte"].dtype)
-    prompt = torch.zeros((1, 32), dtype=torch.int32, device=device)
+def teacher_forced(gpt2, params, config, ids, tokens, device, torch, kv_quant=None,
+                   bucket=32):
+    """(len(tokens) + 1, vocab) logits: prefill of ``ids`` padded to
+    ``bucket`` (the engine's prompt bucket, so that the served run's
+    arithmetic is repeated exactly), then one decode step per token of
+    ``tokens``."""
+    cache = gpt2.init_kv_cache(config, 1, bucket + len(tokens) + 1, device=device,
+                               quant=kv_quant, dtype=params["wte"].dtype)
+    prompt = torch.zeros((1, bucket), dtype=torch.int32, device=device)
     prompt[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
     cache, logits = gpt2.prefill(params, cache, prompt,
                                  torch.tensor([len(ids)], dtype=torch.int32, device=device),
@@ -336,26 +454,12 @@ def serve(pkg, torch, encoder, card: str):
     engine.generate_text("warm up", 2, config_mod.SamplingConfig(temperature=0.8))
     torch.cuda.synchronize()
 
-    att.decode_attention_deferred.launches = 0
-    att.decode_attention_quant_deferred.launches = 0
-    sk.sample_categorical.launches = 0
-    qk.qmm.launches = 0
+    reset_counts(att, sk, qk)
     results, decode_steps, sampled = run_requests(engine_mod, config_mod, engine, "serve",
                                                   f"fp32, B=1, {card}")
-    torch.cuda.synchronize()
-    counts = {"attention": att.decode_attention_deferred.launches,
-              "attention_int8": att.decode_attention_quant_deferred.launches,
-              "sampler": sk.sample_categorical.launches, "qmm": qk.qmm.launches}
-    log(f"serve launches: attention={counts['attention']} (expected "
-        f"{config.n_layers} x {decode_steps} = {config.n_layers * decode_steps}), "
-        f"sampler={counts['sampler']} (expected {sampled}), "
-        f"attention-int8={counts['attention_int8']} and qmm={counts['qmm']} (expected 0)")
-    if counts["attention"] != config.n_layers * decode_steps:
-        raise AssertionError("attention launches do not match the decode steps")
-    if counts["sampler"] != sampled:
-        raise AssertionError("sampler launches do not match the sampled steps")
-    if counts["attention_int8"] or counts["qmm"]:
-        raise AssertionError("the float path launched a quantized kernel")
+    counts = read_counts(att, sk, qk, torch)
+    expect_counts("serve", counts, {"attention": config.n_layers * decode_steps,
+                                    "sampler": sampled})
 
     # Teacher-forced check of the greedy request against the CPU.
     _, prompt, sampling, text, _ = results[0]
@@ -405,32 +509,15 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str):
     engine.generate_text("warm up", 2, config_mod.SamplingConfig(temperature=0.8))
     torch.cuda.synchronize()
 
-    att.decode_attention_deferred.launches = 0
-    att.decode_attention_quant_deferred.launches = 0
-    sk.sample_categorical.launches = 0
-    qk.qmm.launches = 0
+    reset_counts(att, sk, qk)
     results, decode_steps, sampled = run_requests(
         engine_mod, config_mod, engine, "serve-1.5B",
         f"INT4 weights, INT8 lm_head and KV cache, bf16 activations, B=1, {card}")
-    torch.cuda.synchronize()
-    counts = {"attention": att.decode_attention_deferred.launches,
-              "attention_int8": att.decode_attention_quant_deferred.launches,
-              "sampler": sk.sample_categorical.launches, "qmm": qk.qmm.launches}
+    counts = read_counts(att, sk, qk, torch)
     per_pass = 6 * config.n_layers + 1  # block linears + the lm_head
     passes = decode_steps + len(results)  # decode steps + prefills
-    log(f"serve-1.5B launches: qmm={counts['qmm']} (expected {per_pass} x {passes} = "
-        f"{per_pass * passes}), attention-int8={counts['attention_int8']} (expected "
-        f"{config.n_layers} x {decode_steps} = {config.n_layers * decode_steps}), "
-        f"sampler={counts['sampler']} (expected {sampled}), "
-        f"attention={counts['attention']} (expected 0)")
-    if counts["qmm"] != per_pass * passes:
-        raise AssertionError("qmm launches do not match the decode steps and prefills")
-    if counts["attention_int8"] != config.n_layers * decode_steps:
-        raise AssertionError("INT8 attention launches do not match the decode steps")
-    if counts["sampler"] != sampled:
-        raise AssertionError("sampler launches do not match the sampled steps")
-    if counts["attention"]:
-        raise AssertionError("the INT8-cache path launched the float attention kernel")
+    expect_counts("serve-1.5B", counts, {"qmm": per_pass * passes, "sampler": sampled,
+                                         "attention_int8": config.n_layers * decode_steps})
 
     _, prompt, sampling, text, _ = results[0]
     ids = encoder.encode(prompt)
@@ -445,32 +532,240 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str):
     # already), teacher-forced on the card and on the CPU.
     t0 = time.perf_counter()
     f32 = weights.tree_map(lambda t: t.float() if t.is_floating_point() else t, engine.params)
-    cpu_q = weights.tree_map(lambda t: t.cpu(), f32)
-    cpu_w = dequantized(quantize, cpu_q)
-    # 1. Float KV cache: the INT4/INT8 GEMVs through 48 layers, against the
-    #    same weights dequantized to f32 on the CPU (one plain matmul each).
+    cpu_w = dequantized(quantize, weights.tree_map(lambda t: t.cpu(), f32))
+    # On the CPU the weights are dequantized to f32 once: each linear is one
+    # plain matmul, the same products as qmm's plain version (weight
+    # float(q) * scale in f32, f32 sums) in another order, at a fraction of
+    # its time (the qmm phase holds the kernel to that plain version).
+    # 1. Float KV cache: the INT4/INT8 GEMVs through 48 layers.
     gpu = teacher_forced(gpt2, f32, config, ids, greedy[:-1], "cuda", torch)
+    t1 = time.perf_counter()
     cpu = teacher_forced(gpt2, cpu_w, config, ids, greedy[:-1], "cpu", torch)
+    log(f"serve-1.5B CPU run, float KV cache: {time.perf_counter() - t1:.1f} s")
     compare_logits("serve-1.5B float KV cache", gpu, cpu, torch)
-    # 2. INT8 KV cache, the served configuration: against the CPU through the
-    #    plain versions. An INT8 row rounds each element to a step of
+    # 2. INT8 KV cache, the served configuration, against the CPU through the
+    #    plain INT8 attention. An INT8 row rounds each element to a step of
     #    absmax/127, so a roundoff-sized difference before the rounding
     #    flips a few elements by a whole step and moves the logits by far
     #    more than roundoff. The floor is measured here: the same model on
     #    the CPU with f64 float leaves against the f32 run. The card is held
     #    to 1e-3 or three times that floor, whichever is larger.
     gpu = teacher_forced(gpt2, f32, config, ids, greedy[:-1], "cuda", torch, kv_quant="int8")
-    cpu = teacher_forced(gpt2, cpu_q, config, ids, greedy[:-1], "cpu", torch, kv_quant="int8")
-    del cpu_q
+    t1 = time.perf_counter()
+    cpu = teacher_forced(gpt2, cpu_w, config, ids, greedy[:-1], "cpu", torch, kv_quant="int8")
+    log(f"serve-1.5B CPU run, INT8 KV cache: {time.perf_counter() - t1:.1f} s")
     cpu_w = weights.tree_map(lambda t: t.double() if t.is_floating_point() else t, cpu_w)
+    t1 = time.perf_counter()
     f64 = teacher_forced(gpt2, cpu_w, config, ids, greedy[:-1], "cpu", torch, kv_quant="int8")
+    log(f"serve-1.5B CPU run, INT8 KV cache, f64: {time.perf_counter() - t1:.1f} s")
     del cpu_w
     floor = (f64 - cpu).abs().max().item()
     log(f"serve-1.5B INT8 KV floor: the CPU run in f64 and in f32 differ by max_abs_err="
         f"{floor:.3e} over {cpu.shape[0]} positions")
     compare_logits("serve-1.5B INT8 KV cache", gpu, cpu, torch, atol=max(E2E_ATOL, 3 * floor))
     log(f"serve-1.5B teacher-forced runs (2 on the card, 3 on the CPU): {time.perf_counter() - t0:.1f} s")
-    return counts, engine, ids
+    return counts, engine, ids, floor
+
+
+def batch_requests(seed: int, n: int, vocab: int, prompt_lens, budgets):
+    """n (prompt ids, budget) pairs from numpy's generator: prompt lengths
+    and budgets drawn from the inclusive ranges given."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n)
+    budgets = rng.integers(budgets[0], budgets[1] + 1, n)
+    return [(rng.integers(0, vocab, m).tolist(), int(b)) for m, b in zip(lens, budgets)]
+
+
+def serve_batch(batcher, requests, label: str):
+    """Submit, run to the end; every request must end at its budget (no
+    stop tokens, and max_seq leaves room). Returns the tokens per request."""
+    rids = [batcher.submit(ids, budget) for ids, budget in requests]
+    by_rid = {r.rid: r.generated for r in batcher.run()}
+    out = [by_rid.get(r) for r in rids]
+    short = [i for i, (toks, (_, budget)) in enumerate(zip(out, requests))
+             if toks is None or len(toks) != budget]
+    if short:
+        raise AssertionError(f"{label}: requests {short} did not end at their budgets")
+    return out
+
+
+def near_tie_check(label: str, gpt2, engine, requests, served, tol: float, torch) -> None:
+    """Each request's batcher tokens equal the engine's greedy tokens up to
+    the first divergence, if any; there the engine's logits for its token
+    and for the batcher's differ by at most ``tol`` (a near-tie that the
+    two paths' different prefill shapes may break either way)."""
+    import numpy as np
+
+    from zig_gpt2_tpu_torch.config import SamplingConfig
+    from zig_gpt2_tpu_torch.runtime.engine import _bucket
+
+    for (ids, budget), got in zip(requests, served):
+        want = engine.generate(ids, budget, SamplingConfig(temperature=0.0))
+        n = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        if n is None:
+            log(f"{label} near-tie check: prompt of {len(ids)}, {budget} tokens: identical "
+                f"to the engine")
+            continue
+        logits = teacher_forced(gpt2, engine.params, engine.config, ids, want[:n], "cuda",
+                                torch, kv_quant=engine.kv_quant,
+                                bucket=_bucket(len(ids), engine.prompt_buckets))[-1]
+        if int(np.argmax(logits.numpy())) != want[n]:
+            raise AssertionError(f"{label}: the teacher-forced run does not repeat the "
+                                 "engine's token")
+        gap = float(logits[want[n]] - logits[got[n]])
+        log(f"{label} near-tie check: prompt of {len(ids)}, {budget} tokens: first "
+            f"divergence at token {n}, engine logit gap {gap:.3e} (tolerance {tol:.3e})")
+        if gap > tol:
+            raise AssertionError(f"{label}: the batcher left the engine's tokens at "
+                                 f"token {n}, not at a near-tie (gap {gap:.3e})")
+
+
+def serve_batcher_124m(pkg, batcher_mod, torch, engine, card: str) -> dict:
+    """Phase 9. Returns the kernels' launch counts."""
+    config_mod, gpt2, _, att, sk, qk, _, _ = pkg
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    b = batcher_mod.ContinuousBatcher(engine.config, engine.params, batch_size=8,
+                                      max_seq=256, sampling=greedy, device="cuda")
+    serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], "serve-batcher-124M warm-up")
+    b.metrics = batcher_mod.BatcherMetrics()
+    requests = batch_requests(21, 16, engine.config.vocab_size, (4, 100), (16, 64))
+    reset_counts(att, sk, qk)
+    served = serve_batch(b, requests, "serve-batcher-124M")
+    counts = read_counts(att, sk, qk, torch)
+    steps = b.metrics.steps
+    expect_counts("serve-batcher-124M", counts,
+                  {"attention_ring": engine.config.n_layers * steps})
+    log(f"serve-batcher-124M metrics {json.dumps(b.metrics.as_dict(8))} "
+        f"(fp32, B=8, ring, greedy, {card})")
+    near_tie_check("serve-batcher-124M", gpt2, engine, requests[:2], served[:2],
+                   E2E_ATOL, torch)
+    return counts
+
+
+def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, card: str):
+    """Phase 13. Returns the kernels' launch counts and the ring batcher."""
+    import os
+
+    config_mod, gpt2, engine_mod, att, sk, qk, _, _ = pkg
+    sampled = config_mod.SamplingConfig(temperature=0.8, top_k=40, top_p=0.9, seed=4)
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    kw = dict(batch_size=16, max_seq=256, decode_chunk=1, kv_quant="int8", device="cuda")
+    b = batcher_mod.ContinuousBatcher(config, params, sampling=sampled, **kw)
+    rows = b.cache["k"].shape[-2]
+    serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], "serve-batcher-1.5B warm-up")
+    b.metrics = batcher_mod.BatcherMetrics()
+    requests = batch_requests(31, 64, config.vocab_size, (8, 120), (32, 96))
+    half = len(requests) // 2
+
+    prefills = []  # (k, T) of each admission's prefill, for the qmm count
+    plain_prefill = gpt2.prefill
+
+    def recording_prefill(params, cache, tokens, lengths, config):
+        prefills.append(tuple(tokens.shape))
+        return plain_prefill(params, cache, tokens, lengths, config)
+
+    gpt2.prefill = recording_prefill
+    try:
+        reset_counts(att, sk, qk)
+        serve_batch(b, requests[:half], "serve-batcher-1.5B sampled half")
+        sampled_steps, sampled_prefills = b.metrics.steps, len(prefills)
+        b.sampling = greedy
+        served = serve_batch(b, requests[half:], "serve-batcher-1.5B greedy half")
+        counts = read_counts(att, sk, qk, torch)
+    finally:
+        gpt2.prefill = plain_prefill
+    steps = b.metrics.steps
+    per_pass = 6 * config.n_layers + 1  # block linears + the lm_head
+    qmm = per_pass * steps + sum(6 * config.n_layers * (k * t <= 256) + 1
+                                 for k, t in prefills)
+    expect_counts("serve-batcher-1.5B", counts, {
+        "attention_int8_ring": config.n_layers * steps, "qmm": qmm,
+        "sampler": sampled_steps + sampled_prefills})
+    log(f"serve-batcher-1.5B: {steps} decode steps ({sampled_steps} sampled), "
+        f"{len(prefills)} admission prefills {sorted(set(prefills))}, ring rows {rows}, "
+        f"wptr now {int(b.cache['wptr'])}")
+    if steps + 2 < rows:  # the warm-up took 2 steps
+        raise AssertionError("the write pointer did not wrap")
+    log(f"serve-batcher-1.5B metrics {json.dumps(b.metrics.as_dict(16))} (INT4 weights, "
+        f"INT8 lm_head and KV cache, bf16 activations, B=16, ring, {card})")
+
+    os.environ["ZG2_RING"] = "0"
+    try:
+        linear = batcher_mod.ContinuousBatcher(config, params, sampling=greedy, **kw)
+    finally:
+        del os.environ["ZG2_RING"]
+    linear_served = serve_batch(linear, requests[half:], "serve-batcher-1.5B linear")
+    same = sum(a == c for a, c in zip(served, linear_served))
+    log(f"serve-batcher-1.5B ring vs linear cache: {same} of {len(served)} greedy requests "
+        f"identical")
+    if same != len(served):
+        raise AssertionError("the ring batcher's greedy tokens differ from the linear one's")
+    del linear
+
+    engine = engine_mod.InferenceEngine(config, params, kv_quant="int8", device="cuda")
+    greedy_half = sorted(zip(requests[half:], served), key=lambda rs: rs[0][1])[:4]
+    near_tie_check("serve-batcher-1.5B", gpt2, engine, [r for r, _ in greedy_half],
+                   [t for _, t in greedy_half], max(E2E_ATOL, 3 * floor), torch)
+    return counts, b
+
+
+def trace_batcher(batcher, config_mod, torch, card: str) -> None:
+    """Phase 14: 32 steps at full occupancy, T=0.8 top-k 40 top-p 0.9."""
+    import warnings
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 32
+    batcher.sampling = config_mod.SamplingConfig(temperature=0.8, top_k=40, top_p=0.9,
+                                                 seed=5)
+    for ids, _ in batch_requests(41, batcher.batch_size, batcher.config.vocab_size,
+                                 (8, 120), (64, 64)):
+        batcher.submit(ids, 64)
+    batcher.step()  # admits every slot: the traced steps admit and retire nothing
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(steps):
+                    batcher.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    active = sum(r is not None for r in batcher.slots)
+    kernels = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    row = {"model": "1558M", "weights": "INT4 (lm_head INT8), bf16 activations",
+           "kv_cache": "int8 ring", "batch": batcher.batch_size, "active_slots": active,
+           "temperature": 0.8, "traced_batcher_steps": steps,
+           "traced_wall_ms": wall_us / 1e3, "host_syncs_per_step": syncs / steps,
+           "card": card}
+    if kernels:
+        busy = sum(us for _, us in kernels)
+        by_name = defaultdict(float)
+        for name, us in kernels:
+            by_name[name[:80]] += us
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        row.update({"device_busy_ms_per_step": busy / 1e3 / steps,
+                    "device_busy_share": busy / wall_us,
+                    "device_idle_share": 1.0 - busy / wall_us,
+                    "kernels_per_decode_step": len(kernels) / steps,
+                    "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top}})
+    else:
+        row["device_busy_share"] = "not measured (no device events in the trace)"
+    log(f"trace-batcher {json.dumps(row)}")
+    if active != batcher.batch_size:
+        raise AssertionError(f"the traced steps ran {active} of {batcher.batch_size} slots")
+    if syncs != steps:
+        raise AssertionError(f"{syncs} host syncs in {steps} batcher steps, expected one "
+                             "per step")
 
 
 def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str) -> None:
@@ -491,7 +786,7 @@ def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str) -> 
     generator = torch.Generator(device=engine.device).manual_seed(3)
     token = sampling.sample(logits, generator, 0.8)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             cache, logits = gpt2.decode_step(engine.params, cache, token, engine.config)
@@ -579,6 +874,67 @@ def time_float_kernels(att, sk, torch, counts, card: str):
         "replaces": "zig_gpt2_tpu/ops/sampling_kernel.py:37",
         "launches": counts["sampler"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    return entries
+
+
+def time_ring_kernels(att, ops, torch, counts, card: str):
+    """Both ring variants at B=16, R=1025, 1023 old rows per lane (starts
+    spread over the ring, most intervals wrapping), rotating over the
+    layers: float at 124M shapes in f32, INT8 at 1.5B shapes with bf16 q.
+    The library yardstick is SDPA with a boolean mask over all R rows (the
+    interval plus the next row, standing for the appended one), over a
+    cache dequantized ahead of time for INT8."""
+    import torch.nn.functional as F
+
+    entries = []
+    B, R, D, n = 16, RING_ROWS, 64, 1023
+    start, length = ring_lanes(B, R, (n,), torch)
+    mask = ops.decode_valid_mask(R, length + 1, start)[:, :, None, :]  # (B, 1, 1, R)
+    for name, L, H, dtype, quant, replaces in (
+            ("decode_attention_deferred_ring", 12, 12, torch.float32, False, ":913"),
+            ("decode_attention_quant_deferred_ring", 48, 25, torch.bfloat16, True, ":928")):
+        g = torch.Generator(device="cuda").manual_seed(10)
+        if quant:
+            args = int8_attention_inputs(ops, torch, g, L, B, H, R, D, dtype)
+            kernel, plain = att.decode_attention_quant_deferred, \
+                att.decode_attention_quant_deferred_plain
+            q, kc, ks, vc, vs = args[0], args[5], args[6], args[7], args[8]
+            kd = (kc.float() * ks[..., None]).to(dtype)
+            vd = (vc.float() * vs[..., None]).to(dtype)
+            nbytes = (2 * B * H * n * D + 2 * B * H * n * 4  # int8 rows and their scales
+                      + 2 * B * H * D * q.element_size() + 2 * B * H * D + 2 * B * H * 4
+                      + 8 * B)
+            nops = (4 * D + 4) * B * H * (n + 1)
+        else:
+            args = [torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
+                    for _ in range(3)]
+            args += [torch.randn(L, B, H, R, D, device="cuda", generator=g).to(dtype)
+                     for _ in range(2)]
+            kernel, plain = att.decode_attention_deferred, att.decode_attention_deferred_plain
+            q, kd, vd = args[0], args[3], args[4]
+            esz = kd.element_size()
+            nbytes = 2 * B * H * n * D * esz + 4 * B * H * D * esz + 8 * B
+            nops = 4 * B * H * (n + 1) * D
+        err = max_err(kernel(*args, length, layer=0, start=start),
+                      plain(*args, length, layer=0, start=start))
+        ms = time_ms(lambda i: kernel(*args, length, layer=i % L, start=start), 10 * L)
+        plain_ms = time_ms(lambda i: plain(*args, length, layer=i % L, start=start), L)
+        q4 = q[:, :, None, :]
+        lib_ms = time_ms(lambda i: F.scaled_dot_product_attention(q4, kd[i % L], vd[i % L],
+                                                                  attn_mask=mask), 10 * L)
+        bms, by = bound_ms(nbytes, nops)
+        log(f"time {name} {dtype} B={B} H={H} R={R} len={n}: kernel {ms * 1e3:.2f} us, "
+            f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, masked sdpa"
+            f"{' over a pre-dequantized cache' if quant else ''} {lib_ms * 1e3:.2f} us, "
+            f"max_abs_err={err:.3e} ({card})")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "zig_gpt2_tpu_torch/ops/csrc/decode_attention.cu",
+            "replaces": f"zig_gpt2_tpu/ops/attention.py{replaces}",
+            "launches": counts["attention_int8_ring" if quant else "attention_ring"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms})
+        del args, kd, vd
     return entries
 
 
@@ -707,6 +1063,7 @@ def main() -> int:
         from zig_gpt2_tpu_torch.ops import sampling_kernel as sk
         from zig_gpt2_tpu_torch.quant import kernels as qk
         from zig_gpt2_tpu_torch.quant import quantize
+        from zig_gpt2_tpu_torch.runtime import batcher as batcher_mod
         from zig_gpt2_tpu_torch.runtime import engine as engine_mod
         from zig_gpt2_tpu_torch.runtime import sampling
     except ImportError as e:
@@ -736,6 +1093,8 @@ def main() -> int:
         check_attention(att, torch)
         phase("attention-int8: INT8-cache kernel vs plain at 1.5B shapes")
         check_attention_int8(att, ops, torch)
+        phase("attention-ring: ring kernels vs plain, B=16 R=1025")
+        check_attention_ring(att, ops, torch)
         phase("sampler: kernel vs plain, B=4 V=50257")
         check_sampler(sk, sampling, torch)
         vocab, merges = tok.train_bpe(DEMO_TEXT, vocab_size=512)
@@ -745,25 +1104,37 @@ def main() -> int:
         phase("trace: torch.profiler over 32 decode steps of the 124M path")
         trace_decode(gpt2, sampling, engine, ids, torch,
                      {"model": "124M", "weights": "float32", "kv_cache": "float32"}, card)
+        phase("serve-batcher-124M: ContinuousBatcher(batch_size=8), ring cache")
+        counts_b124 = serve_batcher_124m(pkg, batcher_mod, torch, engine, card)
         del engine
         phase("qmm: dequant-GEMV kernel vs plain on the 1.5B INT4 weights")
         config_1p5b, params_1p5b = build_1p5b(config_mod, gpt2, quantize, encoder, torch)
         check_qmm(qk, params_1p5b, torch)
         phase("serve-1.5B: GPT-2 1.5B INT4 + INT8 KV on "
               "InferenceEngine(kv_quant='int8', device='cuda')")
-        counts_1p5b, engine, ids = serve_1p5b(pkg, torch, encoder, config_1p5b,
-                                              params_1p5b, card)
+        counts_1p5b, engine, ids, floor = serve_1p5b(pkg, torch, encoder, config_1p5b,
+                                                     params_1p5b, card)
         phase("trace-1.5B: torch.profiler over 32 decode steps of the 1.5B path")
         trace_decode(gpt2, sampling, engine, ids, torch,
                      {"model": "1558M", "weights": "INT4 (lm_head INT8), bf16 activations",
                       "kv_cache": "int8"}, card)
         del engine
+        phase("serve-batcher-1.5B: ContinuousBatcher(batch_size=16, kv_quant='int8'), "
+              "ring cache")
+        counts_b1p5b, batcher = serve_batcher_1p5b(pkg, batcher_mod, torch, config_1p5b,
+                                                   params_1p5b, floor, card)
+        phase("trace-batcher-1.5B: torch.profiler over 32 batcher steps at B=16")
+        trace_batcher(batcher, config_mod, torch, card)
+        del batcher
         phase("times")
-        counts = {k: counts_124m[k] + counts_1p5b[k] for k in counts_124m}
-        log(f"launches on the main paths (124M + 1.5B serve phases): {counts}")
+        paths = (counts_124m, counts_b124, counts_1p5b, counts_b1p5b)
+        counts = {k: sum(c[k] for c in paths) for k in counts_124m}
+        log(f"launches on the main paths (124M and 1.5B serve and serve-batcher phases): "
+            f"{counts}")
         entries = time_float_kernels(att, sk, torch, counts, card)
         entries += time_quant_kernels(att, ops, qk, quantize, params_1p5b, torch, counts,
                                       card)
+        entries += time_ring_kernels(att, ops, torch, counts, card)
         phase("done")
     except Exception as e:  # a failed phase ends the run with its traceback
         import traceback

@@ -6,9 +6,11 @@ PyTorch, without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: attention, float or INT8 cache, f32 atol/rtol 2e-5 (the same
-f32 online softmax in another order), bf16 one bf16 ulp (rtol 8e-3, atol
-1e-4: kernel and plain version each round one f32 result to bf16 once);
+Tolerances: attention, float or INT8 cache, prefix or ring, f32 atol/rtol
+2e-5 (the same f32 online softmax in another order), bf16 one bf16 ulp
+(rtol 8e-3, atol 1e-4: kernel and plain version each round one f32 result
+to bf16 once); the ring kernel over caches rotated by start against the
+prefix kernel over the linear caches, bit for bit (one logical row order);
 qmm atol/rtol 2e-5 for f32 and bf16 activations alike (f32 sums in another
 order; a bf16 x times a bf16 or int8 weight is exact in f32); sampler ids
 identical.
@@ -26,6 +28,7 @@ from zig_gpt2_tpu_torch.ops import layers as ops
 from zig_gpt2_tpu_torch.ops import sampling_kernel as sk
 from zig_gpt2_tpu_torch.quant import kernels as qk
 from zig_gpt2_tpu_torch.quant import quantize as quant
+from zig_gpt2_tpu_torch.runtime.batcher import ContinuousBatcher
 from zig_gpt2_tpu_torch.runtime.engine import InferenceEngine
 
 pytestmark = pytest.mark.cuda
@@ -215,3 +218,104 @@ def test_engine_cuda_int4_int8kv_greedy_matches_cpu(dev):
     assert after[0] - before[0] == per_pass * (16 + 1)
     assert after[1] - before[1] == cfg.n_layers * 16
     assert after[2] == before[2]
+
+
+def _ring_grid(S, dev):
+    """Starts 0, mid, S-1 and one more against lengths 0, 1, S-1 and S in
+    every rotation: intervals that wrap, and one that fills the ring."""
+    starts = torch.tensor([0, S // 2, S - 1, 7], dtype=torch.int32, device=dev)
+    lengths = [0, 1, S - 1, S]
+    return [(starts, torch.tensor(lengths[r:] + lengths[:r], dtype=torch.int32, device=dev))
+            for r in range(4)]
+
+
+def _rotate(c, starts):
+    """Lane b (axis 1) of a stacked cache rolled by starts[b] on its S axis
+    (axis 3): linear row i lands at ring row (starts[b] + i) mod S."""
+    return torch.stack([torch.roll(c[:, b], int(st), dims=2)
+                        for b, st in enumerate(starts.tolist())], dim=1).contiguous()
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_attention_kernel_matches_plain(dev, D, dtype):
+    g = torch.Generator(device=dev).manual_seed(D + 2)
+    L, B, H, S = 3, 4, 5, 201
+    kc, vc = (torch.randn(L, B, H, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    q, kn, vn = (torch.randn(B, H, D, device=dev, generator=g).to(dtype) for _ in range(3))
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-4, 8e-3)
+    for start, length in _ring_grid(S, dev):
+        before = (att.decode_attention_deferred.launches,
+                  att.decode_attention_deferred.ring_launches)
+        got = att.decode_attention_deferred(q, kn, vn, kc, vc, length, layer=1, start=start)
+        want = att.decode_attention_deferred_plain(q, kn, vn, kc, vc, length, layer=1,
+                                                   start=start)
+        assert (att.decode_attention_deferred.launches,
+                att.decode_attention_deferred.ring_launches) == (before[0], before[1] + 1)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_quant_attention_kernel_matches_plain(dev, D, dtype):
+    g = torch.Generator(device=dev).manual_seed(D + 3)
+    S = 201
+    args = _quant_attention_inputs(dev, g, 3, 4, 5, S, D, dtype)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-4, 8e-3)
+    for start, length in _ring_grid(S, dev):
+        before = att.decode_attention_quant_deferred.ring_launches
+        got = att.decode_attention_quant_deferred(*args, length, layer=2, start=start)
+        want = att.decode_attention_quant_deferred_plain(*args, length, layer=2, start=start)
+        assert att.decode_attention_quant_deferred.ring_launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_ring_kernel_equals_prefix_kernel_on_rotated_cache(dev, quant):
+    """Bit equality, and NaN in every row outside the intervals (the
+    stale rows of a ring) reaches neither the output nor its scales."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    S, D = 64, 64
+    if quant:
+        args = _quant_attention_inputs(dev, g, 2, 4, 3, S, D, torch.float32)
+        fn, caches = att.decode_attention_quant_deferred, (5, 6, 7, 8)
+    else:
+        args = [torch.randn(4, 3, D, device=dev, generator=g) for _ in range(3)]
+        args += [torch.randn(2, 4, 3, S, D, device=dev, generator=g) for _ in range(2)]
+        fn, caches = att.decode_attention_deferred, (3, 4)
+    for start, length in _ring_grid(S, dev):
+        want = fn(*args, length, layer=1)
+        ring = list(args)
+        rel = (torch.arange(S, device=dev)[None, :] - start[:, None]) % S
+        outside = rel >= length[:, None]  # (B, S)
+        for i in caches:
+            ring[i] = _rotate(args[i], start)
+            if ring[i].is_floating_point():
+                mask = outside[None, :, None, :]
+                ring[i] = ring[i].masked_fill(mask[..., None] if ring[i].dim() == 5 else mask,
+                                              float("nan"))
+        assert torch.equal(fn(*ring, length, layer=1, start=start), want)
+
+
+def test_batcher_cuda_greedy_matches_cpu(dev):
+    """The nano batcher on the card, ring and INT8 cache, gives the CPU
+    run's greedy tokens and launches the ring kernel once per layer and
+    step, the prefix kernel never."""
+    cfg = tconfig.GPT2_NANO
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(7))
+    prompts = [[1, 2, 3], [9, 8, 7, 6, 5], [4], [11, 12, 13, 14]]
+    out = {}
+    for device in ("cpu", "cuda"):
+        b = ContinuousBatcher(cfg, params, batch_size=2, max_seq=32, prompt_buckets=(8,),
+                              sampling=SamplingConfig(temperature=0.0), kv_quant="int8",
+                              device=device)
+        before = (att.decode_attention_quant_deferred.launches,
+                  att.decode_attention_quant_deferred.ring_launches)
+        rids = [b.submit(p, 10) for p in prompts]
+        by_rid = {r.rid: r.generated for r in b.run()}
+        out[device] = [by_rid[r] for r in rids]
+        if device == "cuda":
+            assert att.decode_attention_quant_deferred.launches == before[0]
+            assert (att.decode_attention_quant_deferred.ring_launches - before[1]
+                    == cfg.n_layers * b.metrics.steps)
+    assert out["cuda"] == out["cpu"]

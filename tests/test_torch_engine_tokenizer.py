@@ -185,7 +185,7 @@ def test_cli_demo_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--quant", "w8a8"], ["--quant", "w8a8", "--kv-quant"],
-                                  ["--mesh", "1x2"], ["--batch-file", "x"],
+                                  ["--mesh", "1x2"], ["--batch-file", "x", "--prefix", "sys"],
                                   ["--draft-model", "ngram"]])
 def test_cli_refuses_later_slices(flag):
     with pytest.raises(SystemExit, match="not in the PyTorch port yet"):

@@ -102,7 +102,7 @@ def test_causal_attention(rng, masked):
 @pytest.mark.parametrize("length", [[3, 16], [1, 7], 5])
 def test_decode_valid_mask(length):
     want = jops._decode_valid_mask(16, jnp.asarray(length, jnp.int32))
-    got = tops._decode_valid_mask(16, torch.tensor(length, dtype=torch.int32))
+    got = tops.decode_valid_mask(16, torch.tensor(length, dtype=torch.int32))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

@@ -3,12 +3,16 @@
 Same interface and defaults as ``zig_gpt2_tpu.cli`` (temperature 0.8,
 running to the end of the context window), for what this port serves:
 GPT-2 on one device, float or INT8/INT4 weights (``--quant``), float or
-INT8 KV cache (``--kv-quant``), single prompt, streamed to stdout.
+INT8 KV cache (``--kv-quant``): one prompt streamed to stdout, or a file of
+prompts served through the continuous batcher (``--batch-file``, one JSON
+line ``{"prompt", "completion"}`` per finished request).
 
 Examples::
 
     python -m zig_gpt2_tpu_torch.cli --demo "the quick brown"
     python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo "the quick"
+    python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo \\
+        --batch-file prompts.txt --batch-slots 16 --max-tokens 64 --metrics
     python -m zig_gpt2_tpu_torch.cli --model 124M --weights models/124M/raw \\
         --encoder-dir models/124M "Hello, my name is"
 """
@@ -25,7 +29,7 @@ from pathlib import Path
 # of the port that brings each.
 _LATER = {
     "mesh": "tensor-parallel serving comes with the multi-GPU slice",
-    "batch_file": "continuous batching comes with the batcher slice",
+    "prefix": "prefix caching comes with the extend/speculation slice",
     "draft_model": "speculative decoding comes with the extend/speculation slice",
 }
 
@@ -56,8 +60,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant", default=None, choices=["int8", "int4", "w8a8"],
                    help="weight-only INT8 (per-channel) or INT4 (grouped); the lm_head is INT8")
     p.add_argument("--kv-quant", action="store_true", help="INT8 KV cache")
+    p.add_argument("--batch-file", default=None, metavar="FILE",
+                   help="serve a file of prompts (one per line) through the "
+                        "continuous-batching scheduler instead of a single prompt")
+    p.add_argument("--batch-slots", type=int, default=8,
+                   help="decode slots for --batch-file serving")
+    p.add_argument("--decode-chunk", type=int, default=None,
+                   help="decode steps per host sync (default 1)")
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--batch-file", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--prefix", default=None, help=argparse.SUPPRESS)
     p.add_argument("--draft-model", default=None, help=argparse.SUPPRESS)
     return p
 
@@ -73,6 +84,33 @@ def _load_encoder(args):
                               mode="bpe" if bpe.exists() else "greedy")
 
 
+def demo_model(args, dtype):
+    """--demo: (config, encoder, params) with random weights from
+    ``args.seed`` and a BPE trained on a fixed text plus the prompt: a tiny
+    model, or ``args.model``'s shape with the vocab rows past the
+    tokenizer's masked."""
+    import torch
+
+    from zig_gpt2_tpu_torch.config import GPTConfig, get_config
+    from zig_gpt2_tpu_torch.models import gpt2
+    from zig_gpt2_tpu_torch.tokenizer import Encoder, train_bpe
+
+    demo_text = (
+        "the quick brown fox jumps over the lazy dog. "
+        "hello world, streaming tokens from a tiny random model. "
+    ) * 4 + (args.prompt or "")
+    vocab, merges = train_bpe(demo_text, vocab_size=320)
+    if args.model is None:
+        config = GPTConfig(vocab_size=len(vocab), context_size=256,
+                           n_layers=2, n_heads=4, n_embed=128)
+    else:
+        full = get_config(args.model)
+        config = dataclasses.replace(full, vocab_size=len(vocab),
+                                     padded_vocab_size=full.vocab_rows)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    return config, Encoder(vocab, merges), gpt2.init_params(config, gen, dtype)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     for name, why in _LATER.items():
@@ -81,13 +119,12 @@ def main(argv=None) -> None:
     if args.quant == "w8a8":
         sys.exit("error: --quant w8a8 is not in the PyTorch port yet: the w8a8 "
                  "variant of the qmm kernel comes with a later slice")
-    if args.prompt is None:
+    if args.prompt is None and args.batch_file is None:
         sys.exit('error: missing prompt (usage: zig-gpt2-torch "<prompt>")')
 
     import torch
 
-    from zig_gpt2_tpu_torch.config import GPTConfig, SamplingConfig, get_config
-    from zig_gpt2_tpu_torch.models import gpt2
+    from zig_gpt2_tpu_torch.config import SamplingConfig, get_config
     from zig_gpt2_tpu_torch.runtime.engine import GenerationMetrics, InferenceEngine
 
     if args.device == "cuda":
@@ -99,23 +136,7 @@ def main(argv=None) -> None:
     dtype = torch.float32 if args.dtype == "fp32" else torch.bfloat16
 
     if args.demo:
-        from zig_gpt2_tpu_torch.tokenizer import Encoder, train_bpe
-
-        demo_text = (
-            "the quick brown fox jumps over the lazy dog. "
-            "hello world, streaming tokens from a tiny random model. "
-        ) * 4 + args.prompt
-        vocab, merges = train_bpe(demo_text, vocab_size=320)
-        encoder = Encoder(vocab, merges)
-        if args.model is None:
-            config = GPTConfig(vocab_size=len(vocab), context_size=256,
-                               n_layers=2, n_heads=4, n_embed=128)
-        else:  # the named shape; vocab rows past the tokenizer's are masked
-            full = get_config(args.model)
-            config = dataclasses.replace(full, vocab_size=len(vocab),
-                                         padded_vocab_size=full.vocab_rows)
-        gen = torch.Generator(device=args.device).manual_seed(args.seed)
-        params = gpt2.init_params(config, gen, dtype)
+        config, encoder, params = demo_model(args, dtype)
     else:
         config = get_config(args.model or "124M")
         encoder = _load_encoder(args)
@@ -144,9 +165,30 @@ def main(argv=None) -> None:
         else:
             stop_tokens = [int(args.stop)]
 
+    kv_quant = "int8" if args.kv_quant else None
+    device_name = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    if args.batch_file is not None:
+        from zig_gpt2_tpu_torch.runtime.batcher import ContinuousBatcher
+
+        prompts = [line for line in Path(args.batch_file).read_text().splitlines() if line]
+        batcher = ContinuousBatcher(config, params, batch_size=args.batch_slots,
+                                    max_seq=args.max_seq, sampling=sampling,
+                                    kv_quant=kv_quant, decode_chunk=args.decode_chunk or 1,
+                                    device=args.device)
+        rid_to_prompt = {batcher.submit(encoder.encode(p), args.max_tokens, stop_tokens): p
+                         for p in prompts}
+        for req in batcher.run():
+            print(json.dumps({"prompt": rid_to_prompt[req.rid],
+                              "completion": encoder.decode(req.generated)}))
+        if args.metrics:
+            print(json.dumps({"device": device_name,
+                              **batcher.metrics.as_dict(args.batch_slots)}),
+                  file=sys.stderr)
+        return
+
     engine = InferenceEngine(config, params, encoder, max_seq=args.max_seq,
-                             device=args.device,
-                             kv_quant="int8" if args.kv_quant else None)
+                             decode_chunk=args.decode_chunk, device=args.device,
+                             kv_quant=kv_quant)
     metrics = GenerationMetrics()
     print(args.prompt, end="", flush=True)
     engine.generate_text(args.prompt, args.max_tokens, sampling, stream_to=sys.stdout,
@@ -154,7 +196,7 @@ def main(argv=None) -> None:
     print()
     if args.metrics:
         print(json.dumps({
-            "device": (torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"),
+            "device": device_name,
             "prompt_tokens": metrics.prompt_tokens,
             "generated_tokens": metrics.generated_tokens,
             "prefill_ms": round(metrics.prefill_ms, 3),

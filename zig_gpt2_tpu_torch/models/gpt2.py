@@ -12,12 +12,19 @@ INT8/INT4 weights, float or INT8 KV cache:
   (L, B, H, S). ``prefill`` and ``decode_step`` update it IN PLACE and
   return the same dict: the PyTorch analogue of the JAX package donating
   the cache to jit. A caller that needs the old cache must clone it first.
+- Ring cache (``config.ring_cache``, the continuous batcher's layout): a
+  lane's ``length`` rows are the interval [start, start + length) mod S,
+  and every lane's next row goes to one shared write row ``wptr``; the
+  cache adds ``start`` (B,) int32 and ``wptr`` 0-d int32, both kept on the
+  cache's device (read on the host they would cost a sync per layer).
+  ``prefill`` stays linear; the batcher rotates its lanes in on admission.
 - ``decode_step`` runs the deferred order of the JAX kernel path: each
   layer attends over the ``length`` old rows plus the current token's K/V
   as a self-term (``ops.attention.decode_attention_deferred``, or
   ``decode_attention_quant_deferred`` over the current rows already
-  quantized: the CUDA kernel on the card, its plain version on the CPU),
-  then appends the row. The kernel never reads the row it appends.
+  quantized: the CUDA kernel on the card, its plain version on the CPU;
+  with ``start=`` under the ring), then appends the row. The kernel never
+  reads the row it appends.
 - A linear stored quantized (``quant.quantize``) runs ``quantized_linear``
   (the dequant-GEMV kernel ``qmm`` up to 256 rows); the layer loop passes
   it the views ``qw[idx]``/``scale[idx]``, which copy nothing.
@@ -89,14 +96,18 @@ def init_params(config: GPTConfig, generator: torch.Generator,
 def init_kv_cache(config: GPTConfig, batch_size: int = 1,
                   max_seq: Optional[int] = None,
                   dtype: torch.dtype = torch.float32,
-                  device="cpu", quant: Optional[str] = None) -> KVCache:
+                  device="cpu", quant: Optional[str] = None,
+                  ring: Optional[bool] = None) -> KVCache:
     """Preallocate the fixed-shape KV cache, unpacked layout: float in
     ``dtype``, or with ``quant="int8"`` int8 rows with f32 per-(token,
-    head) scale planes (``dtype`` is then unused)."""
-    if config.kv_packed or config.ring_cache:
-        raise NotImplementedError("packed and ring KV caches are not ported "
-                                  "(packed, with its per-pair INT8 scales, and "
-                                  "ring come with later slices)")
+    head) scale planes (``dtype`` is then unused). A ring cache
+    (``config.ring_cache``, or ``ring`` when given: ``ring=False`` builds
+    the linear lane caches that admissions prefill under a ring config)
+    adds ``start`` (B,) and ``wptr`` (), int32, zero."""
+    if config.kv_packed:
+        raise NotImplementedError("the packed KV cache is not ported (it comes, "
+                                  "with its per-pair INT8 scales, with a later "
+                                  "slice)")
     if quant not in (None, "int8"):
         raise ValueError(f"unknown KV quantization {quant!r}")
     max_seq = max_seq or config.context_size
@@ -110,6 +121,9 @@ def init_kv_cache(config: GPTConfig, batch_size: int = 1,
     else:
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if config.ring_cache if ring is None else ring:
+        cache["start"] = torch.zeros((batch_size,), dtype=torch.int32, device=device)
+        cache["wptr"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
 
 
@@ -160,16 +174,24 @@ def _put_row_stacked(stack: torch.Tensor, row: torch.Tensor, idx: int,
                      pos: torch.Tensor) -> None:
     """Write (B, H, D) rows into the stacked (L, B, H, S, D) cache at
     (idx, b, :, pos[b], :), or (B, H) scales into a stacked (L, B, H, S)
-    plane at (idx, b, :, pos[b]), in place, with one indexed assignment."""
+    plane at (idx, b, :, pos[b]), in place, with one indexed write. A 0-d
+    ``pos`` (the ring's shared write row) puts every lane's row at that one
+    row with one ``index_copy_``, the index staying on the device."""
+    if pos.dim() == 0:
+        stack[idx].index_copy_(2, pos.view(1).long(), row.unsqueeze(2).to(stack.dtype))
+        return
     lanes = torch.arange(row.shape[0], device=stack.device)
     stack[idx, lanes, :, pos.long()] = row.to(stack.dtype)
 
 
 def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
-                  pos: torch.Tensor, config: GPTConfig) -> torch.Tensor:
+                  pos: torch.Tensor, start: Optional[torch.Tensor],
+                  wpos: torch.Tensor, config: GPTConfig) -> torch.Tensor:
     """One block for one decode token per lane. ``pos`` (B,) is each lane's
-    count of valid cache rows, which is also the row this token's K/V is
-    written to. Attends first (deferred), then appends in place."""
+    count of valid cache rows: the prefix [0, pos), or with ``start`` the
+    ring interval. ``wpos`` is the row this token's K/V is written to, per
+    lane (B,) or shared (). Attends first (deferred), then appends in
+    place."""
     bp = _layer(blocks, idx)
     h = ops.layer_norm(x, bp["ln_1"]["w"], bp["ln_1"]["b"], config.layer_norm_eps)
     q, k, v = _qkv(bp["attn"], h, config.attn_heads)  # (B, H, D)
@@ -177,14 +199,14 @@ def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
         (kq, ks), (vq, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
         attn = decode_attention_quant_deferred(
             q, kq, ks, vq, vs, caches["k"], caches["k_scale"], caches["v"],
-            caches["v_scale"], pos, layer=idx)
+            caches["v_scale"], pos, layer=idx, start=start)
         for name, row in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
-            _put_row_stacked(caches[name], row, idx, pos)
+            _put_row_stacked(caches[name], row, idx, wpos)
     else:
         attn = decode_attention_deferred(q, k, v, caches["k"], caches["v"], pos,
-                                         layer=idx)
-        _put_row_stacked(caches["k"], k, idx, pos)
-        _put_row_stacked(caches["v"], v, idx, pos)
+                                         layer=idx, start=start)
+        _put_row_stacked(caches["k"], k, idx, wpos)
+        _put_row_stacked(caches["v"], v, idx, wpos)
     x = x + _linear(bp["attn"]["c_proj"], attn.reshape(x.shape[0], -1))
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
     h = ops.gelu(_linear(bp["mlp"]["c_fc"], h))
@@ -255,11 +277,27 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
 def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
                 config: GPTConfig) -> Tuple[KVCache, torch.Tensor]:
     """One autoregressive step: (B,) tokens -> (cache, (B, vocab) logits).
-    The cache is updated in place (see the module docstring)."""
+    The cache is updated in place (see the module docstring).
+
+    A lane may run past its window while idle (the batcher keeps decoding
+    a retired slot and discards its tokens); its position embedding index
+    clamps at the table's last row and, in a linear cache, its write row at
+    the cache's last row, as the JAX package's dynamic_update_slice
+    clamps. Under the ring the length clamps at rows - 1, so an interval
+    never reaches the write row, and ``wptr`` advances by one."""
     pos = cache["length"]
-    x = _embed(params, tokens, pos)
+    rows = cache["k"].shape[-2]
+    x = _embed(params, tokens, pos.clamp(max=params["wpe"].shape[0] - 1))
+    if config.ring_cache:
+        start, wpos = cache["start"], cache["wptr"]
+    else:
+        start, wpos = None, pos.clamp(max=rows - 1)
     for idx in range(config.n_layers):
-        x = _block_decode(x, params["blocks"], idx, cache, pos, config)
+        x = _block_decode(x, params["blocks"], idx, cache, pos, start, wpos, config)
     x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
-    cache["length"] = pos + 1
+    if config.ring_cache:
+        cache["length"] = (pos + 1).clamp(max=rows - 1)
+        cache["wptr"] = (wpos + 1) % rows
+    else:
+        cache["length"] = pos + 1
     return cache, _lm_head(params, x, config)

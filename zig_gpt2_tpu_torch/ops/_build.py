@@ -36,9 +36,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     "zg2_decode_attention_deferred": [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _F, _I, _P],
+    "zg2_decode_attention_deferred_ring": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _I, _F, _I, _P],
     "zg2_decode_attention_quant_deferred": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                             _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                             _P],
+    "zg2_decode_attention_quant_deferred_ring": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                                 _P, _P, _P, _P, _I, _I, _I, _I,
+                                                 _I, _F, _I, _P],
     "zg2_sample_categorical": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "zg2_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -2,18 +2,30 @@
 // float cache or an INT8 cache.
 //
 // Replaces: zig_gpt2_tpu/ops/attention.py, decode_attention_deferred_fused
-// and decode_attention_quant_deferred_fused (body _build_kernel, unpacked,
-// prefix mask). Same contract: q, k_new, v_new (B, H, D); stacked caches
-// (L, B, H, S, D); length (B,) int32; layer index. Output (B, H, D) in q's
-// dtype:
+// and decode_attention_quant_deferred_fused (body _build_kernel, unpacked),
+// with the prefix mask and with the ring interval (start=). Same contract:
+// q, k_new, v_new (B, H, D); stacked caches (L, B, H, S, D); length (B,)
+// int32; layer index; for the ring variant start (B,) int32. Output
+// (B, H, D) in q's dtype:
 //
-//   softmax over {q.k_new * scale} U {q.k_cache[layer, b, h, s] * scale : s < length[b]}
-//   applied to {v_new} U {v_cache[layer, b, h, s]}
+//   softmax over {q.k_new * scale} U {q.k_cache[layer, b, h, row(i)] * scale : i < length[b]}
+//   applied to {v_new} U {v_cache[layer, b, h, row(i)]}
+//
+// with row(i) = i (prefix) or (start[b] + i) mod S (ring: the serving ring
+// cache keeps a lane's rows in the interval [start, start + length) mod S).
 //
 // The running max, denominator and V accumulator are f32 and are seeded with
 // the self-term exactly as the TPU kernel seeds them (m = q.k_new * scale,
-// den = 1, acc = v_new). Rows at or past length[b] are never read: they hold
-// stale data and, in the deferred order, the row being appended this step.
+// den = 1, acc = v_new). Rows outside a lane's length rows are never read:
+// they hold stale data and, in the deferred order, the row being appended
+// this step.
+//
+// Ring (RING): the block walks the logical rows i in [0, len) in the same
+// order, with the same warp and tile split, as the prefix kernel, and reads
+// physical row (start + i) mod S, computed per row since a tile may straddle
+// the wrap. So a ring lane reads exactly the bytes a prefix lane of the same
+// length reads (no mask scan over S), and a ring cache that holds a linear
+// cache's rows rotated by start gives a bit-identical result.
 //
 // INT8 cache (QUANT): k_new, v_new and the caches are int8, with f32 scales
 // ks_new, vs_new (B, H) and planes k_scale, v_scale (L, B, H, S) read at the
@@ -40,8 +52,8 @@
 // memory.
 //
 // What it leaves to a later PR: the grid is B * H blocks, 12 at 124M and 25
-// at 1.5B for B = 1, so most of the 132 SMs idle and one block's latency
-// sets the time (an INT8 row is 64 bytes, 2 bytes per lane: the loads are
+// at 1.5B for B = 1 (400 at 1.5B for the batcher's B = 16), so at B = 1 most
+// of the 132 SMs idle and one block's latency sets the time (an INT8 row is 64 bytes, 2 bytes per lane: the loads are
 // narrow too). The fix is a split-S flash-decode: several blocks per
 // (b, h), each over a range of rows, and a combine pass over their
 // (m, den, acc) partials.
@@ -73,8 +85,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // T: type of q and out. C: type of k_new, v_new and the caches (T, or int8_t
-// when QUANT). DPL: D / 32.
-template <typename T, typename C, bool QUANT, int DPL>
+// when QUANT). RING: read the interval from start (else start is unused).
+// DPL: D / 32.
+template <typename T, typename C, bool QUANT, bool RING, int DPL>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_deferred_kernel(const T* __restrict__ q,
                                  const C* __restrict__ k_new,
@@ -86,6 +99,7 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
                                  const C* __restrict__ v_cache,
                                  const float* __restrict__ v_scale,
                                  const int32_t* __restrict__ length,
+                                 const int32_t* __restrict__ start,
                                  T* __restrict__ out,
                                  int B, int H, int S, int layer, float scale) {
   constexpr int D = DPL * 32;
@@ -103,6 +117,11 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
   const float* vsc = QUANT ? v_scale + plane_off * S : nullptr;
   int len = length[b];
   len = len < 0 ? 0 : (len > S ? S : len);
+  int st = 0;  // physical row of logical row 0
+  if (RING) {
+    st = start[b] % S;
+    if (st < 0) st += S;
+  }
 
   float qf[DPL];
 #pragma unroll
@@ -135,14 +154,19 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const bool ok = t0 + r < len;
-      const int64_t o = (int64_t)(t0 + r) * D + lane * DPL;
+      int row = t0 + r;
+      if (RING) {
+        row += st;  // below 2 S for a valid row: one subtraction wraps it
+        if (row >= S) row -= S;
+      }
+      const int64_t o = (int64_t)row * D + lane * DPL;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
         kr[r][i] = ok ? to_f32(kc[o + i]) : 0.f;
         vr[r][i] = ok ? to_f32(vc[o + i]) : 0.f;
       }
-      ks[r] = QUANT && ok ? ksc[t0 + r] : 1.f;
-      vs[r] = QUANT && ok ? vsc[t0 + r] : 1.f;
+      ks[r] = QUANT && ok ? ksc[row] : 1.f;
+      vs[r] = QUANT && ok ? vsc[row] : 1.f;
     }
     float s[kRows];
     float tmax = -INFINITY;
@@ -199,20 +223,23 @@ decode_attention_deferred_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, typename C, bool QUANT>
+template <typename T, typename C, bool QUANT, bool RING>
 cudaError_t launch(const void* q, const void* k_new, const void* ks_new,
                    const void* v_new, const void* vs_new, const void* k_cache,
                    const void* k_scale, const void* v_cache, const void* v_scale,
-                   const void* length, void* out, int B, int H, int S, int D,
-                   int layer, float scale, cudaStream_t stream) {
+                   const void* length, const void* start, void* out, int B,
+                   int H, int S, int D, int layer, float scale,
+                   cudaStream_t stream) {
+  if (RING && S <= 0) return cudaErrorInvalidValue;  // start % S
   const dim3 grid(H, B);
   const dim3 block(kWarps * 32);
-#define ZG2_LAUNCH(DPL)                                                         \
-  decode_attention_deferred_kernel<T, C, QUANT, DPL><<<grid, block, 0, stream>>>( \
-      (const T*)q, (const C*)k_new, (const float*)ks_new, (const C*)v_new,      \
-      (const float*)vs_new, (const C*)k_cache, (const float*)k_scale,           \
-      (const C*)v_cache, (const float*)v_scale, (const int32_t*)length,         \
-      (T*)out, B, H, S, layer, scale)
+#define ZG2_LAUNCH(DPL)                                                          \
+  decode_attention_deferred_kernel<T, C, QUANT, RING, DPL>                       \
+      <<<grid, block, 0, stream>>>(                                              \
+          (const T*)q, (const C*)k_new, (const float*)ks_new, (const C*)v_new,   \
+          (const float*)vs_new, (const C*)k_cache, (const float*)k_scale,        \
+          (const C*)v_cache, (const float*)v_scale, (const int32_t*)length,      \
+          (const int32_t*)start, (T*)out, B, H, S, layer, scale)
   switch (D) {
     case 32: ZG2_LAUNCH(1); break;
     case 64: ZG2_LAUNCH(2); break;
@@ -224,6 +251,43 @@ cudaError_t launch(const void* q, const void* k_new, const void* ks_new,
   return cudaGetLastError();
 }
 
+template <bool RING>
+int float_cache(const void* q, const void* k_new, const void* v_new,
+                const void* k_cache, const void* v_cache, const void* length,
+                const void* start, void* out, int B, int H, int S, int D,
+                int layer, float scale, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float, float, false, RING>(q, k_new, nullptr, v_new, nullptr,
+                                             k_cache, nullptr, v_cache, nullptr,
+                                             length, start, out, B, H, S, D,
+                                             layer, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, false, RING>(
+        q, k_new, nullptr, v_new, nullptr, k_cache, nullptr, v_cache, nullptr,
+        length, start, out, B, H, S, D, layer, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+template <bool RING>
+int int8_cache(const void* q, const void* k_new, const void* ks_new,
+               const void* v_new, const void* vs_new, const void* k_cache,
+               const void* k_scale, const void* v_cache, const void* v_scale,
+               const void* length, const void* start, void* out, int B, int H,
+               int S, int D, int layer, float scale, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float, int8_t, true, RING>(q, k_new, ks_new, v_new, vs_new,
+                                             k_cache, k_scale, v_cache, v_scale,
+                                             length, start, out, B, H, S, D,
+                                             layer, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t, true, RING>(
+        q, k_new, ks_new, v_new, vs_new, k_cache, k_scale, v_cache, v_scale,
+        length, start, out, B, H, S, D, layer, scale, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype code, shared by q, k_new, v_new and the caches: 0 = float32,
@@ -232,16 +296,18 @@ extern "C" int zg2_decode_attention_deferred(
     const void* q, const void* k_new, const void* v_new, const void* k_cache,
     const void* v_cache, const void* length, void* out, int B, int H, int S,
     int D, int layer, float scale, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float, float, false>(q, k_new, nullptr, v_new, nullptr, k_cache,
-                                       nullptr, v_cache, nullptr, length, out, B,
-                                       H, S, D, layer, scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(
-        q, k_new, nullptr, v_new, nullptr, k_cache, nullptr, v_cache, nullptr,
-        length, out, B, H, S, D, layer, scale, st);
-  return cudaErrorInvalidValue;
+  return float_cache<false>(q, k_new, v_new, k_cache, v_cache, length, nullptr,
+                            out, B, H, S, D, layer, scale, dtype, stream);
+}
+
+// The ring variant: start (B,) int32, each lane's first physical row.
+extern "C" int zg2_decode_attention_deferred_ring(
+    const void* q, const void* k_new, const void* v_new, const void* k_cache,
+    const void* v_cache, const void* length, const void* start, void* out,
+    int B, int H, int S, int D, int layer, float scale, int dtype,
+    void* stream) {
+  return float_cache<true>(q, k_new, v_new, k_cache, v_cache, length, start,
+                           out, B, H, S, D, layer, scale, dtype, stream);
 }
 
 // INT8 cache: k_new, v_new and the caches int8; ks_new, vs_new (B, H) and
@@ -252,14 +318,19 @@ extern "C" int zg2_decode_attention_quant_deferred(
     const void* vs_new, const void* k_cache, const void* k_scale,
     const void* v_cache, const void* v_scale, const void* length, void* out,
     int B, int H, int S, int D, int layer, float scale, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float, int8_t, true>(q, k_new, ks_new, v_new, vs_new, k_cache,
-                                       k_scale, v_cache, v_scale, length, out, B,
-                                       H, S, D, layer, scale, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, int8_t, true>(
-        q, k_new, ks_new, v_new, vs_new, k_cache, k_scale, v_cache, v_scale,
-        length, out, B, H, S, D, layer, scale, st);
-  return cudaErrorInvalidValue;
+  return int8_cache<false>(q, k_new, ks_new, v_new, vs_new, k_cache, k_scale,
+                           v_cache, v_scale, length, nullptr, out, B, H, S, D,
+                           layer, scale, dtype, stream);
+}
+
+// The INT8 ring variant: start (B,) int32, as in the float one.
+extern "C" int zg2_decode_attention_quant_deferred_ring(
+    const void* q, const void* k_new, const void* ks_new, const void* v_new,
+    const void* vs_new, const void* k_cache, const void* k_scale,
+    const void* v_cache, const void* v_scale, const void* length,
+    const void* start, void* out, int B, int H, int S, int D, int layer,
+    float scale, int dtype, void* stream) {
+  return int8_cache<true>(q, k_new, ks_new, v_new, vs_new, k_cache, k_scale,
+                          v_cache, v_scale, length, start, out, B, H, S, D,
+                          layer, scale, dtype, stream);
 }

@@ -96,13 +96,20 @@ def quantize_kv(x: torch.Tensor):
     return q, scale
 
 
-def _decode_valid_mask(max_seq: int, length: torch.Tensor) -> torch.Tensor:
-    """(B, 1, S) bool mask of the valid prefix rows [0, length[b]) (a
-    scalar length gives (1, 1, S))."""
+def decode_valid_mask(max_seq: int, length: torch.Tensor,
+                      start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 1, S) bool mask of each lane's valid cache rows (a scalar length
+    gives (1, 1, S)). Without ``start``: the prefix [0, length[b]). With
+    ``start`` (B,): the ring interval [start[b], start[b] + length[b]) mod
+    S, as the ring cache holds a lane's rows."""
     pos = torch.arange(max_seq, device=length.device)
-    if length.dim() == 0:
-        return (pos < length)[None, None, :]
-    return (pos[None, :] < length[:, None])[:, None, :]
+    if start is None:
+        if length.dim() == 0:
+            return (pos < length)[None, None, :]
+        return (pos[None, :] < length[:, None])[:, None, :]
+    rel = pos[None, :] - start.to(length.device)[:, None]  # (B, S)
+    rel = rel + torch.where(rel < 0, max_seq, 0)
+    return (rel < length[:, None])[:, None, :]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -111,7 +118,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``length`` rows are valid (the current row already appended)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhd,bhsd->bhs", q.float(), k_cache.float()) * scale
-    valid = _decode_valid_mask(k_cache.shape[-2], length)
+    valid = decode_valid_mask(k_cache.shape[-2], length)
     scores = torch.where(valid, scores, MASK_VALUE)
     probs = softmax(scores, -1)
     out = torch.einsum("bhs,bhsd->bhd", probs.to(v_cache.dtype).float(),

@@ -31,13 +31,18 @@ def params_from_numpy(tree, device="cpu", dtype=None) -> Params:
     the float weights only: the int8 ``qw``/``qw4`` leaves and the f32
     quantization ``scale`` leaves keep their dtype, as both packages store
     them. (A bfloat16 leaf goes through f32, since torch cannot read that
-    numpy dtype, and comes back bfloat16.)"""
+    numpy dtype, and comes back bfloat16.)
+
+    A KV cache crosses the same way: int8 rows, the f32 ``k_scale`` and
+    ``v_scale`` planes, the int32 ``length`` and, for a ring cache,
+    ``start`` (B,) and the 0-d ``wptr``, each in its own dtype."""
 
     def leaf(a, name):
         a = np.asarray(a)
         src_bf16 = a.dtype.name == "bfloat16"
         t = torch.from_numpy(np.array(a, dtype=np.float32 if src_bf16 else a.dtype))
-        if dtype is not None and t.is_floating_point() and name != "scale":
+        keep = str(name).endswith("scale")  # quantization scales and cache planes
+        if dtype is not None and t.is_floating_point() and not keep:
             want = dtype
         else:
             want = torch.bfloat16 if src_bf16 else t.dtype
