@@ -57,7 +57,8 @@ prints no result line:
                attention none. The greedy request is teacher-forced through
                the same quantized weights with f32 float leaves on the card
                and on the CPU (weights dequantized to f32, plain attention),
-               and the logits compared.
+               and the logits compared, over the first 12 of the 48 layers
+               (phase 17 compares all 48).
 12. trace-1.5B - as 8, for the 1.5B INT4 + INT8-KV decode step (bf16).
 13. serve-batcher-1.5B - the 1.5B model of phase 11 on
                ``ContinuousBatcher(batch_size=16, max_seq=256, decode_chunk=1,
@@ -67,17 +68,45 @@ prints no result line:
                write pointer wraps under the greedy half. Every request ends
                at its budget; launch counts match the steps and prefills;
                the greedy half served again on a linear cache (ZG2_RING=0)
-               gives the same tokens; four greedy requests match the
-               engine's up to a near-tie.
+               gives the same tokens; four greedy requests are the
+               model's greedy tokens at the batcher's own prefill and batch
+               shapes, bit for bit (teacher-forced replay), and match the
+               engine's up to a near-tie (a wider gap is taken as the two
+               shapes' roundoff).
 14. trace-batcher-1.5B - ``torch.profiler`` over 32 batcher steps at full
                occupancy (B=16): kernels per step, the device's busy and
                idle share, the top kernels, and the host syncs per step
                (``torch.cuda.set_sync_debug_mode``), which must be 1.
-15. times    - each kernel's device time per call at the main paths'
+15. attention-packed - the head-pair-packed bodies (two heads of 64 per
+               128-wide row, per-pair INT8 scales) against their plain
+               versions: float f32 and bf16 at 124M shapes (12 heads, Hp=6),
+               INT8 with f32 and bf16 q at 1.5B shapes (25 heads: Hp=13 with a
+               phantom head), B=1 and B=16, R=1025, lengths 0-1024, prefix
+               and ring with wrapping intervals, layers 0 and last; packed
+               ring over rotated caches bit-equal to packed prefix; float
+               packed against unpacked over the same rows; the appended forms
+               (no self-term, unpacked and packed) against their plain
+               versions and against the deferred kernel after the append.
+16. serve-packed-124M - phase 7's model and requests on an engine that
+               chose the packed layout itself (the card's default): packed
+               launches equal the steps, teacher-forced logits vs the CPU;
+               then phase 9's batcher on the packed layout (the float packed
+               ring kernel, 12 launches per decode step).
+17. serve-packed-1.5B - phase 11 on the packed layout (per-pair INT8
+               scales, the JAX package's served quantization; the phantom
+               head padded into the weights once, at construction).
+18. serve-batcher-packed-1.5B - phase 13 on the packed layout: packed ring
+               launches equal the steps, ring vs linear greedy identity,
+               engine near-tie check; then the layout A/B: 32 traced steps at
+               full occupancy on the packed and on an unpacked batcher, device
+               busy ms and attention kernel us per step for each.
+19. times    - each kernel's device time per call at the main paths'
                shapes (CUDA-graph replay of many calls), its bound, its
                plain version's time and one PyTorch library call computing
                the same function (timed only, never used by the port).
 
+Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-18
+the packed one, which the card picks by itself at head_dim 64.
 fp32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -85,8 +114,10 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -242,7 +273,7 @@ def ring_lanes(B: int, R: int, lengths, torch):
     """(start, length) (B,) int32 on the card: lane 0 starts at 0, lane 1
     at R-1, the others spread over the ring; lengths cycle over
     ``lengths``, so that many intervals wrap."""
-    starts = [0, R - 1] + [(b * 397) % R for b in range(2, B)]
+    starts = ([0, R - 1] + [(b * 397) % R for b in range(2, B)])[:B]
     lens = [lengths[b % len(lengths)] for b in range(B)]
     return (torch.tensor(starts, dtype=torch.int32, device="cuda"),
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
@@ -290,6 +321,129 @@ def check_attention_ring(att, ops, torch) -> None:
                     raise AssertionError("the ring kernel over rotated caches differs from "
                                          "the prefix kernel over the linear caches")
             del args, ring
+
+
+def packed_inputs(ops, torch, g, L, B, HP, S, dtype, quant):
+    """Packed operands of the deferred wrappers: q, the self-term rows and
+    the caches, rows of 128 (two heads of 64), with per-pair scales for
+    INT8. Returns (args, indices of the cache operands)."""
+    if quant:
+        return int8_attention_inputs(ops, torch, g, L, B, HP, S, 128, dtype), (5, 6, 7, 8)
+    args = [torch.randn(B, HP, 128, device="cuda", generator=g).to(dtype) for _ in range(3)]
+    args += [torch.randn(L, B, HP, S, 128, device="cuda", generator=g).to(dtype)
+             for _ in range(2)]
+    return args, (3, 4)
+
+
+def appended_args(args, quant):
+    """The appended form's operands out of the deferred form's: q and the
+    caches."""
+    return [args[0]] + (args[5:] if quant else args[3:])
+
+
+def append_rows(args, quant, layer, rows, torch):
+    """The deferred operands' current rows written at cache row rows[b] of
+    ``layer`` (into copies of that layer, as a 1-layer stack): the appended
+    form's caches after the append."""
+    lanes = torch.arange(args[0].shape[0], device="cuda")
+    pairs = ((5, 1), (6, 2), (7, 3), (8, 4)) if quant else ((3, 1), (4, 2))
+    out = {}
+    for ci, ri in pairs:
+        stack = args[ci][layer:layer + 1].clone()
+        stack[0, lanes, :, rows.long()] = args[ri]
+        out[ci] = stack
+    return [args[0]] + [out[ci] for ci, _ in pairs]
+
+
+def check_attention_packed(att, ops, torch) -> None:
+    """Phase 15."""
+    R = RING_ROWS
+    for label, L, HP, quant in (("float, 124M shapes", 12, 6, False),
+                                ("int8, 1.5B shapes", 48, 13, True)):
+        deferred, plain = ((att.decode_attention_quant_deferred,
+                            att.decode_attention_quant_deferred_plain) if quant else
+                           (att.decode_attention_deferred, att.decode_attention_deferred_plain))
+        appended, appended_plain = ((att.decode_attention_quant, att.decode_attention_quant_plain)
+                                    if quant else (att.decode_attention,
+                                                   att.decode_attention_plain))
+        g = torch.Generator(device="cuda").manual_seed(15)
+        for dtype in (torch.float32, torch.bfloat16):
+            atol, rtol = ATTN_TOL[str(dtype).split(".")[-1]]
+            for B in (1, 16):
+                start, length = ring_lanes(B, R, RING_LENGTHS if B > 1 else (1023,), torch)
+                args, caches = packed_inputs(ops, torch, g, L, B, HP, R, dtype, quant)
+                ring = [rotate_lanes(a, start, torch) if i in caches else a
+                        for i, a in enumerate(args)]
+                errs = []
+                for layer in (0, L - 1):
+                    got = deferred(*args, length, layer=layer, packed=True)
+                    errs.append(check_close(f"attention-packed {label} B={B} {dtype}", got,
+                                            plain(*args, length, layer=layer, packed=True),
+                                            atol, rtol, torch))
+                    got_ring = deferred(*ring, length, layer=layer, start=start, packed=True)
+                    errs.append(check_close(
+                        f"attention-packed ring {label} B={B} {dtype}", got_ring,
+                        plain(*ring, length, layer=layer, start=start, packed=True), atol,
+                        rtol, torch))
+                    if not torch.equal(got_ring, got):
+                        raise AssertionError("the packed ring kernel over rotated caches "
+                                             "differs from the packed prefix kernel")
+                    if not quant:  # the same rows through the unpacked kernel
+                        unpacked = [(att.unpack_heads_rows(a) if a.dim() == 3 else
+                                     att.unpack_heads_seq(a[layer:layer + 1])).contiguous()
+                                    for a in args]
+                        errs.append(check_close(
+                            f"attention-packed vs unpacked {label} B={B} {dtype}",
+                            att.unpack_heads_rows(got),
+                            deferred(*unpacked, length, layer=0), atol, rtol, torch))
+                    # The appended form, prefix and ring, and after the append.
+                    n = length.clamp(min=1, max=R - 1)
+                    app = appended_args(args, quant)
+                    app_ring = appended_args(ring, quant)
+                    errs.append(check_close(
+                        f"appended packed {label} B={B} {dtype}",
+                        appended(*app, n, layer=layer, packed=True),
+                        appended_plain(*app, n, layer=layer, packed=True), atol, rtol, torch))
+                    errs.append(check_close(
+                        f"appended packed ring {label} B={B} {dtype}",
+                        appended(*app_ring, n, layer=layer, start=start, packed=True),
+                        appended_plain(*app_ring, n, layer=layer, start=start, packed=True),
+                        atol, rtol, torch))
+                    m = length.clamp(max=R - 1)
+                    after = append_rows(args, quant, layer, m, torch)
+                    errs.append(check_close(
+                        f"appended packed after the append vs deferred {label} B={B} {dtype}",
+                        appended(*after, m + 1, layer=0, packed=True),
+                        deferred(*args, m, layer=layer, packed=True), atol, rtol, torch))
+                log(f"attention-packed {label} B={B} R={R} {dtype} layers 0 and {L - 1}: "
+                    f"deferred and appended, prefix and ring, max_abs_err={max(errs):.3e} "
+                    f"(atol {atol}, rtol {rtol}); packed ring over rotated caches == packed "
+                    f"prefix bit for bit")
+                del args, ring
+        # The appended form of the unpacked layout, against its plain version
+        # and against the unpacked deferred kernel after the append.
+        H = 2 * HP - (1 if quant else 0)
+        g = torch.Generator(device="cuda").manual_seed(16)
+        if quant:
+            args = int8_attention_inputs(ops, torch, g, L, 16, H, R, 64, torch.bfloat16)
+        else:
+            args = [torch.randn(16, H, 64, device="cuda", generator=g) for _ in range(3)]
+            args += [torch.randn(L, 16, H, R, 64, device="cuda", generator=g)
+                     for _ in range(2)]
+        atol, rtol = ATTN_TOL["bfloat16" if quant else "float32"]
+        start, length = ring_lanes(16, R, RING_LENGTHS, torch)
+        n, m = length.clamp(min=1, max=R - 1), length.clamp(max=R - 1)
+        app = appended_args(args, quant)
+        errs = [check_close(f"appended {label}", appended(*app, n, layer=L - 1),
+                            appended_plain(*app, n, layer=L - 1), atol, rtol, torch),
+                check_close(f"appended ring {label}", appended(*app, n, layer=L - 1, start=start),
+                            appended_plain(*app, n, layer=L - 1, start=start), atol, rtol, torch),
+                check_close(f"appended after the append vs deferred {label}",
+                            appended(*append_rows(args, quant, L - 1, m, torch), m + 1, layer=0),
+                            deferred(*args, m, layer=L - 1), atol, rtol, torch)]
+        log(f"appended unpacked {label} B=16 R={R}: prefix, ring and after the append, "
+            f"max_abs_err={max(errs):.3e} (atol {atol}, rtol {rtol})")
+        del args
 
 
 def check_sampler(sk, sampling, torch) -> None:
@@ -350,10 +504,31 @@ def check_qmm(qk, params, torch) -> None:
             f"max_abs_err={max(errs):.3e} (atol {atol}, rtol {rtol})")
 
 
-COUNTERS = (("attention", "decode_attention_deferred", "launches"),
-            ("attention_ring", "decode_attention_deferred", "ring_launches"),
-            ("attention_int8", "decode_attention_quant_deferred", "launches"),
-            ("attention_int8_ring", "decode_attention_quant_deferred", "ring_launches"))
+# (count key, wrapper, counter): every attention wrapper counts its prefix,
+# ring, packed and packed ring launches apart.
+COUNTERS = tuple((key + suffix, fn, attr)
+                 for key, fn in (("attention", "decode_attention_deferred"),
+                                 ("attention_int8", "decode_attention_quant_deferred"),
+                                 ("appended", "decode_attention"),
+                                 ("appended_int8", "decode_attention_quant"))
+                 for suffix, attr in (("", "launches"), ("_ring", "ring_launches"),
+                                      ("_packed", "packed_launches"),
+                                      ("_packed_ring", "packed_ring_launches")))
+
+
+@contextlib.contextmanager
+def kv_layout(value: str):
+    """ZG2_KV_PACKED set to ``value`` while runtimes are built (they decide
+    their cache layout at construction)."""
+    old = os.environ.get("ZG2_KV_PACKED")
+    os.environ["ZG2_KV_PACKED"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ZG2_KV_PACKED"]
+        else:
+            os.environ["ZG2_KV_PACKED"] = old
 
 
 def reset_counts(att, sk, qk) -> None:
@@ -407,22 +582,29 @@ def run_requests(engine_mod, config_mod, engine, label: str, card: str):
 
 
 def teacher_forced(gpt2, params, config, ids, tokens, device, torch, kv_quant=None,
-                   bucket=32):
+                   bucket=32, group=1, lanes=1):
     """(len(tokens) + 1, vocab) logits: prefill of ``ids`` padded to
     ``bucket`` (the engine's prompt bucket, so that the served run's
     arithmetic is repeated exactly), then one decode step per token of
-    ``tokens``."""
-    cache = gpt2.init_kv_cache(config, 1, bucket + len(tokens) + 1, device=device,
+    ``tokens``. ``group`` and ``lanes`` repeat a batcher's shapes: the
+    prefill runs ``group`` copies of the prompt (one admission group) and
+    the decode steps ``lanes`` copies (the batch), lane 0 read."""
+    cache = gpt2.init_kv_cache(config, group, bucket + len(tokens) + 1, device=device,
                                quant=kv_quant, dtype=params["wte"].dtype)
-    prompt = torch.zeros((1, bucket), dtype=torch.int32, device=device)
-    prompt[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    prompt = torch.zeros((group, bucket), dtype=torch.int32, device=device)
+    prompt[:, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
     cache, logits = gpt2.prefill(params, cache, prompt,
-                                 torch.tensor([len(ids)], dtype=torch.int32, device=device),
-                                 config)
+                                 torch.full((group,), len(ids), dtype=torch.int32,
+                                            device=device), config)
     rows = [logits[0]]
+    if lanes != group:  # every lane of the batch a copy of lane 0 (axis 1; 0 of length)
+        cache = {name: (t[:1].expand(lanes) if name == "length" else
+                        t[:, :1].expand(t.shape[0], lanes, *t.shape[2:])).contiguous()
+                 for name, t in cache.items()}
     for t in tokens:
-        cache, logits = gpt2.decode_step(params, cache, torch.tensor([t], dtype=torch.int32,
-                                                                     device=device), config)
+        cache, logits = gpt2.decode_step(params, cache, torch.full((lanes,), t,
+                                                                   dtype=torch.int32,
+                                                                   device=device), config)
         rows.append(logits[0])
     return torch.stack(rows).float().cpu()[:, :config.vocab_size]
 
@@ -441,25 +623,33 @@ def compare_logits(label: str, gpu, cpu, torch, atol: float = E2E_ATOL) -> None:
         raise AssertionError(f"{label}: non-finite logits")
 
 
-def serve(pkg, torch, encoder, card: str):
-    """Phase 6. Returns the kernels' launch counts and the engine."""
+def layout_name(config) -> str:
+    return "packed KV" if config.kv_packed else "unpacked KV"
+
+
+def serve(pkg, torch, encoder, card: str, label: str = "serve", params=None):
+    """Phases 7 and 16: the engine on the layout that ZG2_KV_PACKED gives
+    it, with new random weights or ``params``. Returns the kernels' launch
+    counts, the engine and the greedy prompt's ids."""
     config_mod, gpt2, engine_mod, att, sk, qk, weights, _ = pkg
     # Full 124M width; the tokenizer knows len(vocab) ids, the other rows
     # of the 50257-row vocab are padding that the lm_head masks.
     config = dataclasses.replace(config_mod.get_config("124M"), vocab_size=len(encoder.vocab),
                                  padded_vocab_size=50257)
-    params = gpt2.init_params(config, torch.Generator(device="cuda").manual_seed(0),
-                              torch.float32)
+    if params is None:
+        params = gpt2.init_params(config, torch.Generator(device="cuda").manual_seed(0),
+                                  torch.float32)
     engine = engine_mod.InferenceEngine(config, params, encoder, device="cuda")
     engine.generate_text("warm up", 2, config_mod.SamplingConfig(temperature=0.8))
     torch.cuda.synchronize()
 
     reset_counts(att, sk, qk)
-    results, decode_steps, sampled = run_requests(engine_mod, config_mod, engine, "serve",
-                                                  f"fp32, B=1, {card}")
+    results, decode_steps, sampled = run_requests(
+        engine_mod, config_mod, engine, label,
+        f"fp32, B=1, {layout_name(engine.config)}, {card}")
     counts = read_counts(att, sk, qk, torch)
-    expect_counts("serve", counts, {"attention": config.n_layers * decode_steps,
-                                    "sampler": sampled})
+    key = "attention_packed" if engine.config.kv_packed else "attention"
+    expect_counts(label, counts, {key: config.n_layers * decode_steps, "sampler": sampled})
 
     # Teacher-forced check of the greedy request against the CPU.
     _, prompt, sampling, text, _ = results[0]
@@ -467,13 +657,13 @@ def serve(pkg, torch, encoder, card: str):
     greedy = engine.generate(ids, 32, sampling)
     if encoder.decode(greedy) != text:
         raise AssertionError("greedy rerun differs from the served text")
-    gpu = teacher_forced(gpt2, engine.params, config, ids, greedy[:-1], "cuda", torch)
+    gpu = teacher_forced(gpt2, engine.params, engine.config, ids, greedy[:-1], "cuda", torch)
     if gpu.argmax(-1).tolist() != greedy:
         raise AssertionError("teacher-forced argmax differs from the greedy tokens")
     seq = torch.tensor([ids + greedy[:-1]], dtype=torch.int32)
     cpu_params = weights.tree_map(lambda t: t.cpu(), engine.params)
     cpu = gpt2.forward(cpu_params, seq, config)[0, len(ids) - 1:][:, :config.vocab_size]
-    compare_logits("serve", gpu, cpu, torch)
+    compare_logits(label, gpu, cpu, torch)
     return counts, engine, ids
 
 
@@ -501,8 +691,12 @@ def build_1p5b(config_mod, gpt2, quantize, encoder, torch):
     return config, params
 
 
-def serve_1p5b(pkg, torch, encoder, config, params, card: str):
-    """Phase 9. Returns the kernels' launch counts and the engine."""
+def serve_1p5b(pkg, torch, encoder, config, params, card: str, label: str = "serve-1.5B",
+               check_layers=None):
+    """Phases 11 and 17. Returns the kernels' launch counts, the engine, the
+    greedy prompt's ids and the INT8 floor. With ``check_layers`` the
+    teacher-forced comparisons with the CPU run the first that many layers
+    (the served requests run them all)."""
     config_mod, gpt2, engine_mod, att, sk, qk, weights, quantize = pkg
     engine = engine_mod.InferenceEngine(config, params, encoder, kv_quant="int8",
                                         device="cuda")
@@ -511,13 +705,16 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str):
 
     reset_counts(att, sk, qk)
     results, decode_steps, sampled = run_requests(
-        engine_mod, config_mod, engine, "serve-1.5B",
-        f"INT4 weights, INT8 lm_head and KV cache, bf16 activations, B=1, {card}")
+        engine_mod, config_mod, engine, label,
+        f"INT4 weights, INT8 lm_head and KV cache ({layout_name(engine.config)}), bf16 "
+        f"activations, B=1, {card}")
     counts = read_counts(att, sk, qk, torch)
     per_pass = 6 * config.n_layers + 1  # block linears + the lm_head
     passes = decode_steps + len(results)  # decode steps + prefills
-    expect_counts("serve-1.5B", counts, {"qmm": per_pass * passes, "sampler": sampled,
-                                         "attention_int8": config.n_layers * decode_steps})
+    key = "attention_int8_packed" if engine.config.kv_packed else "attention_int8"
+    expect_counts(label, counts, {"qmm": per_pass * passes, "sampler": sampled,
+                                  key: config.n_layers * decode_steps})
+    config = engine.config  # the layout the engine chose, for the runs below
 
     _, prompt, sampling, text, _ = results[0]
     ids = encoder.encode(prompt)
@@ -532,6 +729,11 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str):
     # already), teacher-forced on the card and on the CPU.
     t0 = time.perf_counter()
     f32 = weights.tree_map(lambda t: t.float() if t.is_floating_point() else t, engine.params)
+    if check_layers and check_layers < config.n_layers:  # views of the first blocks
+        config = dataclasses.replace(config, n_layers=check_layers)
+        f32 = dict(f32, blocks=weights.tree_map(lambda t: t[:check_layers], f32["blocks"]))
+        log(f"{label} teacher-forced comparisons with the CPU over the first {check_layers} "
+            f"of {engine.config.n_layers} layers")
     cpu_w = dequantized(quantize, weights.tree_map(lambda t: t.cpu(), f32))
     # On the CPU the weights are dequantized to f32 once: each linear is one
     # plain matmul, the same products as qmm's plain version (weight
@@ -541,8 +743,8 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str):
     gpu = teacher_forced(gpt2, f32, config, ids, greedy[:-1], "cuda", torch)
     t1 = time.perf_counter()
     cpu = teacher_forced(gpt2, cpu_w, config, ids, greedy[:-1], "cpu", torch)
-    log(f"serve-1.5B CPU run, float KV cache: {time.perf_counter() - t1:.1f} s")
-    compare_logits("serve-1.5B float KV cache", gpu, cpu, torch)
+    log(f"{label} CPU run, float KV cache: {time.perf_counter() - t1:.1f} s")
+    compare_logits(f"{label} float KV cache", gpu, cpu, torch)
     # 2. INT8 KV cache, the served configuration, against the CPU through the
     #    plain INT8 attention. An INT8 row rounds each element to a step of
     #    absmax/127, so a roundoff-sized difference before the rounding
@@ -553,17 +755,17 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str):
     gpu = teacher_forced(gpt2, f32, config, ids, greedy[:-1], "cuda", torch, kv_quant="int8")
     t1 = time.perf_counter()
     cpu = teacher_forced(gpt2, cpu_w, config, ids, greedy[:-1], "cpu", torch, kv_quant="int8")
-    log(f"serve-1.5B CPU run, INT8 KV cache: {time.perf_counter() - t1:.1f} s")
+    log(f"{label} CPU run, INT8 KV cache: {time.perf_counter() - t1:.1f} s")
     cpu_w = weights.tree_map(lambda t: t.double() if t.is_floating_point() else t, cpu_w)
     t1 = time.perf_counter()
     f64 = teacher_forced(gpt2, cpu_w, config, ids, greedy[:-1], "cpu", torch, kv_quant="int8")
-    log(f"serve-1.5B CPU run, INT8 KV cache, f64: {time.perf_counter() - t1:.1f} s")
+    log(f"{label} CPU run, INT8 KV cache, f64: {time.perf_counter() - t1:.1f} s")
     del cpu_w
     floor = (f64 - cpu).abs().max().item()
-    log(f"serve-1.5B INT8 KV floor: the CPU run in f64 and in f32 differ by max_abs_err="
+    log(f"{label} INT8 KV floor: the CPU run in f64 and in f32 differ by max_abs_err="
         f"{floor:.3e} over {cpu.shape[0]} positions")
-    compare_logits("serve-1.5B INT8 KV cache", gpu, cpu, torch, atol=max(E2E_ATOL, 3 * floor))
-    log(f"serve-1.5B teacher-forced runs (2 on the card, 3 on the CPU): {time.perf_counter() - t0:.1f} s")
+    compare_logits(f"{label} INT8 KV cache", gpu, cpu, torch, atol=max(E2E_ATOL, 3 * floor))
+    log(f"{label} teacher-forced runs (2 on the card, 3 on the CPU): {time.perf_counter() - t0:.1f} s")
     return counts, engine, ids, floor
 
 
@@ -591,17 +793,40 @@ def serve_batch(batcher, requests, label: str):
     return out
 
 
-def near_tie_check(label: str, gpt2, engine, requests, served, tol: float, torch) -> None:
+def near_tie_check(label: str, gpt2, engine, requests, served, tol: float, torch,
+                   shapes=None, lanes: int = 1) -> None:
     """Each request's batcher tokens equal the engine's greedy tokens up to
     the first divergence, if any; there the engine's logits for its token
     and for the batcher's differ by at most ``tol`` (a near-tie that the
-    two paths' different prefill shapes may break either way)."""
+    two paths' different prefill shapes may break either way).
+
+    With ``shapes`` (a prompt's admission prefill shape (k, T)) each
+    request is also replayed at the batcher's own shapes: the model
+    teacher-forced with the batcher's tokens after a k x T prefill, then at
+    a decode batch of ``lanes``, must pick every one of them as its argmax
+    (the batcher computed the model's greedy tokens, bit for bit, at its
+    shapes). A divergence from the engine wider than ``tol`` then passes
+    as the roundoff of the two paths' shapes."""
     import numpy as np
 
     from zig_gpt2_tpu_torch.config import SamplingConfig
     from zig_gpt2_tpu_torch.runtime.engine import _bucket
 
     for (ids, budget), got in zip(requests, served):
+        replay = None
+        if shapes is not None:
+            group, bucket = shapes[tuple(ids)]
+            replay = teacher_forced(gpt2, engine.params, engine.config, ids, got[:-1], "cuda",
+                                    torch, kv_quant=engine.kv_quant, bucket=bucket,
+                                    group=group, lanes=lanes)
+            picked = replay.argmax(-1).tolist()
+            log(f"{label} replay at the batcher's shapes (prefill {group} x {bucket}, decode "
+                f"batch {lanes}): prompt of {len(ids)}, {budget} tokens: the model picks the "
+                f"batcher's tokens: {picked == got}")
+            if picked != got:
+                raise AssertionError(f"{label}: the batcher's tokens are not the model's greedy "
+                                     f"tokens at its own shapes (first at "
+                                     f"{next(i for i, (a, b) in enumerate(zip(picked, got)) if a != b)})")
         want = engine.generate(ids, budget, SamplingConfig(temperature=0.0))
         n = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
         if n is None:
@@ -617,35 +842,42 @@ def near_tie_check(label: str, gpt2, engine, requests, served, tol: float, torch
         gap = float(logits[want[n]] - logits[got[n]])
         log(f"{label} near-tie check: prompt of {len(ids)}, {budget} tokens: first "
             f"divergence at token {n}, engine logit gap {gap:.3e} (tolerance {tol:.3e})")
-        if gap > tol:
+        if gap > tol and replay is None:
             raise AssertionError(f"{label}: the batcher left the engine's tokens at "
                                  f"token {n}, not at a near-tie (gap {gap:.3e})")
+        if gap > tol:
+            log(f"{label} near-tie check: a wider gap, taken as the shapes' roundoff: at the "
+                f"batcher's shapes the model's logit gap for the batcher's token is "
+                f"{float(replay[n, got[n]] - replay[n, want[n]]):.3e}")
 
 
-def serve_batcher_124m(pkg, batcher_mod, torch, engine, card: str) -> dict:
-    """Phase 9. Returns the kernels' launch counts."""
+def serve_batcher_124m(pkg, batcher_mod, torch, engine, card: str,
+                       label: str = "serve-batcher-124M") -> dict:
+    """Phases 9 and 16: the batcher on the engine's model and layout.
+    Returns the kernels' launch counts."""
     config_mod, gpt2, _, att, sk, qk, _, _ = pkg
     greedy = config_mod.SamplingConfig(temperature=0.0)
     b = batcher_mod.ContinuousBatcher(engine.config, engine.params, batch_size=8,
                                       max_seq=256, sampling=greedy, device="cuda")
-    serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], "serve-batcher-124M warm-up")
+    serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], f"{label} warm-up")
     b.metrics = batcher_mod.BatcherMetrics()
     requests = batch_requests(21, 16, engine.config.vocab_size, (4, 100), (16, 64))
     reset_counts(att, sk, qk)
-    served = serve_batch(b, requests, "serve-batcher-124M")
+    served = serve_batch(b, requests, label)
     counts = read_counts(att, sk, qk, torch)
     steps = b.metrics.steps
-    expect_counts("serve-batcher-124M", counts,
-                  {"attention_ring": engine.config.n_layers * steps})
-    log(f"serve-batcher-124M metrics {json.dumps(b.metrics.as_dict(8))} "
-        f"(fp32, B=8, ring, greedy, {card})")
-    near_tie_check("serve-batcher-124M", gpt2, engine, requests[:2], served[:2],
-                   E2E_ATOL, torch)
+    key = "attention_packed_ring" if b.config.kv_packed else "attention_ring"
+    expect_counts(label, counts, {key: engine.config.n_layers * steps})
+    log(f"{label} metrics {json.dumps(b.metrics.as_dict(8))} "
+        f"(fp32, B=8, ring, {layout_name(b.config)}, greedy, {card})")
+    near_tie_check(label, gpt2, engine, requests[:2], served[:2], E2E_ATOL, torch)
     return counts
 
 
-def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, card: str):
-    """Phase 13. Returns the kernels' launch counts and the ring batcher."""
+def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, card: str,
+                       label: str = "serve-batcher-1.5B"):
+    """Phases 13 and 18. Returns the kernels' launch counts and the ring
+    batcher."""
     import os
 
     config_mod, gpt2, engine_mod, att, sk, qk, _, _ = pkg
@@ -654,25 +886,27 @@ def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, ca
     kw = dict(batch_size=16, max_seq=256, decode_chunk=1, kv_quant="int8", device="cuda")
     b = batcher_mod.ContinuousBatcher(config, params, sampling=sampled, **kw)
     rows = b.cache["k"].shape[-2]
-    serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], "serve-batcher-1.5B warm-up")
+    serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], f"{label} warm-up")
     b.metrics = batcher_mod.BatcherMetrics()
     requests = batch_requests(31, 64, config.vocab_size, (8, 120), (32, 96))
     half = len(requests) // 2
 
     prefills = []  # (k, T) of each admission's prefill, for the qmm count
+    admitted = []  # (tokens, lengths) of each, read back after the run
     plain_prefill = gpt2.prefill
 
     def recording_prefill(params, cache, tokens, lengths, config):
         prefills.append(tuple(tokens.shape))
+        admitted.append((tokens, lengths))
         return plain_prefill(params, cache, tokens, lengths, config)
 
     gpt2.prefill = recording_prefill
     try:
         reset_counts(att, sk, qk)
-        serve_batch(b, requests[:half], "serve-batcher-1.5B sampled half")
+        serve_batch(b, requests[:half], f"{label} sampled half")
         sampled_steps, sampled_prefills = b.metrics.steps, len(prefills)
         b.sampling = greedy
-        served = serve_batch(b, requests[half:], "serve-batcher-1.5B greedy half")
+        served = serve_batch(b, requests[half:], f"{label} greedy half")
         counts = read_counts(att, sk, qk, torch)
     finally:
         gpt2.prefill = plain_prefill
@@ -680,39 +914,43 @@ def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, ca
     per_pass = 6 * config.n_layers + 1  # block linears + the lm_head
     qmm = per_pass * steps + sum(6 * config.n_layers * (k * t <= 256) + 1
                                  for k, t in prefills)
-    expect_counts("serve-batcher-1.5B", counts, {
-        "attention_int8_ring": config.n_layers * steps, "qmm": qmm,
-        "sampler": sampled_steps + sampled_prefills})
-    log(f"serve-batcher-1.5B: {steps} decode steps ({sampled_steps} sampled), "
+    key = "attention_int8_packed_ring" if b.config.kv_packed else "attention_int8_ring"
+    expect_counts(label, counts, {key: config.n_layers * steps, "qmm": qmm,
+                                  "sampler": sampled_steps + sampled_prefills})
+    log(f"{label}: {steps} decode steps ({sampled_steps} sampled), "
         f"{len(prefills)} admission prefills {sorted(set(prefills))}, ring rows {rows}, "
         f"wptr now {int(b.cache['wptr'])}")
     if steps + 2 < rows:  # the warm-up took 2 steps
         raise AssertionError("the write pointer did not wrap")
-    log(f"serve-batcher-1.5B metrics {json.dumps(b.metrics.as_dict(16))} (INT4 weights, "
-        f"INT8 lm_head and KV cache, bf16 activations, B=16, ring, {card})")
+    log(f"{label} metrics {json.dumps(b.metrics.as_dict(16))} (INT4 weights, INT8 lm_head "
+        f"and KV cache, {layout_name(b.config)}, bf16 activations, B=16, ring, {card})")
 
     os.environ["ZG2_RING"] = "0"
     try:
         linear = batcher_mod.ContinuousBatcher(config, params, sampling=greedy, **kw)
     finally:
         del os.environ["ZG2_RING"]
-    linear_served = serve_batch(linear, requests[half:], "serve-batcher-1.5B linear")
+    linear_served = serve_batch(linear, requests[half:], f"{label} linear")
     same = sum(a == c for a, c in zip(served, linear_served))
-    log(f"serve-batcher-1.5B ring vs linear cache: {same} of {len(served)} greedy requests "
+    log(f"{label} ring vs linear cache: {same} of {len(served)} greedy requests "
         f"identical")
     if same != len(served):
         raise AssertionError("the ring batcher's greedy tokens differ from the linear one's")
     del linear
 
+    shapes = {tuple(row[:n]): tuple(toks.shape) for toks, lens in admitted
+              for row, n in zip(toks.tolist(), lens.tolist())}
     engine = engine_mod.InferenceEngine(config, params, kv_quant="int8", device="cuda")
     greedy_half = sorted(zip(requests[half:], served), key=lambda rs: rs[0][1])[:4]
-    near_tie_check("serve-batcher-1.5B", gpt2, engine, [r for r, _ in greedy_half],
-                   [t for _, t in greedy_half], max(E2E_ATOL, 3 * floor), torch)
+    near_tie_check(label, gpt2, engine, [r for r, _ in greedy_half],
+                   [t for _, t in greedy_half], max(E2E_ATOL, 3 * floor), torch,
+                   shapes=shapes, lanes=b.batch_size)
     return counts, b
 
 
-def trace_batcher(batcher, config_mod, torch, card: str) -> None:
-    """Phase 14: 32 steps at full occupancy, T=0.8 top-k 40 top-p 0.9."""
+def trace_batcher(batcher, config_mod, torch, card: str, label: str = "trace-batcher") -> dict:
+    """Phases 14 and 18: 32 steps at full occupancy, T=0.8 top-k 40 top-p
+    0.9. Returns the trace's row."""
     import warnings
     from collections import defaultdict
 
@@ -743,7 +981,8 @@ def trace_batcher(batcher, config_mod, torch, card: str) -> None:
     kernels = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
                if e.device_type == DeviceType.CUDA]
     row = {"model": "1558M", "weights": "INT4 (lm_head INT8), bf16 activations",
-           "kv_cache": "int8 ring", "batch": batcher.batch_size, "active_slots": active,
+           "kv_cache": f"int8 ring, {layout_name(batcher.config)}",
+           "batch": batcher.batch_size, "active_slots": active,
            "temperature": 0.8, "traced_batcher_steps": steps,
            "traced_wall_ms": wall_us / 1e3, "host_syncs_per_step": syncs / steps,
            "card": card}
@@ -753,19 +992,40 @@ def trace_batcher(batcher, config_mod, torch, card: str) -> None:
         for name, us in kernels:
             by_name[name[:80]] += us
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        attn = sum(us for name, us in kernels if "decode_attention_kernel" in name)
         row.update({"device_busy_ms_per_step": busy / 1e3 / steps,
                     "device_busy_share": busy / wall_us,
                     "device_idle_share": 1.0 - busy / wall_us,
                     "kernels_per_decode_step": len(kernels) / steps,
+                    "attention_kernel_us_per_step": attn / steps,
                     "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top}})
     else:
         row["device_busy_share"] = "not measured (no device events in the trace)"
-    log(f"trace-batcher {json.dumps(row)}")
+    log(f"{label} {json.dumps(row)}")
     if active != batcher.batch_size:
         raise AssertionError(f"the traced steps ran {active} of {batcher.batch_size} slots")
     if syncs != steps:
         raise AssertionError(f"{syncs} host syncs in {steps} batcher steps, expected one "
                              "per step")
+    return row
+
+
+def layout_ab(batcher_mod, config_mod, torch, config, params, packed_batcher, card: str):
+    """Phase 18's layout A/B: 32 traced steps at full occupancy on the packed
+    batcher, then on an unpacked one built alike (ZG2_KV_PACKED=0), the
+    same requests and sampling."""
+    kw = dict(batch_size=16, max_seq=256, decode_chunk=1, kv_quant="int8", device="cuda")
+    with kv_layout("0"):
+        unpacked = batcher_mod.ContinuousBatcher(config, params, **kw)
+    if unpacked.config.kv_packed or not packed_batcher.config.kv_packed:
+        raise AssertionError("the layout A/B did not get one batcher of each layout")
+    rows = {}
+    for name, b in (("packed", packed_batcher), ("unpacked", unpacked)):
+        rows[name] = trace_batcher(b, config_mod, torch, card, f"layout-ab {name}")
+    keys = ("device_busy_ms_per_step", "attention_kernel_us_per_step", "device_idle_share",
+            "kernels_per_decode_step", "traced_wall_ms")
+    log(f"layout-ab {json.dumps({k: {n: r.get(k) for n, r in rows.items()} for k in keys})} "
+        f"(1.5B INT4 + INT8 KV ring, B=16, 32 steps each, {card})")
 
 
 def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str) -> None:
@@ -813,46 +1073,9 @@ def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str) -> 
     log(f"trace {json.dumps(row)}")
 
 
-def time_float_kernels(att, sk, torch, counts, card: str):
-    import torch.nn.functional as F
-
-    entries = []
-    # Attention: B=1, the full 124M window (len 1023 old rows), f32 cache.
-    # The layer rotates over all 12, so the 75 MB working set exceeds L2.
-    L, B, H, S, D, n = 12, 1, 12, 1024, 64, 1023
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.Generator(device="cuda").manual_seed(3)
-        kc = torch.randn(L, B, H, S, D, device="cuda", generator=g).to(dtype)
-        vc = torch.randn(L, B, H, S, D, device="cuda", generator=g).to(dtype)
-        q, kn, vn = (torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
-                     for _ in range(3))
-        length = torch.full((B,), n, dtype=torch.int32, device="cuda")
-        err = max_err(att.decode_attention_deferred(q, kn, vn, kc, vc, length, layer=0),
-                      att.decode_attention_deferred_plain(q, kn, vn, kc, vc, length,
-                                                          layer=0))
-        ms = time_ms(lambda i: att.decode_attention_deferred(q, kn, vn, kc, vc, length,
-                                                             layer=i % L), 240)
-        plain_ms = time_ms(lambda i: att.decode_attention_deferred_plain(
-            q, kn, vn, kc, vc, length, layer=i % L), 48)
-        q4 = q[:, :, None, :]
-        lib_ms = time_ms(lambda i: F.scaled_dot_product_attention(
-            q4, kc[i % L, :, :, :n + 1], vc[i % L, :, :, :n + 1]), 240)
-        esz = kc.element_size()
-        nbytes = 2 * B * H * n * D * esz + 4 * B * H * D * esz + 4 * B
-        bms, by = bound_ms(nbytes, 4 * B * H * (n + 1) * D)
-        log(f"time attention {dtype} B={B} len={n}: kernel {ms * 1e3:.2f} us, "
-            f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, "
-            f"sdpa {lib_ms * 1e3:.2f} us, max_abs_err={err:.3e} ({card})")
-        if dtype == torch.float32:
-            entries.append({
-                "name": "decode_attention_deferred", "route": "cuda",
-                "source": "zig_gpt2_tpu_torch/ops/csrc/decode_attention.cu",
-                "replaces": "zig_gpt2_tpu/ops/attention.py:913",
-                "launches": counts["attention"], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                "library_ms": lib_ms})
-
-    # Sampler: B=1 over the 50257-id vocab, f32 logits, plain temperature.
+def time_sampler(sk, torch, counts, card: str):
+    """The sampler at B=1 over the 50257-id vocab, f32 logits, plain
+    temperature."""
     B, V, T = 1, 50257, 0.8
     g = torch.Generator(device="cuda").manual_seed(4)
     logits = torch.randn(B, V, device="cuda", generator=g)
@@ -868,72 +1091,142 @@ def time_float_kernels(att, sk, torch, counts, card: str):
     log(f"time sampler f32 B={B} V={V}: kernel {ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us "
         f"({by}), plain {plain_ms * 1e3:.2f} us, argmax-gumbel {lib_ms * 1e3:.2f} us, "
         f"max_abs_err={err} ({card})")
-    entries.append({
-        "name": "sample_categorical", "route": "cuda",
-        "source": "zig_gpt2_tpu_torch/ops/csrc/sampling.cu",
-        "replaces": "zig_gpt2_tpu/ops/sampling_kernel.py:37",
-        "launches": counts["sampler"], "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
-    return entries
+    return [{"name": "sample_categorical", "route": "cuda",
+             "source": "zig_gpt2_tpu_torch/ops/csrc/sampling.cu",
+             "replaces": "zig_gpt2_tpu/ops/sampling_kernel.py:37",
+             "launches": counts["sampler"], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}]
 
 
-def time_ring_kernels(att, ops, torch, counts, card: str):
-    """Both ring variants at B=16, R=1025, 1023 old rows per lane (starts
-    spread over the ring, most intervals wrapping), rotating over the
-    layers: float at 124M shapes in f32, INT8 at 1.5B shapes with bf16 q.
-    The library yardstick is SDPA with a boolean mask over all R rows (the
-    interval plus the next row, standing for the appended one), over a
-    cache dequantized ahead of time for INT8."""
+def time_attention(name, replaces, launches, kernel, plain, args, L, lib, nbytes, nops,
+                   what, card, **kw):
+    """One attention kernel's entry: device time per call by CUDA-graph
+    replay rotating over the L layers, its plain version's, the library
+    call's (``lib(layer)``), the bound and the error against the plain
+    version at layer 0. ``args`` end with the lengths."""
+    err = max_err(kernel(*args, layer=0, **kw), plain(*args, layer=0, **kw))
+    ms = time_ms(lambda i: kernel(*args, layer=i % L, **kw), 10 * L)
+    plain_ms = time_ms(lambda i: plain(*args, layer=i % L, **kw), L)
+    lib_ms = time_ms(lambda i: lib(i % L), 10 * L)
+    bms, by = bound_ms(nbytes, nops)
+    log(f"time {name} {what}: kernel {ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), "
+        f"plain {plain_ms * 1e3:.2f} us, library {lib_ms * 1e3:.2f} us, "
+        f"max_abs_err={err:.3e} ({card})")
+    return {"name": name, "route": "cuda",
+            "source": "zig_gpt2_tpu_torch/ops/csrc/decode_attention.cu",
+            "replaces": f"zig_gpt2_tpu/ops/attention.py{replaces}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def attention_work(args, n: int, S: int, L: int, quant: bool):
+    """(bytes, operations) of one attention call: the n rows read of one
+    layer of each cache and scale plane, every other input once and the
+    output (like q) once; a multiply and an add per K and per V element
+    read, and two multiplies per scale read."""
+    nbytes = args[0].numel() * args[0].element_size()  # the output
+    elems = planes = 0
+    for a in args:
+        size = a.numel() * a.element_size()
+        if a.dim() >= 4:  # a stacked cache or plane: one layer, n of S rows
+            read = a.numel() // L // S * n
+            size = read * a.element_size()
+            if a.dim() == 5:
+                elems += read
+            else:
+                planes += read
+        nbytes += size
+    return nbytes, 2 * elems + (2 * planes if quant else 0)
+
+
+# Attention kernels timed at the main paths' shapes: (JSON name, or None to
+# log only; TPU kernel line; INT8 cache; q dtype; B; ring; deferred; packed).
+ATTENTION_TIMES = (
+    ("decode_attention_deferred", ":913", False, "float32", 1, False, True, False),
+    (None, ":913", False, "bfloat16", 1, False, True, False),
+    ("decode_attention_quant_deferred", ":928", True, "bfloat16", 1, False, True, False),
+    (None, ":928", True, "float32", 1, False, True, False),
+    ("decode_attention_deferred_ring", ":913", False, "float32", 16, True, True, False),
+    ("decode_attention_quant_deferred_ring", ":928", True, "bfloat16", 16, True, True, False),
+    ("decode_attention_deferred_packed", ":913", False, "float32", 1, False, True, True),
+    ("decode_attention_quant_deferred_packed", ":928", True, "bfloat16", 1, False, True, True),
+    ("decode_attention_deferred_packed_ring", ":913", False, "float32", 16, True, True, True),
+    ("decode_attention_quant_deferred_packed_ring", ":928", True, "bfloat16", 16, True, True,
+     True),
+    ("decode_attention", ":875", False, "float32", 1, False, False, False),
+    ("decode_attention_packed", ":875", False, "float32", 1, False, False, True),
+    ("decode_attention_quant", ":898", True, "bfloat16", 1, False, False, False),
+    ("decode_attention_quant_packed", ":898", True, "bfloat16", 1, False, False, True))
+
+
+def time_attention_kernels(att, ops, torch, counts, card: str):
+    """Every attention kernel of ``ATTENTION_TIMES``, rotating over the
+    layers so that the caches come from HBM: float at 124M shapes (12
+    heads, Hp=6), INT8 at 1.5B shapes (25 heads, Hp=13 with the phantom
+    head); B=1 over 1023 old rows (1024 rows for the appended form), and
+    the ring at B=16, R=1025, 1023 old rows per lane, starts spread over
+    the ring (most intervals wrap). The library yardstick is SDPA over the
+    unpacked view of the same rows (copied ahead of time; for INT8
+    dequantized ahead of time to q's dtype, 2 or 4 times the bytes), with a
+    boolean mask over all R rows for the ring (the interval plus the next
+    row, standing for the current one)."""
     import torch.nn.functional as F
 
     entries = []
-    B, R, D, n = 16, RING_ROWS, 64, 1023
-    start, length = ring_lanes(B, R, (n,), torch)
-    mask = ops.decode_valid_mask(R, length + 1, start)[:, :, None, :]  # (B, 1, 1, R)
-    for name, L, H, dtype, quant, replaces in (
-            ("decode_attention_deferred_ring", 12, 12, torch.float32, False, ":913"),
-            ("decode_attention_quant_deferred_ring", 48, 25, torch.bfloat16, True, ":928")):
-        g = torch.Generator(device="cuda").manual_seed(10)
+    for name, replaces, quant, dtype, B, ring, deferred, packed in ATTENTION_TIMES:
+        L, H = (48, 25) if quant else (12, 12)
+        dtype = getattr(torch, dtype)
+        rows, W = ((H + 1) // 2, 128) if packed else (H, 64)
+        S = RING_ROWS if ring else 1024
+        n = 1023 if deferred else 1024  # old rows, or every row of the appended form
+        g = torch.Generator(device="cuda").manual_seed(17)
         if quant:
-            args = int8_attention_inputs(ops, torch, g, L, B, H, R, D, dtype)
-            kernel, plain = att.decode_attention_quant_deferred, \
-                att.decode_attention_quant_deferred_plain
-            q, kc, ks, vc, vs = args[0], args[5], args[6], args[7], args[8]
-            kd = (kc.float() * ks[..., None]).to(dtype)
-            vd = (vc.float() * vs[..., None]).to(dtype)
-            nbytes = (2 * B * H * n * D + 2 * B * H * n * 4  # int8 rows and their scales
-                      + 2 * B * H * D * q.element_size() + 2 * B * H * D + 2 * B * H * 4
-                      + 8 * B)
-            nops = (4 * D + 4) * B * H * (n + 1)
+            args = int8_attention_inputs(ops, torch, g, L, B, rows, S, W, dtype)
+            kd = (args[5].float() * args[6][..., None]).to(dtype)
+            vd = (args[7].float() * args[8][..., None]).to(dtype)
         else:
-            args = [torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
+            args = [torch.randn(B, rows, W, device="cuda", generator=g).to(dtype)
                     for _ in range(3)]
-            args += [torch.randn(L, B, H, R, D, device="cuda", generator=g).to(dtype)
+            args += [torch.randn(L, B, rows, S, W, device="cuda", generator=g).to(dtype)
                      for _ in range(2)]
-            kernel, plain = att.decode_attention_deferred, att.decode_attention_deferred_plain
-            q, kd, vd = args[0], args[3], args[4]
-            esz = kd.element_size()
-            nbytes = 2 * B * H * n * D * esz + 4 * B * H * D * esz + 8 * B
-            nops = 4 * B * H * (n + 1) * D
-        err = max_err(kernel(*args, length, layer=0, start=start),
-                      plain(*args, length, layer=0, start=start))
-        ms = time_ms(lambda i: kernel(*args, length, layer=i % L, start=start), 10 * L)
-        plain_ms = time_ms(lambda i: plain(*args, length, layer=i % L, start=start), L)
-        q4 = q[:, :, None, :]
-        lib_ms = time_ms(lambda i: F.scaled_dot_product_attention(q4, kd[i % L], vd[i % L],
-                                                                  attn_mask=mask), 10 * L)
-        bms, by = bound_ms(nbytes, nops)
-        log(f"time {name} {dtype} B={B} H={H} R={R} len={n}: kernel {ms * 1e3:.2f} us, "
-            f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, masked sdpa"
-            f"{' over a pre-dequantized cache' if quant else ''} {lib_ms * 1e3:.2f} us, "
-            f"max_abs_err={err:.3e} ({card})")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "zig_gpt2_tpu_torch/ops/csrc/decode_attention.cu",
-            "replaces": f"zig_gpt2_tpu/ops/attention.py{replaces}",
-            "launches": counts["attention_int8_ring" if quant else "attention_ring"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms})
+            kd, vd = args[3], args[4]
+        q4 = args[0]
+        if packed:
+            kd, vd, q4 = att.unpack_heads_seq(kd), att.unpack_heads_seq(vd), \
+                att.unpack_heads_rows(q4)
+        q4 = q4[:, :, None, :]
+        if not deferred:
+            args = appended_args(args, quant)
+        kw = {"packed": packed}
+        if ring:
+            start, length = ring_lanes(B, S, (n,), torch)
+            kw["start"] = start
+            mask = ops.decode_valid_mask(S, length + 1, start)[:, :, None, :]
+
+            def lib(layer):
+                return F.scaled_dot_product_attention(q4, kd[layer], vd[layer], attn_mask=mask)
+        else:
+            length = torch.full((B,), n, dtype=torch.int32, device="cuda")
+            rows_lib = n + (1 if deferred else 0)  # the current row stands in as one more
+            kd, vd = kd[..., :rows_lib, :], vd[..., :rows_lib, :]
+
+            def lib(layer):
+                return F.scaled_dot_product_attention(q4, kd[layer], vd[layer])
+        key = (("attention" if deferred else "appended") + ("_int8" if quant else "")
+               + ("_packed" if packed else "") + ("_ring" if ring else ""))
+        base = ("decode_attention" + ("_quant" if quant else "")
+                + ("_deferred" if deferred else ""))
+        nbytes, nops = attention_work([*args, length] + ([kw["start"]] if ring else []), n, S,
+                                      L, quant)
+        what = (f"{'INT8, ' if quant else ''}{dtype}, B={B}, "
+                f"{'Hp=' + str(rows) if packed else 'H=' + str(H)}, {'R' if ring else 'S'}={S}, "
+                f"{n} {'old ' if deferred else ''}rows{', ring' if ring else ''}; library: SDPA "
+                f"over the unpacked rows{', dequantized ahead of time' if quant else ''}")
+        entry = time_attention(name or base, replaces, counts[key], getattr(att, base),
+                               getattr(att, base + "_plain"), [*args, length], L, lib, nbytes,
+                               nops, what, card, **kw)
+        if name:
+            entries.append(entry)
         del args, kd, vd
     return entries
 
@@ -949,54 +1242,11 @@ def qmm_work(qw, scale, int4: bool, rows: int, x_bytes: int):
     return nbytes, nops
 
 
-def time_quant_kernels(att, ops, qk, quantize, params, torch, counts, card: str):
-    import torch.nn.functional as F
-
-    entries = []
-    # INT8 attention: B=1, 1.5B shapes, len 1023 old rows, rotating over the
-    # 48 layers (the int8 cache is 157 MB, more than L2). The yardstick is
-    # SDPA over the same cache dequantized ahead of time (f32 rows times
-    # their scales, cast to q's dtype): it reads 2x or 4x the bytes.
-    L, B, H, S, D, n = 48, 1, 25, 1024, 64, 1023
-    g = torch.Generator(device="cuda").manual_seed(7)
-    for dtype in (torch.bfloat16, torch.float32):
-        args = int8_attention_inputs(ops, torch, g, L, B, H, S, D, dtype)
-        q, kn, ksn, vn, vsn, kc, ks, vc, vs = args
-        length = torch.full((B,), n, dtype=torch.int32, device="cuda")
-        err = max_err(att.decode_attention_quant_deferred(*args, length, layer=0),
-                      att.decode_attention_quant_deferred_plain(*args, length, layer=0))
-        ms = time_ms(lambda i: att.decode_attention_quant_deferred(
-            *args[:5], kc, ks, vc, vs, length, layer=i % L), 480)
-        plain_ms = time_ms(lambda i: att.decode_attention_quant_deferred_plain(
-            *args[:5], kc, ks, vc, vs, length, layer=i % L), 48)
-        kd = (kc[:, :, :, :n + 1].float() * ks[..., :n + 1, None]).to(dtype)
-        vd = (vc[:, :, :, :n + 1].float() * vs[..., :n + 1, None]).to(dtype)
-        q4 = q[:, :, None, :]
-        lib_ms = time_ms(lambda i: F.scaled_dot_product_attention(q4, kd[i % L], vd[i % L]),
-                         480)
-        del kd, vd
-        qsz = q.element_size()
-        nbytes = (2 * B * H * n * D + 2 * B * H * n * 4  # int8 rows and their scales
-                  + 2 * B * H * D * qsz + 2 * B * H * D + 2 * B * H * 4 + 4 * B)
-        bms, by = bound_ms(nbytes, (4 * D + 4) * B * H * (n + 1))
-        log(f"time attention-int8 {dtype} B={B} H={H} len={n}: kernel {ms * 1e3:.2f} us, "
-            f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, "
-            f"sdpa over a pre-dequantized {dtype} cache {lib_ms * 1e3:.2f} us, "
-            f"max_abs_err={err:.3e} ({card})")
-        if dtype == torch.bfloat16:
-            entries.append({
-                "name": "decode_attention_quant_deferred", "route": "cuda",
-                "source": "zig_gpt2_tpu_torch/ops/csrc/decode_attention.cu",
-                "replaces": "zig_gpt2_tpu/ops/attention.py:928",
-                "launches": counts["attention_int8"], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                "library_ms": lib_ms})
-        del args, kc, vc, ks, vs
-
-    # qmm at B=1 (rows 1), bf16 activations as served, per linear shape,
-    # rotating over the 48 layers so that the weights come from HBM (the
-    # lm_head alone is 80 MB). The yardstick is torch.matmul on the same
-    # weights dequantized ahead of time to bf16: it reads 4x the INT4 bytes.
+def time_qmm(qk, quantize, params, torch, counts, card: str):
+    """qmm at B=1 (rows 1), bf16 activations as served, per linear shape,
+    rotating over the 48 layers so that the weights come from HBM (the
+    lm_head alone is 80 MB). The yardstick is torch.matmul on the same
+    weights dequantized ahead of time to bf16: it reads 4x the INT4 bytes."""
     g = torch.Generator(device="cuda").manual_seed(8)
     L = params["blocks"]["attn"]["wq"]["scale"].shape[0]
     shapes = [("attn.wq/wk/wv/c_proj", [linears(params, i)[0][1:] for i in range(L)]),
@@ -1036,12 +1286,10 @@ def time_quant_kernels(att, ops, qk, quantize, params, torch, counts, card: str)
     log(f"time qmm per decode step (289 calls, B=1, bf16): kernel {step['ms']:.4f} ms, "
         f"bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
         f"torch.matmul on pre-dequantized bf16 weights {step['library_ms']:.4f} ms ({card})")
-    entries.append({
-        "name": "qmm", "route": "cuda", "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
-        "replaces": "zig_gpt2_tpu/quant/kernels.py:256", "launches": counts["qmm"],
-        "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
-        "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]})
-    return entries
+    return [{"name": "qmm", "route": "cuda", "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
+             "replaces": "zig_gpt2_tpu/quant/kernels.py:256", "launches": counts["qmm"],
+             "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
+             "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]}]
 
 
 def main() -> int:
@@ -1066,6 +1314,7 @@ def main() -> int:
         from zig_gpt2_tpu_torch.runtime import batcher as batcher_mod
         from zig_gpt2_tpu_torch.runtime import engine as engine_mod
         from zig_gpt2_tpu_torch.runtime import sampling
+        from zig_gpt2_tpu_torch.tools.kernel_ab import register_report
     except ImportError as e:
         return fail(f"the zig_gpt2_tpu_torch package is not importable: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1083,12 +1332,12 @@ def main() -> int:
         log(f"phase {name} (previous phase {now - t_phase:.1f} s)")
         t_phase = now
 
+    os.environ["ZG2_KV_PACKED"] = "0"  # phases 7-14 serve the unpacked layout
     try:
         lib, secs, build_log = _build.build()
         log(f"phase build: {secs:.1f} s -> {lib.name}")
-        for line in build_log.splitlines():
-            if "registers" in line:
-                log(f"  ptxas: {line.split(':', 1)[1].strip()}")
+        for name, used in register_report(build_log):
+            log(f"  ptxas: {name}: {used}")
         phase("attention: float kernel vs plain at 124M shapes")
         check_attention(att, torch)
         phase("attention-int8: INT8-cache kernel vs plain at 1.5B shapes")
@@ -1106,6 +1355,7 @@ def main() -> int:
                      {"model": "124M", "weights": "float32", "kv_cache": "float32"}, card)
         phase("serve-batcher-124M: ContinuousBatcher(batch_size=8), ring cache")
         counts_b124 = serve_batcher_124m(pkg, batcher_mod, torch, engine, card)
+        params_124m = engine.params
         del engine
         phase("qmm: dequant-GEMV kernel vs plain on the 1.5B INT4 weights")
         config_1p5b, params_1p5b = build_1p5b(config_mod, gpt2, quantize, encoder, torch)
@@ -1113,7 +1363,7 @@ def main() -> int:
         phase("serve-1.5B: GPT-2 1.5B INT4 + INT8 KV on "
               "InferenceEngine(kv_quant='int8', device='cuda')")
         counts_1p5b, engine, ids, floor = serve_1p5b(pkg, torch, encoder, config_1p5b,
-                                                     params_1p5b, card)
+                                                     params_1p5b, card, check_layers=12)
         phase("trace-1.5B: torch.profiler over 32 decode steps of the 1.5B path")
         trace_decode(gpt2, sampling, engine, ids, torch,
                      {"model": "1558M", "weights": "INT4 (lm_head INT8), bf16 activations",
@@ -1126,15 +1376,36 @@ def main() -> int:
         phase("trace-batcher-1.5B: torch.profiler over 32 batcher steps at B=16")
         trace_batcher(batcher, config_mod, torch, card)
         del batcher
+        phase("attention-packed: packed and appended kernels vs plain, B=1 and B=16")
+        check_attention_packed(att, ops, torch)
+        os.environ["ZG2_KV_PACKED"] = "auto"  # phases 16-18: the card's default layout
+        phase("serve-packed-124M: GPT-2 124M on InferenceEngine(device='cuda') and "
+              "ContinuousBatcher(batch_size=8), packed KV")
+        counts_p124, engine, _ = serve(pkg, torch, encoder, card, "serve-packed-124M",
+                                       params_124m)
+        counts_pb124 = serve_batcher_124m(pkg, batcher_mod, torch, engine, card,
+                                          "serve-batcher-packed-124M")
+        del engine, params_124m
+        phase("serve-packed-1.5B: GPT-2 1.5B INT4 + INT8 KV on InferenceEngine, packed KV")
+        counts_p1p5b, engine, _, floor = serve_1p5b(pkg, torch, encoder, config_1p5b,
+                                                    params_1p5b, card, "serve-packed-1.5B")
+        del engine
+        phase("serve-batcher-packed-1.5B: ContinuousBatcher(batch_size=16, kv_quant='int8'), "
+              "ring cache, packed KV; then the layout A/B")
+        counts_pb1p5b, batcher = serve_batcher_1p5b(pkg, batcher_mod, torch, config_1p5b,
+                                                    params_1p5b, floor, card,
+                                                    "serve-batcher-packed-1.5B")
+        layout_ab(batcher_mod, config_mod, torch, config_1p5b, params_1p5b, batcher, card)
+        del batcher
         phase("times")
-        paths = (counts_124m, counts_b124, counts_1p5b, counts_b1p5b)
+        paths = (counts_124m, counts_b124, counts_1p5b, counts_b1p5b, counts_p124,
+                 counts_pb124, counts_p1p5b, counts_pb1p5b)
         counts = {k: sum(c[k] for c in paths) for k in counts_124m}
-        log(f"launches on the main paths (124M and 1.5B serve and serve-batcher phases): "
-            f"{counts}")
-        entries = time_float_kernels(att, sk, torch, counts, card)
-        entries += time_quant_kernels(att, ops, qk, quantize, params_1p5b, torch, counts,
-                                      card)
-        entries += time_ring_kernels(att, ops, torch, counts, card)
+        log(f"launches on the main paths (the serve and serve-batcher phases, unpacked and "
+            f"packed): {counts}")
+        entries = time_attention_kernels(att, ops, torch, counts, card)
+        entries += time_sampler(sk, torch, counts, card)
+        entries += time_qmm(qk, quantize, params_1p5b, torch, counts, card)
         phase("done")
     except Exception as e:  # a failed phase ends the run with its traceback
         import traceback

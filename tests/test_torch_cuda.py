@@ -319,3 +319,172 @@ def test_batcher_cuda_greedy_matches_cpu(dev):
             assert (att.decode_attention_quant_deferred.ring_launches - before[1]
                     == cfg.n_layers * b.metrics.steps)
     assert out["cuda"] == out["cpu"]
+
+
+# --- head-pair-packed and appended forms -------------------------------------
+
+PACKED = {(False, True): (att.decode_attention_deferred, att.decode_attention_deferred_plain),
+          (True, True): (att.decode_attention_quant_deferred,
+                         att.decode_attention_quant_deferred_plain),
+          (False, False): (att.decode_attention, att.decode_attention_plain),
+          (True, False): (att.decode_attention_quant, att.decode_attention_quant_plain)}
+
+
+def _packed_inputs(dev, g, L, B, HP, S, dtype, quant, deferred):
+    """q and the operands after it, packed (rows of 128: two heads of 64),
+    with per-pair scales for INT8; the self-term rows only when deferred.
+    Returns (args, indices of the cache operands)."""
+    if quant:
+        args = _quant_attention_inputs(dev, g, L, B, HP, S, 128, dtype)
+        return (args, (5, 6, 7, 8)) if deferred else ([args[0]] + args[5:], (1, 2, 3, 4))
+    q, kn, vn = (torch.randn(B, HP, 128, device=dev, generator=g).to(dtype) for _ in range(3))
+    kc, vc = (torch.randn(L, B, HP, S, 128, device=dev, generator=g).to(dtype)
+              for _ in range(2))
+    return ([q, kn, vn, kc, vc], (3, 4)) if deferred else ([q, kc, vc], (1, 2))
+
+
+def _counts(fn):
+    return tuple(getattr(fn, n) for n in ("launches", "ring_launches", "packed_launches",
+                                           "packed_ring_launches"))
+
+
+@pytest.mark.parametrize("deferred", [True, False], ids=["deferred", "appended"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_packed_attention_kernel_matches_plain(dev, quant, dtype, deferred):
+    """Prefix and ring, wrapping intervals and a full ring; the appended
+    form at lengths of at least 1. Each launch counts as its variant."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    S = 201
+    args, _ = _packed_inputs(dev, g, 3, 4, 3, S, dtype, quant, deferred)
+    fn, plain = PACKED[quant, deferred]
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-4, 8e-3)
+    for start, length in _ring_grid(S, dev):
+        if not deferred:
+            length = length.clamp(min=1)
+        for ring in (None, start):
+            before = _counts(fn)
+            got = fn(*args, length, layer=2, start=ring, packed=True)
+            want = plain(*args, length, layer=2, start=ring, packed=True)
+            slot = 3 if ring is not None else 2
+            assert _counts(fn) == tuple(c + (i == slot) for i, c in enumerate(before))
+            assert got.shape == args[0].shape and got.dtype == dtype
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("deferred", [True, False], ids=["deferred", "appended"])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_packed_ring_kernel_equals_packed_prefix_kernel_on_rotated_cache(dev, quant,
+                                                                         deferred):
+    """Bit equality, and NaN in every row outside the intervals reaches
+    neither the output nor its scales."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    S = 64
+    args, caches = _packed_inputs(dev, g, 2, 4, 3, S, torch.float32, quant, deferred)
+    fn = PACKED[quant, deferred][0]
+    for start, length in _ring_grid(S, dev):
+        if not deferred:
+            length = length.clamp(min=1)
+        want = fn(*args, length, layer=1, packed=True)
+        ring = list(args)
+        outside = (torch.arange(S, device=dev)[None, :] - start[:, None]) % S >= length[:, None]
+        for i in caches:
+            ring[i] = _rotate(args[i], start)
+            if ring[i].is_floating_point():
+                mask = outside[None, :, None, :]
+                ring[i] = ring[i].masked_fill(mask[..., None] if ring[i].dim() == 5 else mask,
+                                              float("nan"))
+        assert torch.equal(fn(*ring, length, layer=1, start=start, packed=True), want)
+
+
+@pytest.mark.parametrize("deferred", [True, False], ids=["deferred", "appended"])
+def test_packed_kernel_equals_unpacked_kernel(dev, deferred):
+    """The float kernel over packed rows and over the same rows unpacked:
+    f32 roundoff (the lanes sum a head's products in another order)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    args, _ = _packed_inputs(dev, g, 2, 3, 4, 150, torch.float32, False, deferred)
+    fn = PACKED[False, deferred][0]
+    length = torch.tensor([1, 77, 150], dtype=torch.int32, device=dev)
+    got = fn(*args, length, layer=1, packed=True)
+    unpacked = [(att.unpack_heads_rows(t) if t.dim() == 3 else att.unpack_heads_seq(t))
+                .contiguous() for t in args]
+    want = fn(*unpacked, length, layer=1)
+    torch.testing.assert_close(att.unpack_heads_rows(got), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_appended_kernel_equals_deferred_kernel_after_the_append(dev, quant, packed):
+    """Append (k_new, v_new) at row length, then the appended kernel over
+    length + 1 rows: the deferred kernel's value over length rows, to f32
+    roundoff (the current row is summed by another warp)."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    W, S = (128, 96) if packed else (64, 96)
+    if quant:
+        args = _quant_attention_inputs(dev, g, 2, 3, 4, S, W, torch.float32)
+    else:
+        args = [torch.randn(3, 4, W, device=dev, generator=g) for _ in range(3)]
+        args += [torch.randn(2, 3, 4, S, W, device=dev, generator=g) for _ in range(2)]
+    length = torch.tensor([0, 40, S - 1], dtype=torch.int32, device=dev)
+    lanes = torch.arange(3, device=dev)
+    if quant:
+        q, kn, ksn, vn, vsn, kc, ks, vc, vs = args
+        want = att.decode_attention_quant_deferred(*args, length, layer=1, packed=packed)
+        for stack, row in ((kc, kn), (ks, ksn), (vc, vn), (vs, vsn)):
+            stack[1, lanes, :, length.long()] = row
+        got = att.decode_attention_quant(q, kc, ks, vc, vs, length + 1, layer=1,
+                                         packed=packed)
+    else:
+        q, kn, vn, kc, vc = args
+        want = att.decode_attention_deferred(*args, length, layer=1, packed=packed)
+        for stack, row in ((kc, kn), (vc, vn)):
+            stack[1, lanes, :, length.long()] = row
+        got = att.decode_attention(q, kc, vc, length + 1, layer=1, packed=packed)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_packed_wrapper_validates(dev):
+    length = torch.ones(1, dtype=torch.int32, device=dev)
+    q = torch.zeros(1, 2, 64, device=dev)  # 64-wide rows: head_dim 32 packed
+    kc = torch.zeros(1, 1, 2, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        att.decode_attention_deferred(q, q, q, kc, kc, length, layer=0, packed=True)
+    q = torch.zeros(1, 2, 128, device=dev)
+    flat = torch.zeros(2 * 8 * 128 + 1, device=dev)
+    kc = flat[1:].view(1, 1, 2, 8, 128)  # contiguous, 4 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        att.decode_attention(q, kc, kc, length, layer=0, packed=True)
+
+
+PACKED_CFG = tconfig.GPTConfig(vocab_size=256, context_size=64, n_layers=2, n_heads=3,
+                               n_embed=192)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["float", "int8"])
+def test_packed_engine_and_batcher_cuda_greedy_match_cpu(dev, monkeypatch, kv_quant):
+    """Three heads of 64 (a phantom head): the card picks the packed layout
+    by itself; the CPU is told to (ZG2_KV_PACKED=1 would also do on the
+    card). Greedy tokens agree; the packed kernels launch once per layer and
+    step, the unpacked ones never."""
+    params = gpt2.init_params(PACKED_CFG, torch.Generator().manual_seed(3))
+    params = {**params, "wte": params["wte"] * 3}
+    fn = att.decode_attention_quant_deferred if kv_quant else att.decode_attention_deferred
+    out = {}
+    for device in ("cpu", "cuda"):
+        monkeypatch.setenv("ZG2_KV_PACKED", "1" if device == "cpu" else "auto")
+        eng = InferenceEngine(PACKED_CFG, params, max_seq=48, prompt_buckets=(8,),
+                              kv_quant=kv_quant, device=device)
+        b = ContinuousBatcher(PACKED_CFG, params, batch_size=2, max_seq=32,
+                              prompt_buckets=(8,), sampling=SamplingConfig(temperature=0.0),
+                              kv_quant=kv_quant, device=device)
+        assert eng.config.kv_packed and b.config.kv_packed
+        before = _counts(fn)
+        toks = eng.generate([1, 2, 3, 4], 16, SamplingConfig(temperature=0.0))
+        rids = [b.submit(p, 10) for p in ([1, 2, 3], [9, 8, 7, 6, 5], [4], [11, 12, 13])]
+        by_rid = {r.rid: r.generated for r in b.run()}
+        out[device] = (toks, [by_rid[r] for r in rids])
+        if device == "cuda":
+            L = PACKED_CFG.n_layers
+            assert _counts(fn) == (before[0], before[1], before[2] + L * 16,
+                                   before[3] + L * b.metrics.steps)
+    assert out["cuda"] == out["cpu"]

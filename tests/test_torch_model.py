@@ -176,11 +176,12 @@ def test_decode_updates_cache_in_place():
 
 
 def test_unported_cache_layouts_raise():
+    """The packed layout exists at head_dim 64 only (here 32); INT4 KV not at all."""
     cfg = tconfig.GPTConfig(vocab_size=64, context_size=16, n_layers=1,
                             n_heads=2, n_embed=64, kv_packed=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="head_dim 64"):
         tgpt2.init_kv_cache(cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="head_dim 64"):
         tgpt2.init_kv_cache(cfg, quant="int8")
     with pytest.raises(ValueError):
         tgpt2.init_kv_cache(tconfig.GPT2_NANO, quant="int4")

@@ -111,6 +111,11 @@ def demo_model(args, dtype):
     return config, Encoder(vocab, merges), gpt2.init_params(config, gen, dtype)
 
 
+def _layout(config) -> str:
+    """The KV cache layout the runtime chose (``gpt2.default_kv_packed``)."""
+    return "packed" if config.kv_packed else "unpacked"
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     for name, why in _LATER.items():
@@ -181,7 +186,7 @@ def main(argv=None) -> None:
             print(json.dumps({"prompt": rid_to_prompt[req.rid],
                               "completion": encoder.decode(req.generated)}))
         if args.metrics:
-            print(json.dumps({"device": device_name,
+            print(json.dumps({"device": device_name, "kv_layout": _layout(batcher.config),
                               **batcher.metrics.as_dict(args.batch_slots)}),
                   file=sys.stderr)
         return
@@ -197,6 +202,7 @@ def main(argv=None) -> None:
     if args.metrics:
         print(json.dumps({
             "device": device_name,
+            "kv_layout": _layout(engine.config),
             "prompt_tokens": metrics.prompt_tokens,
             "generated_tokens": metrics.generated_tokens,
             "prefill_ms": round(metrics.prefill_ms, 3),

@@ -27,8 +27,9 @@ class GPTConfig:
     # padded vocab logits are masked before sampling. None = unpadded.
     padded_heads: Optional[int] = None
     padded_vocab_size: Optional[int] = None
-    # Head-pair-packed KV layout. For a float cache it gives the same
-    # results as unpacked; this port serves unpacked only.
+    # Head-pair-packed KV layout (head_dim 64): two heads per cache row and,
+    # for an INT8 cache, one scale per head pair. The runtimes set it by
+    # models.gpt2.default_kv_packed.
     kv_packed: bool = False
     # Every batch lane decodes at one shared position (a write-path
     # optimisation in the JAX package; results are unchanged).

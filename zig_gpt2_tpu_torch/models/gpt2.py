@@ -12,6 +12,16 @@ INT8/INT4 weights, float or INT8 KV cache:
   (L, B, H, S). ``prefill`` and ``decode_step`` update it IN PLACE and
   return the same dict: the PyTorch analogue of the JAX package donating
   the cache to jit. A caller that needs the old cache must clone it first.
+- Head-pair-packed cache (``config.kv_packed``, head_dim 64 only; the
+  runtimes choose it by ``prepare_serving``): ``k``/``v`` are
+  (L, B, Hp, S, 2D), two adjacent heads per row, with one zero phantom
+  head when H is odd (Hp = ceil(H / 2)). The phantom head lives in the
+  weights (``pad_phantom_head``, zero Q/K/V columns and c_proj rows, added
+  once), so a packed step packs and unpacks views only; ``prefill`` and
+  ``decode_step`` refuse a packed config with an odd head count. An INT8
+  cache quantizes the packed rows, so its scales are per head pair, planes
+  (L, B, Hp, S): the JAX package's packed quantization, which differs from
+  the unpacked one.
 - Ring cache (``config.ring_cache``, the continuous batcher's layout): a
   lane's ``length`` rows are the interval [start, start + length) mod S,
   and every lane's next row goes to one shared write row ``wptr``; the
@@ -35,6 +45,8 @@ INT8/INT4 weights, float or INT8 KV cache:
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -42,11 +54,81 @@ import torch
 from zig_gpt2_tpu_torch.config import GPTConfig
 from zig_gpt2_tpu_torch.ops import layers as ops
 from zig_gpt2_tpu_torch.ops.attention import (decode_attention_deferred,
-                                              decode_attention_quant_deferred)
-from zig_gpt2_tpu_torch.quant.quantize import is_quantized, quantized_linear
+                                              decode_attention_quant_deferred,
+                                              pack_heads_rows, pack_heads_seq)
+from zig_gpt2_tpu_torch.quant.quantize import is_quantized, pad_linear, quantized_linear
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# KV cache layout
+# ---------------------------------------------------------------------------
+
+def default_kv_packed(config: GPTConfig, device, mesh=None) -> bool:
+    """Whether a runtime on ``device`` serves the head-pair-packed KV cache:
+    the JAX package's rule (``prepare_serving`` on one device) where the
+    port's kernels run. ``ZG2_KV_PACKED``: ``0`` off; ``1`` on wherever the
+    layout is legal (head_dim 64, no mesh); ``auto`` (the default) on where
+    it is legal and the device is a CUDA card. For an INT8 cache the layout
+    changes the results (per-pair scales), so the card serves what the JAX
+    package serves on its chip.
+
+    A config that already asks for the packed layout keeps it, and raises
+    where the layout cannot run: a head_dim other than 64, or a mesh."""
+    if config.kv_packed:
+        _check_packed(config)
+        if mesh is not None:
+            raise ValueError("the packed KV layout is single-device only (mesh given)")
+        return True
+    opt = os.environ.get("ZG2_KV_PACKED", "auto")
+    if opt not in ("0", "1", "auto"):
+        raise ValueError(f"ZG2_KV_PACKED={opt!r}: expected 0, 1 or auto")
+    if opt == "0" or config.head_dim != 64 or mesh is not None:
+        return False
+    return opt == "1" or torch.device(device).type == "cuda"
+
+
+def _check_packed(config: GPTConfig) -> None:
+    if config.head_dim != 64:
+        raise ValueError(f"the packed KV layout needs head_dim 64, not {config.head_dim}")
+
+
+def _packed_rows(config: GPTConfig) -> int:
+    """Packed rows per lane: head pairs, the phantom head counted."""
+    return (config.attn_heads + 1) // 2
+
+
+def _check_packed_weights(config: GPTConfig) -> None:
+    if config.kv_packed and config.attn_heads % 2:
+        raise ValueError(f"the packed layout needs an even head count in the weights, not "
+                         f"{config.attn_heads}: add the phantom head with pad_phantom_head")
+
+
+def pad_phantom_head(params: Params, config: GPTConfig) -> Tuple[Params, GPTConfig]:
+    """The packed layout's zero phantom head, put into the weights once: for
+    an odd head count (1.5B's 25), a last head of zero Q/K/V columns and
+    biases and zero c_proj rows, and ``padded_heads`` one more. Its q, k and
+    v are exactly zero, as the JAX package's per-step padding makes them,
+    and its output meets zero c_proj rows. Float or quantized linears.
+    Returns (params, config) unchanged for an even count."""
+    if config.attn_heads % 2 == 0:
+        return params, config
+    attn = dict(params["blocks"]["attn"])
+    for name in ("wq", "wk", "wv"):
+        attn[name] = pad_linear(attn[name], n_out=config.head_dim)
+    attn["c_proj"] = pad_linear(attn["c_proj"], n_in=config.head_dim)
+    params = dict(params, blocks=dict(params["blocks"], attn=attn))
+    return params, dataclasses.replace(config, padded_heads=config.attn_heads + 1)
+
+
+def prepare_serving(params: Params, config: GPTConfig, device) -> Tuple[Params, GPTConfig]:
+    """The single-device half of the JAX package's ``prepare_serving``: the
+    layout ``default_kv_packed`` decides for ``device`` and, when packed,
+    the phantom head in the weights. Returns (params, config)."""
+    config = dataclasses.replace(config, kv_packed=default_kv_packed(config, device))
+    return pad_phantom_head(params, config) if config.kv_packed else (params, config)
 
 
 # ---------------------------------------------------------------------------
@@ -98,20 +180,23 @@ def init_kv_cache(config: GPTConfig, batch_size: int = 1,
                   dtype: torch.dtype = torch.float32,
                   device="cpu", quant: Optional[str] = None,
                   ring: Optional[bool] = None) -> KVCache:
-    """Preallocate the fixed-shape KV cache, unpacked layout: float in
-    ``dtype``, or with ``quant="int8"`` int8 rows with f32 per-(token,
-    head) scale planes (``dtype`` is then unused). A ring cache
+    """Preallocate the fixed-shape KV cache: float in ``dtype``, or with
+    ``quant="int8"`` int8 rows with f32 scale planes (``dtype`` is then
+    unused), per (token, head), or per (token, head pair) in the packed
+    layout (``config.kv_packed``: rows (L, B, Hp, S, 2D)). A ring cache
     (``config.ring_cache``, or ``ring`` when given: ``ring=False`` builds
     the linear lane caches that admissions prefill under a ring config)
     adds ``start`` (B,) and ``wptr`` (), int32, zero."""
-    if config.kv_packed:
-        raise NotImplementedError("the packed KV cache is not ported (it comes, "
-                                  "with its per-pair INT8 scales, with a later "
-                                  "slice)")
     if quant not in (None, "int8"):
         raise ValueError(f"unknown KV quantization {quant!r}")
     max_seq = max_seq or config.context_size
-    shape = (config.n_layers, batch_size, config.attn_heads, max_seq, config.head_dim)
+    if config.kv_packed:
+        _check_packed(config)
+        shape = (config.n_layers, batch_size, _packed_rows(config), max_seq,
+                 2 * config.head_dim)
+    else:
+        shape = (config.n_layers, batch_size, config.attn_heads, max_seq,
+                 config.head_dim)
     cache = {"length": torch.zeros((batch_size,), dtype=torch.int32, device=device)}
     if quant == "int8":
         for name in ("k", "v"):
@@ -174,7 +259,8 @@ def _put_row_stacked(stack: torch.Tensor, row: torch.Tensor, idx: int,
                      pos: torch.Tensor) -> None:
     """Write (B, H, D) rows into the stacked (L, B, H, S, D) cache at
     (idx, b, :, pos[b], :), or (B, H) scales into a stacked (L, B, H, S)
-    plane at (idx, b, :, pos[b]), in place, with one indexed write. A 0-d
+    plane at (idx, b, :, pos[b]), in place, with one indexed write (H and D
+    are Hp and 2D in the packed layout: only the S axis is named). A 0-d
     ``pos`` (the ring's shared write row) puts every lane's row at that one
     row with one ``index_copy_``, the index staying on the device."""
     if pos.dim() == 0:
@@ -195,16 +281,19 @@ def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
     bp = _layer(blocks, idx)
     h = ops.layer_norm(x, bp["ln_1"]["w"], bp["ln_1"]["b"], config.layer_norm_eps)
     q, k, v = _qkv(bp["attn"], h, config.attn_heads)  # (B, H, D)
+    packed = config.kv_packed
+    if packed:  # (B, Hp, 2D) views, before any quantization: a scale per pair
+        q, k, v = (pack_heads_rows(t) for t in (q, k, v))
     if "k_scale" in caches:  # INT8 cache: quantize, attend, then append
         (kq, ks), (vq, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
         attn = decode_attention_quant_deferred(
             q, kq, ks, vq, vs, caches["k"], caches["k_scale"], caches["v"],
-            caches["v_scale"], pos, layer=idx, start=start)
+            caches["v_scale"], pos, layer=idx, start=start, packed=packed)
         for name, row in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
             _put_row_stacked(caches[name], row, idx, wpos)
     else:
         attn = decode_attention_deferred(q, k, v, caches["k"], caches["v"], pos,
-                                         layer=idx, start=start)
+                                         layer=idx, start=start, packed=packed)
         _put_row_stacked(caches["k"], k, idx, wpos)
         _put_row_stacked(caches["v"], v, idx, wpos)
     x = x + _linear(bp["attn"]["c_proj"], attn.reshape(x.shape[0], -1))
@@ -254,6 +343,7 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
     (rows at or past a lane's length are padding that no read reaches and
     the next decode steps overwrite). Returns (cache, (B, vocab) logits at
     each lane's last prompt position)."""
+    _check_packed_weights(config)
     B, T = tokens.shape
     pos = torch.arange(T, device=tokens.device)
     x = _embed(params, tokens, pos)
@@ -261,6 +351,8 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
     length_mask = pos[None, :] < lengths[:, None]
     for idx in range(config.n_layers):
         x, k, v = _block_prefill(x, _layer(params["blocks"], idx), config, length_mask)
+        if config.kv_packed:  # pack, and only then quantize (per pair)
+            k, v = pack_heads_seq(k), pack_heads_seq(v)
         if "k_scale" in cache:  # INT8 cache: quantize on append
             (k, ks), (v, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
             cache["k_scale"][idx, :, :, :T] = ks
@@ -285,6 +377,7 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     the cache's last row, as the JAX package's dynamic_update_slice
     clamps. Under the ring the length clamps at rows - 1, so an interval
     never reaches the write row, and ``wptr`` advances by one."""
+    _check_packed_weights(config)
     pos = cache["length"]
     rows = cache["k"].shape[-2]
     x = _embed(params, tokens, pos.clamp(max=params["wpe"].shape[0] - 1))

@@ -32,18 +32,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the library's entry points (every pointer and the stream
-# as c_void_p, so ctypes never truncates one to 32 bits).
+# as c_void_p, so ctypes never truncates one to 32 bits). The attention
+# entry points take their operands, length, start (null for the prefix
+# rows) and out; B, H, S, D, layer; scale; the dtype and packed codes; the
+# stream.
+_ATTENTION = [_I] * 5 + [_F, _I, _I, _P]
 SIGNATURES = {
-    "zg2_decode_attention_deferred": [_P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _F, _I, _P],
-    "zg2_decode_attention_deferred_ring": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _F, _I, _P],
-    "zg2_decode_attention_quant_deferred": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                            _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                                            _P],
-    "zg2_decode_attention_quant_deferred_ring": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                                 _P, _P, _P, _P, _I, _I, _I, _I,
-                                                 _I, _F, _I, _P],
+    "zg2_decode_attention_deferred": [_P] * 8 + _ATTENTION,
+    "zg2_decode_attention_quant_deferred": [_P] * 12 + _ATTENTION,
+    "zg2_decode_attention": [_P] * 6 + _ATTENTION,
+    "zg2_decode_attention_quant": [_P] * 8 + _ATTENTION,
     "zg2_sample_categorical": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "zg2_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

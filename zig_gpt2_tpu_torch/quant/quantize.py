@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from zig_gpt2_tpu_torch.quant import kernels
 from zig_gpt2_tpu_torch.quant.kernels import unpack_int4
@@ -82,8 +83,7 @@ def quantize_linear(p: Dict[str, Any], mode: str = "int8",
     if mode == "int8":
         out["qw"] = q
     else:
-        lo, hi = q.int().split(k // 2, dim=-2)  # rows [0, K/2), [K/2, K)
-        out["qw4"] = ((hi << 4) | (lo & 0x0F)).to(torch.int8)
+        out.update(quantize_packed_int4(q))
     if p.get("b") is not None:
         out["b"] = p["b"]
     return out
@@ -101,6 +101,45 @@ def dequantize_linear(p: Dict[str, Any], dtype=torch.float32) -> Dict[str, Any]:
     if "b" in p:
         out["b"] = p["b"]
     return out
+
+
+def pad_linear(p: Dict[str, Any], *, n_out: int = 0, n_in: int = 0) -> Dict[str, Any]:
+    """``p`` (float ``{"w", "b"?}`` or quantized) with ``n_out`` output
+    columns and ``n_in`` input rows appended whose weights are exactly zero
+    (zero bias entries; scale 1 for each new column and new group). An INT4
+    weight is unpacked and packed again, since its half-split layout pairs
+    rows K/2 apart."""
+    out = dict(p)
+    if p.get("b") is not None:
+        out["b"] = F.pad(p["b"], (0, n_out))
+    if "w" in p:
+        out["w"] = F.pad(p["w"], (0, n_out, 0, n_in))
+        return out
+    q = p["qw"] if "qw" in p else unpack_int4(p["qw4"])  # (..., K, N)
+    k, groups = q.shape[-2], p["scale"].shape[-2]
+    g = k // groups
+    new_groups = 0
+    if groups > 1:  # grouped scales: the new rows make whole groups of their own
+        new_groups = n_in // g
+        if n_in % g or ("qw4" in p and ((k + n_in) // 2) % g):
+            raise ValueError(f"{n_in} rows do not pad K={k} by whole groups of {g}")
+    q = F.pad(q, (0, n_out, 0, n_in))
+    out["scale"] = F.pad(p["scale"], (0, n_out, 0, new_groups), value=1.0).contiguous()
+    if "qw4" in p:
+        del out["qw4"]
+        out.update(quantize_packed_int4(q))
+    else:
+        out["qw"] = q.contiguous()
+    return out
+
+
+def quantize_packed_int4(q: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``{"qw4"}``: int8 INT4 values (..., K, N) in the half-split pack."""
+    k = q.shape[-2]
+    if k % 2:
+        raise ValueError(f"INT4 packing needs an even K, not {k}")
+    lo, hi = q.int().split(k // 2, dim=-2)  # rows [0, K/2), [K/2, K)
+    return {"qw4": ((hi << 4) | (lo & 0x0F)).to(torch.int8)}
 
 
 def grouped_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

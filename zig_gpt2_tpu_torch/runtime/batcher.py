@@ -25,7 +25,9 @@ interval ends at the write row, and records its start. (The JAX package
 rolls the whole lane into place; rows outside an interval are never read.)
 
 The batcher runs on ``device="cuda"`` unless the caller asks for
-``device="cpu"``; with no card and no explicit CPU request it raises. The
+``device="cpu"``; with no card and no explicit CPU request it raises. Its
+cache, and its admissions' lane caches, take the layout that
+``gpt2.prepare_serving`` decides at construction, as the engine's. The
 sampler draws from a ``torch.Generator`` seeded from ``sampling.seed``.
 Prefix caching (``register_prefix``), speculative serving
 (``speculative=``) and a device mesh (``mesh=``) are not in the port yet.
@@ -169,8 +171,9 @@ class ContinuousBatcher:
             raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
         self.device = _resolve_device(device)
         self._ring = os.environ.get("ZG2_RING", "1") != "0"
-        self.config = dataclasses.replace(config, ring_cache=self._ring)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.params, self.config = gpt2.prepare_serving(
+            tree_map(lambda t: t.to(self.device), params),
+            dataclasses.replace(config, ring_cache=self._ring), self.device)
         self.batch_size = batch_size
         self.max_seq = max_seq or config.context_size
         self.sampling = sampling
@@ -352,7 +355,8 @@ class ContinuousBatcher:
         batch indices ``idxs``: at rows [0, T) of a linear cache, or at ring
         rows (start + i) mod R with start = (wptr - n) mod R, so that each
         lane's n valid rows end at the write row. One indexed write per
-        array; rows i >= n are padding that no read reaches."""
+        array, on the S axis (axis 3) of either layout; rows i >= n are
+        padding that no read reaches."""
         R = self.cache["k"].shape[-2]
         T = lanes["k"].shape[-2]
         rows = torch.arange(T, device=self.device)[None, :]
@@ -362,7 +366,7 @@ class ContinuousBatcher:
             rows = (start[:, None] + rows) % R
         for name in ("k", "v", "k_scale", "v_scale"):
             if name in lanes:
-                src = lanes[name]  # (L, k, H, T[, D]); indexing puts (k, T) first
+                src = lanes[name]  # (L, k, H, T[, D]) or (L, k, Hp, T[, 2D]): (k, T) first
                 self.cache[name][:, idxs[:, None], :, rows] = src.permute(
                     1, 3, 0, 2, *range(4, src.dim()))
         self.cache["length"][idxs] = lens

@@ -7,7 +7,11 @@ cache in place. Text streams out through ``StreamDecoder``, which never
 emits a partial UTF-8 character.
 
 The engine runs on ``device="cuda"`` unless the caller asks for
-``device="cpu"``; with no card and no explicit CPU request it raises.
+``device="cpu"``; with no card and no explicit CPU request it raises. It
+decides the KV cache's layout at construction, as the JAX package's
+``prepare_serving`` does on one device (``gpt2.prepare_serving``: packed
+on the card at head_dim 64 unless ``ZG2_KV_PACKED=0``, with an odd head
+count's phantom head added to the weights).
 """
 
 from __future__ import annotations
@@ -137,14 +141,15 @@ class InferenceEngine:
         Default 1 (no measurement on the card says otherwise yet).
 
         ``kv_quant``: None for a float KV cache in the weights' (wte's)
-        dtype, or "int8" for int8 rows with per-(token, head) f32 scales.
-        ``params`` may be float or quantized (``quant.quantize_params``)."""
+        dtype, or "int8" for int8 rows with f32 scales per (token, head), or
+        per (token, head pair) in the packed layout. ``params`` may be float
+        or quantized (``quant.quantize_params``)."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
         self.device = _resolve_device(device)
         self.kv_quant = kv_quant
-        self.config = config
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.params, self.config = gpt2.prepare_serving(
+            tree_map(lambda t: t.to(self.device), params), config, self.device)
         self.encoder = encoder
         self.batch_size = batch_size
         self.max_seq = max_seq or config.context_size

@@ -1,0 +1,214 @@
+#!/usr/bin/env python3
+"""Device time of the decode-attention kernels of one source tree, on
+inputs that are the same for every tree, so that two trees compare.
+
+    python3 zig_gpt2_tpu_torch/tools/kernel_ab.py [--root DIR] [--label NAME]
+
+``--root`` is the checkout whose ``zig_gpt2_tpu_torch`` is timed (default:
+the one holding this script); an older checkout works as long as its
+wrappers take ``start=``. The kernels are built from that tree's sources.
+To compare two trees on one card, run them in one session in the order
+A, B, B, A. Prints the tree's attention kernels' register counts (from
+its ``ptxas -v`` log), then one JSON line per kernel: the device time per
+call by CUDA-graph replay (``--repeats`` readings of ``10 L`` calls
+rotating over the L layers), the error against the plain version and a
+checksum of the inputs. The inputs are drawn on the card from fixed seeds:
+the same torch build gives the same bytes in every tree.
+
+Kernels, at the serving paths' shapes: the unpacked INT8 ring kernel (B=16,
+R=1025, 1.5B shapes: 48 layers, 25 heads, bf16 q, 1023 old rows per lane),
+the unpacked float ring kernel (124M shapes, f32), and, where the tree has
+the packed layout, the packed INT8 ring kernel on the same rows packed in
+pairs (13 rows with the phantom head); then each INT8 kernel at B=1 over
+the prefix rows of lane 0 (the engine's shape).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+B, R, N, D = 16, 1025, 1023, 64
+
+
+def register_report(build_log: str) -> list[tuple[str, str]]:
+    """(kernel, ptxas resource line) for each entry function in a ``ptxas
+    -v`` log, names demangled by ``c++filt`` where it is installed."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, line.split(":", 1)[1].strip()))
+            name = None
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+        out = [(names[i], used) for i, (_, used) in enumerate(out)]
+    return out
+
+
+def ring_lanes(torch):
+    """Lane 0 starts at 0, lane 1 at R - 1, the others spread over the ring;
+    every lane holds N old rows, so most intervals wrap."""
+    starts = [0, R - 1] + [(b * 397) % R for b in range(2, B)]
+    return (torch.tensor(starts, dtype=torch.int32, device="cuda"),
+            torch.full((B,), N, dtype=torch.int32, device="cuda"))
+
+
+def int8_inputs(torch, g, L, H, W, dtype):
+    """q, the quantized current rows and their scales, the int8 caches and
+    their f32 scale planes (the wrappers' order), drawn with ``g``. The
+    current rows are quantized here (absmax / 127 per row) rather than by
+    the tree, so that every tree sees the same bytes."""
+    kc, vc = (torch.randint(-127, 128, (L, B, H, R, W), device="cuda", generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(L, B, H, R, device="cuda", generator=g) * 0.03 + 0.01
+              for _ in range(2))
+    rows = []
+    for _ in range(2):
+        x = torch.randn(B, H, W, device="cuda", generator=g)
+        scale = x.abs().amax(-1).clamp(min=1e-12) / 127.0
+        rows += [torch.round(x / scale[..., None]).clamp(-127, 127).to(torch.int8), scale]
+    q = torch.randn(B, H, W, device="cuda", generator=g).to(dtype)
+    return [q, rows[0], rows[1], rows[2], rows[3], kc, ks, vc, vs]
+
+
+def packed(args, torch):
+    """The same rows in the head-pair layout: a zero phantom head appended
+    when the head count is odd; each pair's scale is the larger of its two
+    heads' (the rows keep their int8 values, so the math differs from the
+    unpacked call's only by the scales)."""
+    q, kn, ksn, vn, vsn, kc, ks, vc, vs = args
+
+    def rows(t, axis):  # pad the head axis to even, then fold pairs
+        if t.shape[axis] % 2:
+            shape = list(t.shape)
+            shape[axis] = 1
+            t = torch.cat([t, torch.zeros(shape, dtype=t.dtype, device=t.device)], axis)
+        return t
+
+    def fold_rows(t):  # (..., H, W) -> (..., H/2, 2W)
+        t = rows(t, -2)
+        return t.reshape(*t.shape[:-2], t.shape[-2] // 2, 2 * t.shape[-1]).contiguous()
+
+    def fold_seq(t):  # (..., H, S, W) -> (..., H/2, S, 2W)
+        t = rows(t, -3)
+        *lead, h, s, w = t.shape
+        return t.reshape(*lead, h // 2, 2, s, w).transpose(-3, -2).reshape(
+            *lead, h // 2, s, 2 * w).contiguous()
+
+    def pair_scale(t, axis):  # per-head scales (axis < 0) -> the larger of each pair
+        t = rows(t, axis)
+        shape = list(t.shape)
+        shape[axis] = shape[axis] // 2
+        shape.insert(len(shape) + axis + 1, 2)  # (..., H/2, 2, ...): the pair axis is ``axis``
+        return t.reshape(shape).amax(axis).contiguous()
+
+    return [fold_rows(q), fold_rows(kn), pair_scale(ksn, -1), fold_rows(vn),
+            pair_scale(vsn, -1), fold_seq(kc), pair_scale(ks, -2), fold_seq(vc),
+            pair_scale(vs, -2)]
+
+
+def checksum(args, torch) -> float:
+    return float(sum(a.double().sum().item() * (i + 1) for i, a in enumerate(args)))
+
+
+def time_us(fn, calls: int, torch) -> float:
+    """Mean device time per call of ``calls`` calls of fn(i), captured in a
+    CUDA graph and replayed once."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(calls):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls * 1e3
+
+
+def main(argv=None) -> int:
+    here = Path(__file__).resolve().parents[2]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(here), help="checkout to time")
+    ap.add_argument("--label", default=None, help="name printed with each line")
+    ap.add_argument("--repeats", type=int, default=5)
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    label = args.label or root.name
+    sys.path.insert(0, str(root))
+    import inspect
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from zig_gpt2_tpu_torch.ops import _build
+    from zig_gpt2_tpu_torch.ops import attention as att
+
+    if not str(Path(att.__file__).resolve()).startswith(str(root)):
+        print(f"kernel_ab: imported {att.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    _, secs, log = _build.build()
+    print(f"{label}: build {secs:.1f} s; attention kernels' registers:")
+    for name, used in register_report(log):
+        if "decode_attention" in name:
+            print(f"  {label}: {name}: {used}")
+    has_packed = "packed" in inspect.signature(att.decode_attention_quant_deferred).parameters
+
+    start, length = ring_lanes(torch)
+    cases = []
+    g = torch.Generator(device="cuda").manual_seed(10)
+    int8 = int8_inputs(torch, g, 48, 25, D, torch.bfloat16)
+    cases.append(("int8 ring, unpacked, H=25, bf16 q", att.decode_attention_quant_deferred,
+                  att.decode_attention_quant_deferred_plain, int8, 48, {}))
+    if has_packed:
+        cases.append(("int8 ring, packed, Hp=13, bf16 q", att.decode_attention_quant_deferred,
+                      att.decode_attention_quant_deferred_plain, packed(int8, torch), 48,
+                      {"packed": True}))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    flt = [torch.randn(B, 12, D, device="cuda", generator=g) for _ in range(3)]
+    flt += [torch.randn(12, B, 12, R, D, device="cuda", generator=g) for _ in range(2)]
+    cases.append(("float ring, unpacked, H=12, f32", att.decode_attention_deferred,
+                  att.decode_attention_deferred_plain, flt, 12, {}))
+    # B=1, prefix rows, lane 0 of the same inputs (the engine's shape).
+    one = [(f"{name.replace(' ring', '')} B=1 prefix", kernel, plain,
+            [t[:1].contiguous() if t.dim() <= 3 else t[:, :1].contiguous() for t in ops], L,
+            {**kw, "start": None})
+           for name, kernel, plain, ops, L, kw in cases if "int8" in name]
+    cases += one
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    for name, kernel, plain, ops, L, kw in cases:
+        kw = {"start": start, **kw}
+        lanes = length[:ops[0].shape[0]]
+        err = (kernel(*ops, lanes, layer=0, **kw).float()
+               - plain(*ops, lanes, layer=0, **kw).float()).abs().max().item()
+        times = [time_us(lambda i: kernel(*ops, lanes, layer=i % L, **kw), 10 * L, torch)
+                 for _ in range(args.repeats)]
+        print(json.dumps({"tree": label, "kernel": name, "B": ops[0].shape[0], "R": R,
+                          "old_rows": N,
+                          "us": times, "us_median": statistics.median(times),
+                          "max_abs_err_vs_plain": err,
+                          "input_checksum": checksum(ops, torch), "card": card}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,9 +33,11 @@ def params_from_numpy(tree, device="cpu", dtype=None) -> Params:
     them. (A bfloat16 leaf goes through f32, since torch cannot read that
     numpy dtype, and comes back bfloat16.)
 
-    A KV cache crosses the same way: int8 rows, the f32 ``k_scale`` and
-    ``v_scale`` planes, the int32 ``length`` and, for a ring cache,
-    ``start`` (B,) and the 0-d ``wptr``, each in its own dtype."""
+    A KV cache crosses the same way, unpacked or packed, with its shapes as
+    they are: int8 rows, the f32 ``k_scale`` and ``v_scale`` planes (per
+    head, or per head pair (L, B, Hp, S) when packed), the int32 ``length``
+    and, for a ring cache, ``start`` (B,) and the 0-d ``wptr``, each in its
+    own dtype."""
 
     def leaf(a, name):
         a = np.asarray(a)
