@@ -100,12 +100,40 @@ prints no result line:
                engine near-tie check; then the layout A/B: 32 traced steps at
                full occupancy on the packed and on an unpacked batcher, device
                busy ms and attention kernel us per step for each.
-19. times    - each kernel's device time per call at the main paths'
+19. w8a8     - the w8a8 (s8 x s8) body of the qmm kernel against its plain
+               version on a 1.5B INT8 per-channel tree with the phantom head
+               padded in: the six block linears at layers 0 and 47 (Q/K/V
+               1600x1664) and the lm_head (K=1600, N=50257), rows 1, 16 and
+               64, f32 and bf16 activations, bit for bit; 65 rows go to
+               ``w8a8_matmul`` (``torch._int_mm``; the exact f64 product for
+               the lm_head's N) and launch no kernel.
+20. serve-w8a8-1.5B - GPT-2 1.5B at full width and depth, the bf16
+               weights of phase 11 quantized INT8 per channel, ``act_quant``
+               (``--quant w8a8``), packed layout: ``InferenceEngine`` with a
+               bf16 KV cache, phase 11's three requests (w8a8 launches 289
+               per decode step and per prefill of at most 64 rows, the weight-
+               only qmm and wmm none), the greedy request teacher-forced
+               against the CPU over the first 12 layers within max(1e-3, 3 x
+               the run's CPU f32-vs-f64 floor), and a trace of 32 decode
+               steps; then ``ContinuousBatcher(batch_size=16, max_seq=256,
+               kv_quant="int8")``: 32 greedy requests (prompts 8-120, budgets
+               32-96) on a ring and on a linear cache, identical, and the
+               near-tie check against the engine.
+21. wmm      - the float GEMV kernel against its plain version at 124M
+               shapes (768x768 for each of Q/K/V and c_proj, 768x3072,
+               3072x768), rows 1, 8 and 256, f32 and bf16 weights and
+               activations.
+22. serve-wmm-124M - phase 7's model and requests with ``ZG2_WMM=1`` on
+               ``InferenceEngine`` (wmm launches 72 per decode step, none per
+               prefill; teacher-forced logits vs the CPU; greedy tokens equal
+               to the engine's without wmm up to a near-tie), then phase 9's
+               batcher (B=8), packed layout.
+23. times    - each kernel's device time per call at the main paths'
                shapes (CUDA-graph replay of many calls), its bound, its
                plain version's time and one PyTorch library call computing
                the same function (timed only, never used by the port).
 
-Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-18
+Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-22
 the packed one, which the card picks by itself at head_dim 64.
 fp32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 The line before the last is a JSON object listing the kernels; the last
@@ -122,10 +150,13 @@ import subprocess
 import sys
 import time
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the f32
-# rate outside the tensor cores, used here for every 32-bit scalar op.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the f32 rate
+# outside the tensor cores, used here for every 32-bit scalar op, and the
+# dense tensor-core rates for bf16 and int8 products.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
+PEAK_INT8_OPS_PER_S = 1979e12
 # Operations per vocab element in the sampler: Philox4x32-10 is 10 rounds
 # of 2 mul-hi, 2 mul-lo, 4 xor and 2 key adds; then ~14 for the uniform,
 # two logs, the scale, the add, the mask and the running argmax.
@@ -195,8 +226,8 @@ def time_ms(fn, n: int, warmup: int = 3, graph: bool = True) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
-    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, nops: float, peak_ops: float = PEAK_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -535,13 +566,14 @@ def reset_counts(att, sk, qk) -> None:
     for _, fn, attr in COUNTERS:
         setattr(getattr(att, fn), attr, 0)
     sk.sample_categorical.launches = 0
-    qk.qmm.launches = 0
+    qk.qmm.launches = qk.qmm.w8a8_launches = qk.wmm.launches = 0
 
 
 def read_counts(att, sk, qk, torch) -> dict:
     torch.cuda.synchronize()
     counts = {key: getattr(getattr(att, fn), attr) for key, fn, attr in COUNTERS}
-    counts.update(sampler=sk.sample_categorical.launches, qmm=qk.qmm.launches)
+    counts.update(sampler=sk.sample_categorical.launches, qmm=qk.qmm.launches,
+                  qmm_w8a8=qk.qmm.w8a8_launches, wmm=qk.wmm.launches)
     return counts
 
 
@@ -649,7 +681,10 @@ def serve(pkg, torch, encoder, card: str, label: str = "serve", params=None):
         f"fp32, B=1, {layout_name(engine.config)}, {card}")
     counts = read_counts(att, sk, qk, torch)
     key = "attention_packed" if engine.config.kv_packed else "attention"
-    expect_counts(label, counts, {key: config.n_layers * decode_steps, "sampler": sampled})
+    expected = {key: config.n_layers * decode_steps, "sampler": sampled}
+    if gpt2._use_wmm():  # ZG2_WMM=1: the float block linears of every decode step
+        expected["wmm"] = 6 * config.n_layers * decode_steps
+    expect_counts(label, counts, expected)
 
     # Teacher-forced check of the greedy request against the CPU.
     _, prompt, sampling, text, _ = results[0]
@@ -679,16 +714,28 @@ def dequantized(quantize, params):
     return out
 
 
-def build_1p5b(config_mod, gpt2, quantize, encoder, torch):
+def build_1p5b(config_mod, gpt2, quantize, encoder, torch, mode: str = "int4"):
     """GPT-2 1.5B at full width and depth, random bf16 weights from a
-    fixed seed, INT4 block linears and the INT8 lm_head."""
+    fixed seed, INT4 (``mode``, or INT8 per-channel) block linears and the
+    INT8 lm_head."""
     config = dataclasses.replace(config_mod.get_config("1558M"), vocab_size=len(encoder.vocab),
                                  padded_vocab_size=50257)
     params = gpt2.init_params(config, torch.Generator(device="cuda").manual_seed(0),
                               torch.bfloat16)
-    params = quantize.quantize_params(params, mode="int4")
+    params = quantize.quantize_params(params, mode=mode)
     torch.cuda.synchronize()
     return config, params
+
+
+def gemv_counts(config, steps: int, prefills) -> dict:
+    """Expected launches of the quantized GEMV: the block linears and the
+    lm_head of every decode step; per prefill of k x T rows the block
+    linears when k * T is within the kernel's row cap (256, or 64 for the
+    w8a8 body under act_quant), and the lm_head's k rows. Counted under
+    ``qmm``, or ``qmm_w8a8`` for w8a8."""
+    L = config.n_layers
+    key, cap = ("qmm_w8a8", 64) if config.act_quant else ("qmm", 256)
+    return {key: (6 * L + 1) * steps + sum(6 * L * (k * t <= cap) + 1 for k, t in prefills)}
 
 
 def serve_1p5b(pkg, torch, encoder, config, params, card: str, label: str = "serve-1.5B",
@@ -767,6 +814,127 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str, label: str = "ser
     compare_logits(f"{label} INT8 KV cache", gpu, cpu, torch, atol=max(E2E_ATOL, 3 * floor))
     log(f"{label} teacher-forced runs (2 on the card, 3 on the CPU): {time.perf_counter() - t0:.1f} s")
     return counts, engine, ids, floor
+
+
+def check_w8a8(qk, quantize, params, torch) -> None:
+    """Phase 19: the w8a8 body against its plain version, bit for bit, on an
+    INT8 per-channel tree; 65 rows take ``w8a8_matmul`` and no kernel."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    last = params["blocks"]["attn"]["wq"]["scale"].shape[0] - 1
+    for name, qw, scale, _ in linears(params, 0) + linears(params, last) + linears(
+            params, None):
+        k, n = qw.shape
+        for rows in (1, 16, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn(rows, k, device="cuda", generator=g) * 3).to(dtype)
+                if rows > 1:  # an all-zero row (the 1e-12 floor)
+                    x[1] = 0
+                before = (qk.qmm.launches, qk.qmm.w8a8_launches)
+                got = qk.qmm(x, qw, scale, w8a8=True)
+                want = qk.qmm_plain(x, qw, scale, w8a8=True)
+                torch.cuda.synchronize()
+                if (qk.qmm.launches, qk.qmm.w8a8_launches) != (before[0], before[1] + 1):
+                    raise AssertionError(f"w8a8 {name}: not one launch of the w8a8 body")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"w8a8 {name} rows={rows} {dtype}: kernel differs from "
+                                         f"its plain version (max_abs_err "
+                                         f"{max_err(got, want):.3e})")
+        x = torch.randn(65, k, device="cuda", generator=g).to(torch.bfloat16)
+        before = (qk.qmm.launches, qk.qmm.w8a8_launches)
+        y = quantize.quantized_linear({"qw": qw, "scale": scale}, x, act_quant=True)
+        torch.cuda.synchronize()
+        if (qk.qmm.launches, qk.qmm.w8a8_launches) != before:
+            raise AssertionError(f"w8a8 {name}: 65 rows launched a GEMV kernel")
+        same = torch.equal(quantize.w8a8_matmul(x, qw, scale),
+                           qk.qmm_plain(x, qw, scale, w8a8=True))
+        if not same or y.shape != (65, n):
+            raise AssertionError(f"w8a8 {name}: w8a8_matmul differs from the exact product")
+        log(f"w8a8 {name} K={k} N={n}: rows 1/16/64 x f32/bf16 bit-equal to the plain version; "
+            f"65 rows through w8a8_matmul "
+            f"({'torch._int_mm' if quantize._int_mm_takes(x, qw) else 'f64 product'}) "
+            f"equal to the exact product, no kernel launched")
+
+
+def serve_w8a8_1p5b(pkg, torch, encoder, config, params, card: str, check_layers: int = 12):
+    """Phase 20's engine: w8a8 with a bf16 KV cache. Returns the launch
+    counts, the engine, the greedy prompt's ids and the run's floor."""
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, _ = pkg
+    label = "serve-w8a8-1.5B"
+    engine = engine_mod.InferenceEngine(config, params, encoder, device="cuda")
+    engine.generate_text("warm up", 2, config_mod.SamplingConfig(temperature=0.8))
+    torch.cuda.synchronize()
+
+    reset_counts(att, sk, qk)
+    results, decode_steps, sampled = run_requests(
+        engine_mod, config_mod, engine, label,
+        f"{weights_name(config)}, bf16 KV cache ({layout_name(engine.config)}), bf16 "
+        f"activations, B=1, {card}")
+    counts = read_counts(att, sk, qk, torch)
+    prefills = [(1, engine_mod._bucket(len(encoder.encode(prompt)), engine.prompt_buckets))
+                for _, prompt, *_ in results]
+    key = "attention_packed" if engine.config.kv_packed else "attention"
+    expect_counts(label, counts, {key: config.n_layers * decode_steps, "sampler": sampled,
+                                  **gemv_counts(config, decode_steps, prefills)})
+
+    _, prompt, sampling, text, _ = results[0]
+    ids = encoder.encode(prompt)
+    greedy = engine.generate(ids, 32, sampling)
+    if encoder.decode(greedy) != text:
+        raise AssertionError("greedy rerun differs from the served text")
+    served = teacher_forced(gpt2, engine.params, engine.config, ids, greedy[:-1], "cuda", torch)
+    if served.argmax(-1).tolist() != greedy:
+        raise AssertionError("teacher-forced argmax differs from the greedy tokens")
+    # The same quantized weights with f32 float leaves, the first layers,
+    # teacher-forced on the card and on the CPU (the w8a8 plain versions),
+    # and on the CPU with f64 float leaves for the floor: x is quantized per
+    # row, so a roundoff-sized difference upstream can move one int8 value by
+    # a whole step, as in the INT8 KV cache.
+    t0 = time.perf_counter()
+    check_layers = min(check_layers, config.n_layers)
+    cfg = dataclasses.replace(engine.config, n_layers=check_layers)
+    f32 = weights.tree_map(lambda t: t.float() if t.is_floating_point() else t, engine.params)
+    f32 = dict(f32, blocks=weights.tree_map(lambda t: t[:check_layers], f32["blocks"]))
+    gpu = teacher_forced(gpt2, f32, cfg, ids, greedy[:-1], "cuda", torch)
+    cpu_w = weights.tree_map(lambda t: t.cpu(), f32)
+    t1 = time.perf_counter()
+    cpu = teacher_forced(gpt2, cpu_w, cfg, ids, greedy[:-1], "cpu", torch)
+    log(f"{label} CPU run: {time.perf_counter() - t1:.1f} s")
+    cpu_w = weights.tree_map(lambda t: t.double() if t.is_floating_point() else t, cpu_w)
+    t1 = time.perf_counter()
+    f64 = teacher_forced(gpt2, cpu_w, cfg, ids, greedy[:-1], "cpu", torch)
+    log(f"{label} CPU run, f64: {time.perf_counter() - t1:.1f} s")
+    del cpu_w
+    floor = (f64 - cpu).abs().max().item()
+    log(f"{label} floor: the CPU run in f64 and in f32 differ by max_abs_err={floor:.3e} over "
+        f"{cpu.shape[0]} positions ({check_layers} of {config.n_layers} layers)")
+    compare_logits(label, gpu, cpu, torch, atol=max(E2E_ATOL, 3 * floor))
+    log(f"{label} teacher-forced runs: {time.perf_counter() - t0:.1f} s")
+    return counts, engine, ids, floor
+
+
+def check_wmm(qk, params, torch) -> None:
+    """Phase 21: the float GEMV against its plain version at 124M shapes."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    atol, rtol = QMM_TOL
+    last = params["blocks"]["attn"]["wq"]["w"].shape[0] - 1
+    for layer in (0, last):
+        for mod, name in BLOCK_LINEARS:
+            w32 = params["blocks"][mod][name]["w"][layer]
+            errs = []
+            for wdtype in (torch.float32, torch.bfloat16):
+                w = w32.to(wdtype)
+                for rows in (1, 8, 256):
+                    for xdtype in (torch.float32, torch.bfloat16):
+                        x = torch.randn(rows, w.shape[0], device="cuda", generator=g).to(xdtype)
+                        before = qk.wmm.launches
+                        got = qk.wmm(x, w)
+                        if qk.wmm.launches != before + 1:
+                            raise AssertionError(f"wmm {mod}.{name}: not one launch")
+                        errs.append(check_close(f"wmm {mod}.{name}[{layer}] rows={rows} "
+                                                f"x {xdtype} w {wdtype}", got,
+                                                qk.wmm_plain(x, w), atol, rtol, torch))
+            log(f"wmm {mod}.{name}[{layer}] K={w32.shape[0]} N={w32.shape[1]}: rows 1/8/256 x "
+                f"f32/bf16 x and w, max_abs_err={max(errs):.3e} (atol {atol}, rtol {rtol})")
 
 
 def batch_requests(seed: int, n: int, vocab: int, prompt_lens, budgets):
@@ -867,17 +1035,26 @@ def serve_batcher_124m(pkg, batcher_mod, torch, engine, card: str,
     counts = read_counts(att, sk, qk, torch)
     steps = b.metrics.steps
     key = "attention_packed_ring" if b.config.kv_packed else "attention_ring"
-    expect_counts(label, counts, {key: engine.config.n_layers * steps})
+    expected = {key: engine.config.n_layers * steps}
+    if gpt2._use_wmm():
+        expected["wmm"] = 6 * engine.config.n_layers * steps
+    expect_counts(label, counts, expected)
     log(f"{label} metrics {json.dumps(b.metrics.as_dict(8))} "
         f"(fp32, B=8, ring, {layout_name(b.config)}, greedy, {card})")
     near_tie_check(label, gpt2, engine, requests[:2], served[:2], E2E_ATOL, torch)
     return counts
 
 
+def weights_name(config) -> str:
+    return ("w8a8: INT8 weights and activations" if config.act_quant else
+            "INT4 weights, INT8 lm_head")
+
+
 def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, card: str,
-                       label: str = "serve-batcher-1.5B"):
-    """Phases 13 and 18. Returns the kernels' launch counts and the ring
-    batcher."""
+                       label: str = "serve-batcher-1.5B", sampled_half: bool = True):
+    """Phases 13, 18 and 20: 64 requests, the first half sampled, sized so
+    that the write pointer wraps; or with ``sampled_half=False`` 32 greedy
+    requests. Returns the kernels' launch counts and the ring batcher."""
     import os
 
     config_mod, gpt2, engine_mod, att, sk, qk, _, _ = pkg
@@ -888,8 +1065,9 @@ def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, ca
     rows = b.cache["k"].shape[-2]
     serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], f"{label} warm-up")
     b.metrics = batcher_mod.BatcherMetrics()
-    requests = batch_requests(31, 64, config.vocab_size, (8, 120), (32, 96))
-    half = len(requests) // 2
+    requests = (batch_requests(31, 64, config.vocab_size, (8, 120), (32, 96)) if sampled_half
+                else batch_requests(51, 32, config.vocab_size, (8, 120), (32, 96)))
+    half = len(requests) // 2 if sampled_half else 0
 
     prefills = []  # (k, T) of each admission's prefill, for the qmm count
     admitted = []  # (tokens, lengths) of each, read back after the run
@@ -903,27 +1081,26 @@ def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, ca
     gpt2.prefill = recording_prefill
     try:
         reset_counts(att, sk, qk)
-        serve_batch(b, requests[:half], f"{label} sampled half")
+        if half:
+            serve_batch(b, requests[:half], f"{label} sampled half")
         sampled_steps, sampled_prefills = b.metrics.steps, len(prefills)
         b.sampling = greedy
-        served = serve_batch(b, requests[half:], f"{label} greedy half")
+        served = serve_batch(b, requests[half:], f"{label} greedy half" if half else label)
         counts = read_counts(att, sk, qk, torch)
     finally:
         gpt2.prefill = plain_prefill
     steps = b.metrics.steps
-    per_pass = 6 * config.n_layers + 1  # block linears + the lm_head
-    qmm = per_pass * steps + sum(6 * config.n_layers * (k * t <= 256) + 1
-                                 for k, t in prefills)
     key = "attention_int8_packed_ring" if b.config.kv_packed else "attention_int8_ring"
-    expect_counts(label, counts, {key: config.n_layers * steps, "qmm": qmm,
+    expect_counts(label, counts, {key: config.n_layers * steps,
+                                  **gemv_counts(config, steps, prefills),
                                   "sampler": sampled_steps + sampled_prefills})
     log(f"{label}: {steps} decode steps ({sampled_steps} sampled), "
         f"{len(prefills)} admission prefills {sorted(set(prefills))}, ring rows {rows}, "
         f"wptr now {int(b.cache['wptr'])}")
-    if steps + 2 < rows:  # the warm-up took 2 steps
+    if sampled_half and steps + 2 < rows:  # the warm-up took 2 steps
         raise AssertionError("the write pointer did not wrap")
-    log(f"{label} metrics {json.dumps(b.metrics.as_dict(16))} (INT4 weights, INT8 lm_head "
-        f"and KV cache, {layout_name(b.config)}, bf16 activations, B=16, ring, {card})")
+    log(f"{label} metrics {json.dumps(b.metrics.as_dict(16))} ({weights_name(config)}, INT8 "
+        f"KV cache, {layout_name(b.config)}, bf16 activations, B=16, ring, {card})")
 
     os.environ["ZG2_RING"] = "0"
     try:
@@ -1292,6 +1469,113 @@ def time_qmm(qk, quantize, params, torch, counts, card: str):
              "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]}]
 
 
+def time_w8a8(qk, quantize, params, torch, counts, card: str):
+    """The w8a8 body at rows 1 and 16, bf16 activations as served, per
+    linear shape of the phantom-padded 1.5B tree, rotating over the 48
+    layers so that the weights come from HBM. The yardstick is torch.matmul
+    on the same weights dequantized ahead of time to bf16 (twice the int8
+    bytes); ``torch._int_mm``, which needs more than 16 rows, is timed at 32
+    rows and logged only."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    L = params["blocks"]["attn"]["wq"]["scale"].shape[0]
+    shapes = [("attn.wq/wk/wv", [linears(params, i)[0][1:3] for i in range(L)], 3 * L),
+              ("attn.c_proj", [linears(params, i)[3][1:3] for i in range(L)], L),
+              ("mlp.c_fc", [linears(params, i)[4][1:3] for i in range(L)], L),
+              ("mlp.c_proj", [linears(params, i)[5][1:3] for i in range(L)], L),
+              ("lm_head", [linears(params, None)[0][1:3]], 1)]
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    errs = []
+    for label, layers, calls in shapes:
+        qw, scale = layers[0]
+        k, n = qw.shape
+        nl = len(layers)
+        dq = [quantize.dequantize_linear({"qw": w, "scale": s}, torch.bfloat16)["w"]
+              for w, s in layers]
+        for rows in (1, 16):
+            x = torch.randn(rows, k, device="cuda", generator=g).to(torch.bfloat16)
+            errs.append(max_err(qk.qmm(x, qw, scale, w8a8=True),
+                                qk.qmm_plain(x, qw, scale, w8a8=True)))
+            ms = time_ms(lambda i: qk.qmm(x, *layers[i % nl], w8a8=True), max(8 * nl, 64))
+            plain_ms = time_ms(lambda i: qk.qmm_plain(x, *layers[i % nl], w8a8=True),
+                               max(2 * nl, 8))
+            lib_ms = time_ms(lambda i: torch.matmul(x, dq[i % nl]), max(8 * nl, 64))
+            nbytes = qw.numel() + scale.numel() * 4 + rows * k * 2 + rows * n * 4
+            nops = 2 * rows * k * n
+            bms, by = bound_ms(nbytes, nops, PEAK_INT8_OPS_PER_S)
+            log(f"time qmm w8a8 {label} K={k} N={n} rows={rows} bf16: kernel {ms * 1e3:.2f} us, "
+                f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, torch.matmul "
+                f"on a pre-dequantized bf16 weight {lib_ms * 1e3:.2f} us, "
+                f"max_abs_err={errs[-1]:.3e} ({card})")
+            if rows == 1:
+                step["ms"] += calls * ms
+                step["plain_ms"] += calls * plain_ms
+                step["library_ms"] += calls * lib_ms
+                step["bytes"] += calls * nbytes
+                step["ops"] += calls * nops
+        x32 = torch.randint(-127, 128, (32, k), device="cuda", generator=g, dtype=torch.int8)
+        if quantize._int_mm_takes(x32, qw):
+            int_ms = time_ms(lambda i: torch._int_mm(x32, layers[i % nl][0]), max(8 * nl, 64))
+            log(f"time torch._int_mm {label} K={k} N={n} rows=32 (int8 x int8 -> int32, "
+                f"library yardstick only): {int_ms * 1e3:.2f} us ({card})")
+        del dq
+    bms, by = bound_ms(step["bytes"], step["ops"], PEAK_INT8_OPS_PER_S)
+    log(f"time qmm w8a8 per decode step (289 calls, B=1, bf16): kernel {step['ms']:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, torch.matmul on "
+        f"pre-dequantized bf16 weights {step['library_ms']:.4f} ms ({card})")
+    return [{"name": "qmm_w8a8", "route": "cuda",
+             "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
+             "replaces": "zig_gpt2_tpu/quant/kernels.py:77", "launches": counts["qmm_w8a8"],
+             "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
+             "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]}]
+
+
+def time_wmm(qk, params, torch, counts, card: str):
+    """wmm at rows 1 and 8, f32 and bf16 (weights and x alike, as served),
+    per 124M linear shape, rotating over the 12 layers. The yardstick is
+    torch.matmul on the same weights (cuBLAS; f32 without TF32)."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    blocks = params["blocks"]
+    L = blocks["attn"]["wq"]["w"].shape[0]
+    shapes = [("attn.wq/wk/wv/c_proj", blocks["attn"]["wq"]["w"], 4 * L),
+              ("mlp.c_fc", blocks["mlp"]["c_fc"]["w"], L),
+              ("mlp.c_proj", blocks["mlp"]["c_proj"]["w"], L)]
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        peak = PEAK_OPS_PER_S if dtype == torch.float32 else PEAK_BF16_OPS_PER_S
+        for label, stack, calls in shapes:
+            ws = [stack[i].to(dtype) for i in range(L)]
+            k, n = ws[0].shape
+            for rows in (1, 8):
+                x = torch.randn(rows, k, device="cuda", generator=g).to(dtype)
+                errs.append(max_err(qk.wmm(x, ws[0]), qk.wmm_plain(x, ws[0])))
+                ms = time_ms(lambda i: qk.wmm(x, ws[i % L]), 8 * L)
+                plain_ms = time_ms(lambda i: qk.wmm_plain(x, ws[i % L]), 8 * L)
+                lib_ms = time_ms(lambda i: torch.matmul(x, ws[i % L]), 8 * L)
+                size = ws[0].element_size()
+                nbytes = k * n * size + rows * k * size + rows * n * 4
+                nops = 2 * rows * k * n
+                bms, by = bound_ms(nbytes, nops, peak)
+                log(f"time wmm {label} K={k} N={n} rows={rows} {dtype}: kernel "
+                    f"{ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain "
+                    f"{plain_ms * 1e3:.2f} us, torch.matmul {lib_ms * 1e3:.2f} us, "
+                    f"max_abs_err={errs[-1]:.3e} ({card})")
+                if rows == 1 and dtype == torch.float32:
+                    step["ms"] += calls * ms
+                    step["plain_ms"] += calls * plain_ms
+                    step["library_ms"] += calls * lib_ms
+                    step["bytes"] += calls * nbytes
+                    step["ops"] += calls * nops
+    bms, by = bound_ms(step["bytes"], step["ops"])
+    log(f"time wmm per decode step (72 calls, B=1, f32): kernel {step['ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, torch.matmul "
+        f"{step['library_ms']:.4f} ms ({card})")
+    return [{"name": "wmm", "route": "cuda", "source": "zig_gpt2_tpu_torch/ops/csrc/wmm.cu",
+             "replaces": "zig_gpt2_tpu/quant/kernels.py:162", "launches": counts["wmm"],
+             "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
+             "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]}]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1385,7 +1669,7 @@ def main() -> int:
                                        params_124m)
         counts_pb124 = serve_batcher_124m(pkg, batcher_mod, torch, engine, card,
                                           "serve-batcher-packed-124M")
-        del engine, params_124m
+        del engine
         phase("serve-packed-1.5B: GPT-2 1.5B INT4 + INT8 KV on InferenceEngine, packed KV")
         counts_p1p5b, engine, _, floor = serve_1p5b(pkg, torch, encoder, config_1p5b,
                                                     params_1p5b, card, "serve-packed-1.5B")
@@ -1397,15 +1681,53 @@ def main() -> int:
                                                     "serve-batcher-packed-1.5B")
         layout_ab(batcher_mod, config_mod, torch, config_1p5b, params_1p5b, batcher, card)
         del batcher
+        phase("w8a8: the s8 x s8 body of qmm vs plain on the 1.5B INT8 weights")
+        config_w8, params_w8 = build_1p5b(config_mod, gpt2, quantize, encoder, torch, "int8")
+        params_w8, config_w8 = gpt2.pad_phantom_head(params_w8, config_w8)
+        config_w8 = dataclasses.replace(config_w8, act_quant=True)
+        check_w8a8(qk, quantize, params_w8, torch)
+        phase("serve-w8a8-1.5B: GPT-2 1.5B w8a8 on InferenceEngine (bf16 KV) and "
+              "ContinuousBatcher(batch_size=16, kv_quant='int8'), packed KV")
+        counts_w1p5b, engine, ids, floor_w8 = serve_w8a8_1p5b(pkg, torch, encoder, config_w8,
+                                                              params_w8, card)
+        trace_decode(gpt2, sampling, engine, ids, torch,
+                     {"model": "1558M", "weights": "w8a8 (INT8 weights and activations), "
+                      "bf16 activations", "kv_cache": "bf16, packed"}, card)
+        del engine
+        counts_wb1p5b, batcher = serve_batcher_1p5b(
+            pkg, batcher_mod, torch, config_w8, params_w8, max(floor, floor_w8), card,
+            "serve-batcher-w8a8-1.5B", sampled_half=False)
+        del batcher
+        phase("wmm: float GEMV kernel vs plain at 124M shapes")
+        check_wmm(qk, params_124m, torch)
+        phase("serve-wmm-124M: GPT-2 124M with ZG2_WMM=1 on InferenceEngine and "
+              "ContinuousBatcher(batch_size=8), packed KV")
+        os.environ["ZG2_WMM"] = "1"
+        try:
+            counts_m124, engine, ids = serve(pkg, torch, encoder, card, "serve-wmm-124M",
+                                             params_124m)
+            greedy = config_mod.SamplingConfig(temperature=0.0)
+            wmm_tokens = engine.generate(ids, 32, greedy)
+            counts_mb124 = serve_batcher_124m(pkg, batcher_mod, torch, engine, card,
+                                              "serve-batcher-wmm-124M")
+        finally:
+            os.environ["ZG2_WMM"] = "0"
+        near_tie_check("serve-wmm-124M against the engine with ZG2_WMM=0", gpt2, engine,
+                       [(ids, 32)], [wmm_tokens], E2E_ATOL, torch)
+        del engine
         phase("times")
         paths = (counts_124m, counts_b124, counts_1p5b, counts_b1p5b, counts_p124,
-                 counts_pb124, counts_p1p5b, counts_pb1p5b)
+                 counts_pb124, counts_p1p5b, counts_pb1p5b, counts_w1p5b, counts_wb1p5b,
+                 counts_m124, counts_mb124)
         counts = {k: sum(c[k] for c in paths) for k in counts_124m}
         log(f"launches on the main paths (the serve and serve-batcher phases, unpacked and "
-            f"packed): {counts}")
+            f"packed, INT4, w8a8 and wmm): {counts}")
         entries = time_attention_kernels(att, ops, torch, counts, card)
         entries += time_sampler(sk, torch, counts, card)
         entries += time_qmm(qk, quantize, params_1p5b, torch, counts, card)
+        del params_1p5b
+        entries += time_w8a8(qk, quantize, params_w8, torch, counts, card)
+        entries += time_wmm(qk, params_124m, torch, counts, card)
         phase("done")
     except Exception as e:  # a failed phase ends the run with its traceback
         import traceback

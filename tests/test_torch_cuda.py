@@ -12,8 +12,12 @@ Tolerances: attention, float or INT8 cache, prefix or ring, f32 atol/rtol
 to bf16 once); the ring kernel over caches rotated by start against the
 prefix kernel over the linear caches, bit for bit (one logical row order);
 qmm atol/rtol 2e-5 for f32 and bf16 activations alike (f32 sums in another
-order; a bf16 x times a bf16 or int8 weight is exact in f32); sampler ids
-identical.
+order; a bf16 x times a bf16 or int8 weight is exact in f32); the w8a8 body
+of qmm bit for bit (int32 sums are exact, and kernel and plain version
+quantize x and take the f32 tail in one order), and ``w8a8_matmul`` through
+``torch._int_mm`` equal to its f64 product; wmm atol/rtol 1e-4 (f32 sums of
+up to 3072 products in another order than the plain version's matmul);
+sampler ids identical.
 """
 
 import numpy as np
@@ -159,6 +163,128 @@ def test_qmm_wrapper_validates(dev):
         qk.qmm(x, qw.t().contiguous().t(), s)
     with pytest.raises(ValueError):
         qk.qmm(x, qw.cpu(), s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(64, 200), (1600, 1664), (6400, 1600)])
+@pytest.mark.parametrize("rows", [1, 16, 64])
+def test_qmm_w8a8_kernel_bit_equal_to_plain(dev, rows, k, n, dtype):
+    """The w8a8 body at 1.5B's K and N (1664: Q/K/V with the phantom head),
+    rows with an all-zero row and exact .5 steps: bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(rows + k)
+    p = quant.quantize_linear({"w": torch.randn(k, n, device=dev, generator=g) * 0.05},
+                              "int8")
+    x = torch.randn(rows, k, device=dev, generator=g) * 3
+    if rows > 1:
+        x[1] = 0.0
+        x[0, :4] = torch.tensor([127.0, 0.5, 2.5, -126.5], device=dev)
+        x[0, 4:] = x[0, 4:].clamp(-100, 100)
+    x = x.to(dtype)
+    before = (qk.qmm.launches, qk.qmm.w8a8_launches)
+    got = qk.qmm(x, p["qw"], p["scale"], w8a8=True)
+    assert (qk.qmm.launches, qk.qmm.w8a8_launches) == (before[0], before[1] + 1)
+    want = qk.qmm_plain(x, p["qw"], p["scale"], w8a8=True)
+    assert got.dtype == torch.float32 and got.shape == (rows, n)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("rows", [65, 128])
+def test_w8a8_matmul_int_mm_equals_exact_product(dev, rows):
+    """More than 64 rows take ``w8a8_matmul``: ``torch._int_mm`` on the card
+    (K, N multiples of 8) gives the same bits as the exact f64 product."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    p = quant.quantize_linear({"w": torch.randn(1600, 1664, device=dev, generator=g)},
+                              "int8")
+    x = torch.randn(rows, 1600, device=dev, generator=g).to(torch.bfloat16)
+    got = quant.w8a8_matmul(x, p["qw"], p["scale"])
+    assert torch.equal(got, qk.qmm_plain(x, p["qw"], p["scale"], w8a8=True))
+
+
+def test_qmm_w8a8_wrapper_validates(dev):
+    p = quant.quantize_linear({"w": torch.randn(64, 8, device=dev)}, "int8")
+    with pytest.raises(ValueError, match="1 to 64 rows"):
+        qk.qmm(torch.zeros(65, 64, device=dev), p["qw"], p["scale"], w8a8=True)
+    with pytest.raises(ValueError):
+        qk.qmm(torch.zeros(2, 64, device=dev, dtype=torch.float16), p["qw"], p["scale"],
+               w8a8=True)
+    with pytest.raises(ValueError):
+        qk.qmm(torch.zeros(2, 64, device=dev), p["qw"].cpu(), p["scale"], w8a8=True)
+    with pytest.raises(ValueError):
+        qk.qmm(torch.zeros(2, 64, device=dev), p["qw"].t().contiguous().t(), p["scale"],
+               w8a8=True)
+    with pytest.raises(ValueError):
+        qk.qmm(torch.zeros(2, 64, device=dev), p["qw"], p["scale"][:, :4], w8a8=True)
+    # A grouped INT8 weight ignores w8a8 (the TPU kernel's gate) and takes
+    # the weight-only body, up to 256 rows.
+    pg = quant.quantize_linear({"w": torch.randn(64, 8, device=dev)}, "int8", 32)
+    before = (qk.qmm.launches, qk.qmm.w8a8_launches)
+    qk.qmm(torch.zeros(100, 64, device=dev), pg["qw"], pg["scale"], w8a8=True)
+    assert (qk.qmm.launches, qk.qmm.w8a8_launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("xdtype,wdtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("k,n", [(768, 2304), (3072, 768), (128, 150)])
+@pytest.mark.parametrize("rows", [1, 8, 256])
+def test_wmm_kernel_matches_plain(dev, rows, k, n, xdtype, wdtype):
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    w = (torch.randn(k, n, device=dev, generator=g) * 0.05).to(wdtype)
+    x = torch.randn(rows, k, device=dev, generator=g).to(xdtype)
+    before = qk.wmm.launches
+    got = qk.wmm(x, w)
+    assert qk.wmm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (rows, n)
+    torch.testing.assert_close(got, qk.wmm_plain(x, w), atol=1e-4, rtol=1e-4)
+
+
+def test_wmm_wrapper_validates(dev):
+    x, w = torch.zeros(2, 64, device=dev), torch.zeros(64, 8, device=dev)
+    with pytest.raises(ValueError, match="1 to 256 rows"):
+        qk.wmm(torch.zeros(257, 64, device=dev), w)
+    with pytest.raises(ValueError):
+        qk.wmm(x, torch.zeros(32, 8, device=dev))
+    with pytest.raises(ValueError):
+        qk.wmm(x, w.double())
+    with pytest.raises(ValueError):
+        qk.wmm(x, w.t().contiguous().t())
+    with pytest.raises(ValueError):
+        qk.wmm(x, w.cpu())
+    with pytest.raises(ValueError):
+        qk.wmm(x.half(), w)
+
+
+def test_engine_cuda_w8a8_and_wmm_greedy_match_cpu(dev, monkeypatch):
+    """w8a8 (INT8 weights, act_quant) and ZG2_WMM=1 (f32 weights) on the
+    nano engine: the card's greedy tokens equal the CPU run's, and the
+    kernels launch once per linear and pass: w8a8 for every linear of the
+    decode steps and the 8-row prefill, wmm for the float decode linears
+    only."""
+    import dataclasses
+
+    cfg = tconfig.GPT2_NANO
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(7))
+    kw = dict(max_seq=48, prompt_buckets=(8,))
+    aq = dataclasses.replace(cfg, act_quant=True)
+    w8 = quant.quantize_params(params, "int8")
+    before = (qk.qmm.launches, qk.qmm.w8a8_launches)
+    want = InferenceEngine(aq, w8, device="cpu", **kw).generate([1, 2, 3, 4], 16,
+                                                                SamplingConfig(temperature=0.0))
+    got = InferenceEngine(aq, w8, device="cuda", **kw).generate([1, 2, 3, 4], 16,
+                                                                SamplingConfig(temperature=0.0))
+    assert got == want
+    per_pass = 6 * cfg.n_layers + 1
+    assert (qk.qmm.launches, qk.qmm.w8a8_launches) == (before[0],
+                                                       before[1] + per_pass * (16 + 1))
+    monkeypatch.setenv("ZG2_WMM", "1")
+    before = qk.wmm.launches
+    want = InferenceEngine(cfg, params, device="cpu", **kw).generate(
+        [1, 2, 3, 4], 16, SamplingConfig(temperature=0.0))
+    got = InferenceEngine(cfg, params, device="cuda", **kw).generate(
+        [1, 2, 3, 4], 16, SamplingConfig(temperature=0.0))
+    assert got == want
+    assert qk.wmm.launches == before + 6 * cfg.n_layers * 16
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

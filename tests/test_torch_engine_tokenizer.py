@@ -184,8 +184,7 @@ def test_cli_demo_cpu(capsys):
     assert '"generated_tokens": 6' in err and '"device": "cpu"' in err
 
 
-@pytest.mark.parametrize("flag", [["--quant", "w8a8"], ["--quant", "w8a8", "--kv-quant"],
-                                  ["--mesh", "1x2"], ["--batch-file", "x", "--prefix", "sys"],
+@pytest.mark.parametrize("flag", [["--mesh", "1x2"], ["--batch-file", "x", "--prefix", "sys"],
                                   ["--draft-model", "ngram"]])
 def test_cli_refuses_later_slices(flag):
     with pytest.raises(SystemExit, match="not in the PyTorch port yet"):

@@ -2,8 +2,9 @@
 
 Same interface and defaults as ``zig_gpt2_tpu.cli`` (temperature 0.8,
 running to the end of the context window), for what this port serves:
-GPT-2 on one device, float or INT8/INT4 weights (``--quant``), float or
-INT8 KV cache (``--kv-quant``): one prompt streamed to stdout, or a file of
+GPT-2 on one device, float or INT8/INT4 weights, or w8a8 (per-channel INT8
+weights and per-row INT8 activations) (``--quant``), float or INT8 KV cache
+(``--kv-quant``): one prompt streamed to stdout, or a file of
 prompts served through the continuous batcher (``--batch-file``, one JSON
 line ``{"prompt", "completion"}`` per finished request).
 
@@ -11,6 +12,7 @@ Examples::
 
     python -m zig_gpt2_tpu_torch.cli --demo "the quick brown"
     python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo "the quick"
+    python -m zig_gpt2_tpu_torch.cli --model 1558M --quant w8a8 --kv-quant --demo "the quick"
     python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo \\
         --batch-file prompts.txt --batch-slots 16 --max-tokens 64 --metrics
     python -m zig_gpt2_tpu_torch.cli --model 124M --weights models/124M/raw \\
@@ -58,7 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "needed): a tiny model, or --model's shape when given")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--quant", default=None, choices=["int8", "int4", "w8a8"],
-                   help="weight-only INT8 (per-channel) or INT4 (grouped); the lm_head is INT8")
+                   help="weight-only INT8 (per-channel) or INT4 (grouped), or w8a8 "
+                        "(per-channel INT8 weights, per-row INT8 activations); the "
+                        "lm_head is INT8")
     p.add_argument("--kv-quant", action="store_true", help="INT8 KV cache")
     p.add_argument("--batch-file", default=None, metavar="FILE",
                    help="serve a file of prompts (one per line) through the "
@@ -121,9 +125,6 @@ def main(argv=None) -> None:
     for name, why in _LATER.items():
         if getattr(args, name):
             sys.exit(f"error: --{name.replace('_', '-')} is not in the PyTorch port yet: {why}")
-    if args.quant == "w8a8":
-        sys.exit("error: --quant w8a8 is not in the PyTorch port yet: the w8a8 "
-                 "variant of the qmm kernel comes with a later slice")
     if args.prompt is None and args.batch_file is None:
         sys.exit('error: missing prompt (usage: zig-gpt2-torch "<prompt>")')
 
@@ -156,7 +157,9 @@ def main(argv=None) -> None:
     if args.quant:
         from zig_gpt2_tpu_torch.quant.quantize import quantize_params
 
-        params = quantize_params(params, mode=args.quant)
+        params = quantize_params(params, mode="int8" if args.quant == "w8a8" else args.quant)
+    if args.quant == "w8a8":
+        config = dataclasses.replace(config, act_quant=True)
 
     sampling = SamplingConfig(temperature=args.temp, top_k=args.top_k,
                               top_p=args.top_p, seed=args.seed)

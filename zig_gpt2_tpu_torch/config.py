@@ -34,9 +34,12 @@ class GPTConfig:
     # Every batch lane decodes at one shared position (a write-path
     # optimisation in the JAX package; results are unchanged).
     uniform_pos: bool = False
-    # w8a8 dynamic activation quantization (not in this port yet).
+    # w8a8: per-channel INT8 linears quantize their activations per row and
+    # take s8 x s8 products (quant.quantize.quantized_linear); the CLI sets
+    # it for --quant w8a8.
     act_quant: bool = False
-    # Ring KV cache for continuous batching (not in this port yet).
+    # Ring KV cache for continuous batching; the batcher sets it unless
+    # ZG2_RING=0.
     ring_cache: bool = False
 
     @property

@@ -37,7 +37,14 @@ INT8/INT4 weights, float or INT8 KV cache:
   reads the row it appends.
 - A linear stored quantized (``quant.quantize``) runs ``quantized_linear``
   (the dequant-GEMV kernel ``qmm`` up to 256 rows); the layer loop passes
-  it the views ``qw[idx]``/``scale[idx]``, which copy nothing.
+  it the views ``qw[idx]``/``scale[idx]``, which copy nothing. Under
+  ``config.act_quant`` (w8a8) a per-channel INT8 linear quantizes its
+  activations per row: ``qmm``'s s8 x s8 body up to 64 rows, the plain
+  ``w8a8_matmul`` above, in prefill, decode and the lm_head alike.
+- ``ZG2_WMM=1`` sends the float block linears of ``decode_step`` (up to
+  ``_qmm_cap`` rows) through the float GEMV kernel ``wmm``, as the JAX
+  package's ``_gemv_dispatch`` does; prefill and the tied lm_head stay
+  ``torch.matmul``. Off by default, as in the JAX package.
 - The lm_head is tied to wte unless ``params["lm_head"]`` exists (the
   quantized tree unties it), and runs only on the positions that need
   logits; padded vocab rows are masked.
@@ -56,6 +63,7 @@ from zig_gpt2_tpu_torch.ops import layers as ops
 from zig_gpt2_tpu_torch.ops.attention import (decode_attention_deferred,
                                               decode_attention_quant_deferred,
                                               pack_heads_rows, pack_heads_seq)
+from zig_gpt2_tpu_torch.quant import kernels
 from zig_gpt2_tpu_torch.quant.quantize import is_quantized, pad_linear, quantized_linear
 
 Params = Dict[str, Any]
@@ -216,10 +224,41 @@ def init_kv_cache(config: GPTConfig, batch_size: int = 1,
 # Building blocks
 # ---------------------------------------------------------------------------
 
-def _linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Apply one (already layer-sliced) linear, float or quantized."""
+def _use_wmm() -> bool:
+    """Whether the float decode linears take the ``wmm`` GEMV kernel
+    (``ZG2_WMM``: ``0``, the default, off; ``1`` on: the kernel on a CUDA
+    tensor, its plain version on a CPU one). Off by default as in the JAX
+    package (``_use_wmm``); whether the card should default to it waits for
+    an A/B on the card."""
+    opt = os.environ.get("ZG2_WMM", "0")
+    if opt not in ("0", "1"):
+        raise ValueError(f"ZG2_WMM={opt!r}: expected 0 or 1")
+    return opt == "1"
+
+
+def _qmm_cap(config: GPTConfig, int4: bool) -> int:
+    """Row cap of the decode GEMV kernels (the JAX package's ``_qmm_cap``):
+    256, or 64 for the w8a8 body under ``act_quant`` (any weight that is not
+    INT4, so also the float weights that ``wmm`` takes)."""
+    if config.act_quant and not int4:
+        return kernels.W8A8_MAX_ROWS
+    return kernels.GEMV_MAX_ROWS
+
+
+def _linear(p: Dict[str, torch.Tensor], x: torch.Tensor, config: GPTConfig,
+            wmm: bool = False) -> torch.Tensor:
+    """Apply one (already layer-sliced) linear: quantized (w8a8 for a
+    per-channel INT8 one under ``config.act_quant``) or float. ``wmm``: a
+    decode linear under ``ZG2_WMM=1``, where a float weight takes the
+    ``wmm`` GEMV up to ``_qmm_cap`` rows; its f32 result is cast to x's
+    dtype before the bias is added."""
     if is_quantized(p):
-        return quantized_linear(p, x)
+        return quantized_linear(p, x, act_quant=config.act_quant)
+    rows = x.numel() // x.shape[-1]
+    if wmm and rows <= _qmm_cap(config, int4=False):
+        y = kernels.wmm(x.reshape(rows, x.shape[-1]).contiguous(), p["w"])
+        y = y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
+        return y if p.get("b") is None else y + p["b"]
     return ops.linear(x, p["w"], p.get("b"))
 
 
@@ -229,15 +268,15 @@ def _layer(tree: Params, idx: int) -> Params:
             for k, v in tree.items()}
 
 
-def _qkv(attn_p: Params, h: torch.Tensor, n_heads: int
+def _qkv(attn_p: Params, h: torch.Tensor, config: GPTConfig, wmm: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(..., E) -> three (..., H, D) projections."""
+    n_heads = config.attn_heads
 
     def heads(t):
         return t.reshape(*t.shape[:-1], n_heads, t.shape[-1] // n_heads)
 
-    return (heads(_linear(attn_p["wq"], h)), heads(_linear(attn_p["wk"], h)),
-            heads(_linear(attn_p["wv"], h)))
+    return tuple(heads(_linear(attn_p[name], h, config, wmm)) for name in ("wq", "wk", "wv"))
 
 
 def _block_prefill(x: torch.Tensor, bp: Params, config: GPTConfig,
@@ -245,13 +284,13 @@ def _block_prefill(x: torch.Tensor, bp: Params, config: GPTConfig,
     """One block over a full sequence: returns (x, k, v), k/v (B, H, T, D)."""
     B, T, _ = x.shape
     h = ops.layer_norm(x, bp["ln_1"]["w"], bp["ln_1"]["b"], config.layer_norm_eps)
-    q, k, v = (t.transpose(1, 2) for t in _qkv(bp["attn"], h, config.attn_heads))
+    q, k, v = (t.transpose(1, 2) for t in _qkv(bp["attn"], h, config))
     attn = ops.causal_attention(q, k, v, length_mask=length_mask)
     attn = attn.transpose(1, 2).reshape(B, T, -1)
-    x = x + _linear(bp["attn"]["c_proj"], attn)
+    x = x + _linear(bp["attn"]["c_proj"], attn, config)
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
-    h = ops.gelu(_linear(bp["mlp"]["c_fc"], h))
-    x = x + _linear(bp["mlp"]["c_proj"], h)
+    h = ops.gelu(_linear(bp["mlp"]["c_fc"], h, config))
+    x = x + _linear(bp["mlp"]["c_proj"], h, config)
     return x, k, v
 
 
@@ -272,15 +311,15 @@ def _put_row_stacked(stack: torch.Tensor, row: torch.Tensor, idx: int,
 
 def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
                   pos: torch.Tensor, start: Optional[torch.Tensor],
-                  wpos: torch.Tensor, config: GPTConfig) -> torch.Tensor:
+                  wpos: torch.Tensor, config: GPTConfig, wmm: bool = False) -> torch.Tensor:
     """One block for one decode token per lane. ``pos`` (B,) is each lane's
     count of valid cache rows: the prefix [0, pos), or with ``start`` the
     ring interval. ``wpos`` is the row this token's K/V is written to, per
     lane (B,) or shared (). Attends first (deferred), then appends in
-    place."""
+    place. ``wmm``: float linears take the wmm GEMV (``_use_wmm``)."""
     bp = _layer(blocks, idx)
     h = ops.layer_norm(x, bp["ln_1"]["w"], bp["ln_1"]["b"], config.layer_norm_eps)
-    q, k, v = _qkv(bp["attn"], h, config.attn_heads)  # (B, H, D)
+    q, k, v = _qkv(bp["attn"], h, config, wmm)  # (B, H, D)
     packed = config.kv_packed
     if packed:  # (B, Hp, 2D) views, before any quantization: a scale per pair
         q, k, v = (pack_heads_rows(t) for t in (q, k, v))
@@ -296,17 +335,18 @@ def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
                                          layer=idx, start=start, packed=packed)
         _put_row_stacked(caches["k"], k, idx, wpos)
         _put_row_stacked(caches["v"], v, idx, wpos)
-    x = x + _linear(bp["attn"]["c_proj"], attn.reshape(x.shape[0], -1))
+    x = x + _linear(bp["attn"]["c_proj"], attn.reshape(x.shape[0], -1), config, wmm)
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
-    h = ops.gelu(_linear(bp["mlp"]["c_fc"], h))
-    return x + _linear(bp["mlp"]["c_proj"], h)
+    h = ops.gelu(_linear(bp["mlp"]["c_fc"], h, config, wmm))
+    return x + _linear(bp["mlp"]["c_proj"], h, config, wmm)
 
 
 def _lm_head(params: Params, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
     """logits = x @ wte^T, or ``params["lm_head"]`` (untied, quantized by
-    ``quantize_params``) when present; padded vocab rows are masked."""
+    ``quantize_params``; w8a8 under ``config.act_quant``) when present;
+    padded vocab rows are masked."""
     if "lm_head" in params:
-        logits = _linear(params["lm_head"], x)
+        logits = _linear(params["lm_head"], x, config)
     else:
         logits = torch.matmul(x, params["wte"].T)
     if config.padded_vocab_size is not None:
@@ -385,8 +425,9 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
         start, wpos = cache["start"], cache["wptr"]
     else:
         start, wpos = None, pos.clamp(max=rows - 1)
+    wmm = _use_wmm()
     for idx in range(config.n_layers):
-        x = _block_decode(x, params["blocks"], idx, cache, pos, start, wpos, config)
+        x = _block_decode(x, params["blocks"], idx, cache, pos, start, wpos, config, wmm)
     x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
     if config.ring_cache:
         cache["length"] = (pos + 1).clamp(max=rows - 1)

@@ -26,6 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# No -use_fast_math: the w8a8 body of qmm.cu needs IEEE division and
+# rounding to stay bit-equal to its plain version.
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
@@ -44,6 +46,8 @@ SIGNATURES = {
     "zg2_decode_attention_quant": [_P] * 8 + _ATTENTION,
     "zg2_sample_categorical": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "zg2_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "zg2_qmm_w8a8": [_P] * 6 + [_I] * 5 + [_P],
+    "zg2_wmm": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

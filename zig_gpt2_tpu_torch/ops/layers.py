@@ -86,12 +86,21 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def divide(a: torch.Tensor, d: float) -> torch.Tensor:
+    """a / d, rounded as one IEEE division on every device. PyTorch's CUDA
+    kernels multiply by the reciprocal of a Python-number divisor instead,
+    which is one ulp off for some values: a quantization scale taken that
+    way flips rounded int8 values against the JAX package's. A 0-d tensor
+    on a's device is divided elementwise."""
+    return a / a.new_full((), d)
+
+
 def quantize_kv(x: torch.Tensor):
     """Per-row (per token, per head) symmetric INT8 quantization of K/V:
     (..., D) float -> (int8 (..., D), f32 scale (...,)), scale =
     absmax / 127 (at least 1e-12 / 127), values rounded half to even."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(-1), min=1e-12) / 127.0
+    scale = divide(torch.clamp(xf.abs().amax(-1), min=1e-12), 127.0)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
 

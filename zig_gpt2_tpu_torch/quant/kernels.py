@@ -1,11 +1,15 @@
-"""Fused dequant GEMV for weight-only INT8 / INT4: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""The decode GEMVs: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
-Counterpart of ``zig_gpt2_tpu.quant.kernels.qmm`` (body ``_qmm_kernel``),
-per-layer form: ``y[rows, N] = x[rows, K] @ dequant(qw, scale)[K, N]`` in
-f32, reading the int8 or packed-int4 weight straight from device memory.
-The kernel is ``ops/csrc/qmm.cu``. A CUDA tensor launches it (or the
-wrapper raises); a CPU tensor runs ``qmm_plain``.
+``qmm`` is the counterpart of ``zig_gpt2_tpu.quant.kernels.qmm`` (body
+``_qmm_kernel``), per-layer form: ``y[rows, N] = x[rows, K] @ dequant(qw,
+scale)[K, N]`` in f32, reading the int8 or packed-int4 weight straight from
+device memory, with its w8a8 body (``w8a8=True``: per-row INT8 activations
+times the per-channel INT8 weight in int32). ``wmm`` is the counterpart of
+``zig_gpt2_tpu.quant.kernels.wmm`` (body ``_wmm_kernel``): ``y = x @ w`` in
+f32 for float weights. The kernels are ``ops/csrc/qmm.cu`` and
+``ops/csrc/wmm.cu``. A CUDA tensor launches them (or the wrapper raises); a
+CPU tensor runs ``qmm_plain`` / ``wmm_plain``.
 
 The numerics are the TPU kernel's:
 
@@ -14,6 +18,12 @@ The numerics are the TPU kernel's:
   products with x are summed in f32;
 - per-channel scales (one group: the INT8 default and the lm_head): the
   sum of ``x * q`` in f32, times ``scale[0, n]`` once at the end.
+
+- w8a8 (per-channel INT8 only, as the TPU kernel gates it): each row of x
+  is quantized to int8 (``quantize_rows``: absmax / 127, round half to
+  even, clip to +-127), the products with q are summed in int32 (exact),
+  and the output is ``float(acc) * sx[r] * scale[0, n]`` in that order, so
+  kernel and plain version agree bit for bit.
 
 A bf16 x times a bf16 (or int8) weight is exact in f32, so the two dtypes
 differ only in the rounding of the weight, never of the products.
@@ -28,10 +38,13 @@ from __future__ import annotations
 import torch
 
 from zig_gpt2_tpu_torch.ops import _build
+from zig_gpt2_tpu_torch.ops.layers import divide
 
-# Row cap of the GEMV path (the JAX package's GEMV_MAX_ROWS): larger row
-# counts dequantize and take a plain matmul (quantize.quantized_linear).
+# Row caps of the GEMV paths (the JAX package's GEMV_MAX_ROWS and
+# W8A8_MAX_ROWS): larger row counts dequantize and take a plain matmul, or
+# for w8a8 the plain s8 x s8 product (quantize.quantized_linear).
 GEMV_MAX_ROWS = 256
+W8A8_MAX_ROWS = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,8 +59,37 @@ def unpack_int4(qw4: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-2).to(torch.int8)
 
 
-def qmm_plain(x, qw, scale, *, int4=False):
-    """The kernel's arithmetic in plain PyTorch: (rows, N) f32."""
+def quantize_rows(x: torch.Tensor):
+    """Dynamic per-row symmetric INT8 quantization of activations:
+    (..., K) float -> ((..., K) int8, (...,) f32 row scales), the JAX
+    package's ``quantize_rows`` bit for bit (f32 absmax, scale
+    max(absmax, 1e-12) / 127, x / scale rounded half to even, clipped)."""
+    xf = x.float()
+    sx = divide(xf.abs().amax(dim=-1).clamp(min=1e-12), 127.0)
+    xq = torch.round(xf / sx[..., None]).clamp(-127, 127).to(torch.int8)
+    return xq, sx
+
+
+def w8a8_tail(acc: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(rows, N) f32 output from the exact integer sums ``acc`` (int32, or
+    whole numbers in f64): converted once to f32, then times the row scale
+    and the column scale, in that order."""
+    return acc.float() * sx[:, None] * scale[0]
+
+
+def _uses_w8a8(w8a8: bool, int4: bool, scale: torch.Tensor) -> bool:
+    """w8a8 applies to per-channel INT8 only (the TPU kernel's gate);
+    another weight stays weight-only."""
+    return w8a8 and not int4 and scale.shape[0] == 1
+
+
+def qmm_plain(x, qw, scale, *, int4=False, w8a8=False):
+    """The kernel's arithmetic in plain PyTorch: (rows, N) f32. The w8a8
+    product is taken in f64, which is exact here (|sum| <= K * 127^2 < 2^53)
+    and so equals the kernel's int32 sums."""
+    if _uses_w8a8(w8a8, int4, scale):
+        xq, sx = quantize_rows(x)
+        return w8a8_tail(xq.double() @ qw.double(), sx, scale)
     q = unpack_int4(qw) if int4 else qw
     k, n = q.shape
     groups = scale.shape[0]
@@ -58,23 +100,28 @@ def qmm_plain(x, qw, scale, *, int4=False):
     return x.float() @ w
 
 
-def qmm(x, qw, scale, *, int4=False):
+def qmm(x, qw, scale, *, int4=False, w8a8=False):
     """y = x @ dequant(qw, scale) in f32.
 
     x: (rows, K) float32 or bfloat16, 1 <= rows <= GEMV_MAX_ROWS; qw: (K, N)
     int8, or (K/2, N) int8 holding the INT4 half-split pack when ``int4``;
     scale: (K/G, N) float32, G = K for per-channel. All contiguous, on one
-    device. Returns (rows, N) float32."""
+    device. ``w8a8`` takes the s8 x s8 body for a per-channel INT8 weight
+    (rows <= W8A8_MAX_ROWS) and is ignored for any other weight. Returns
+    (rows, N) float32. Launches count in ``qmm.launches``, w8a8 launches
+    in ``qmm.w8a8_launches``."""
     if x.device.type == "cpu":
-        return qmm_plain(x, qw, scale, int4=int4)
+        return qmm_plain(x, qw, scale, int4=int4, w8a8=w8a8)
     if x.device.type != "cuda":
         raise ValueError(f"qmm: no kernel for {x.device}")
     if x.dim() != 2 or x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x must be (rows, K) float32/bfloat16, got {tuple(x.shape)} "
                          f"{x.dtype}")
     rows, k = x.shape
-    if not 1 <= rows <= GEMV_MAX_ROWS:
-        raise ValueError(f"qmm takes 1 to {GEMV_MAX_ROWS} rows, got {rows}")
+    w8a8 = _uses_w8a8(w8a8, int4, scale)
+    cap = W8A8_MAX_ROWS if w8a8 else GEMV_MAX_ROWS
+    if not 1 <= rows <= cap:
+        raise ValueError(f"qmm{' (w8a8)' if w8a8 else ''} takes 1 to {cap} rows, got {rows}")
     if qw.dim() != 2 or qw.dtype != torch.int8:
         raise ValueError(f"qw must be 2-D int8, got {tuple(qw.shape)} {qw.dtype}")
     kp, n = qw.shape
@@ -91,28 +138,90 @@ def qmm(x, qw, scale, *, int4=False):
             raise ValueError(f"{name} must be contiguous on {x.device}")
     splits = _k_splits(rows, n, kp)
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if w8a8:
+        # A split launch keeps the int32 partial sums and the row scales
+        # for its reduce pass, which applies them; one split needs neither.
+        partial, sx = out, out
+        if splits > 1:
+            partial = torch.empty((splits, rows, n), dtype=torch.int32, device=x.device)
+            sx = torch.empty((rows,), dtype=torch.float32, device=x.device)
+        err = _build.library().zg2_qmm_w8a8(
+            x.data_ptr(), qw.data_ptr(), scale.data_ptr(), partial.data_ptr(),
+            sx.data_ptr(), out.data_ptr(), rows, k, n, splits, _DTYPE_CODES[x.dtype],
+            stream)
+        _build.check(err, "qmm (w8a8)")
+        qmm.w8a8_launches += 1
+        return out
     partial = (torch.empty((splits, rows, n), dtype=torch.float32, device=x.device)
                if splits > 1 else out)
     err = _build.library().zg2_qmm(
         x.data_ptr(), qw.data_ptr(), scale.data_ptr(), partial.data_ptr(),
         out.data_ptr(), rows, k, n, k // groups, splits, int(int4),
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPE_CODES[x.dtype], stream)
     _build.check(err, "qmm")
     qmm.launches += 1
     return out
 
 
 qmm.launches = 0
+qmm.w8a8_launches = 0
 
-# Launch geometry shared with csrc/qmm.cu: one thread per output column,
-# _QMM_COLS columns per block, row tiles of 8 (1 for a single row).
+
+def wmm_plain(x, w):
+    """The float GEMV's arithmetic in plain PyTorch: the weight rounded to
+    x's dtype, f32 products and sums. (rows, N) f32."""
+    return x.float() @ w.to(x.dtype).float()
+
+
+def wmm(x, w):
+    """y = x @ w.astype(x.dtype) in f32: the float-weight decode GEMV.
+
+    x: (rows, K) float32 or bfloat16, 1 <= rows <= GEMV_MAX_ROWS; w: (K, N)
+    float32 or bfloat16. Both contiguous, on one device. Returns (rows, N)
+    float32. Launches count in ``wmm.launches``."""
+    if x.device.type == "cpu":
+        return wmm_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"wmm: no kernel for {x.device}")
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"x must be (rows, K) float32/bfloat16, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    rows, k = x.shape
+    if not 1 <= rows <= GEMV_MAX_ROWS:
+        raise ValueError(f"wmm takes 1 to {GEMV_MAX_ROWS} rows, got {rows}")
+    if w.dim() != 2 or w.dtype not in _DTYPE_CODES or w.shape[0] != k:
+        raise ValueError(f"w must be ({k}, N) float32/bfloat16, got {tuple(w.shape)} "
+                         f"{w.dtype}")
+    for name, t in (("x", x), ("w", w)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    n = w.shape[1]
+    splits = _k_splits(rows, n, k)
+    out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, rows, n), dtype=torch.float32, device=x.device)
+               if splits > 1 else out)
+    err = _build.library().zg2_wmm(
+        x.data_ptr(), w.data_ptr(), partial.data_ptr(), out.data_ptr(), rows, k, n,
+        splits, _DTYPE_CODES[x.dtype], _DTYPE_CODES[w.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "wmm")
+    wmm.launches += 1
+    return out
+
+
+wmm.launches = 0
+
+# Launch geometry shared with csrc/qmm.cu and csrc/wmm.cu: one thread per
+# output column, _QMM_COLS columns per block, row tiles of 8 (1 for a
+# single row).
 _QMM_COLS = 128
 _TARGET_BLOCKS = 132 * 8  # about eight blocks on each of the H100's 132 SMs
 _MIN_SPLIT_ROWS = 32      # packed weight rows per K split, at least
 
 
 def _k_splits(rows: int, n: int, kp: int) -> int:
-    """How many K ranges the kernel splits the weight into (each block
+    """How many K ranges a kernel splits the weight into (each block
     sums one range; a second pass adds the ranges in order, so the result
     does not depend on the launch). Enough blocks to fill the card, and
     no range shorter than _MIN_SPLIT_ROWS packed rows."""

@@ -21,8 +21,11 @@ Leading ``...`` dims (the per-layer stack axis) pass through.
 ``quantized_linear`` sends up to ``kernels.GEMV_MAX_ROWS`` rows to the
 dequant-GEMV ``kernels.qmm`` (the CUDA kernel on the card, its plain
 version on the CPU) and dequantizes larger row counts to the activation
-dtype for one ``torch.matmul``. The JAX package's mesh options (``tp``)
-are left out: the port serves one card.
+dtype for one ``torch.matmul``. With ``act_quant`` (w8a8) a per-channel
+INT8 linear quantizes its activations per row instead: up to
+``kernels.W8A8_MAX_ROWS`` rows take the s8 x s8 body of ``qmm``, more rows
+``w8a8_matmul``; grouped INT8 and INT4 stay weight-only. The JAX package's
+mesh options (``tp``) are left out: the port serves one card.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from zig_gpt2_tpu_torch.ops.layers import divide
 from zig_gpt2_tpu_torch.quant import kernels
-from zig_gpt2_tpu_torch.quant.kernels import unpack_int4
+from zig_gpt2_tpu_torch.quant.kernels import quantize_rows, unpack_int4
 
 # Candidate group sizes, best first. INT4's half-split packing also needs
 # K/2 % G == 0, which for 1.5B's K = 1600 projections gives G = 32.
@@ -74,7 +78,7 @@ def quantize_linear(p: Dict[str, Any], mode: str = "int8",
     grouped = w.float().reshape(*w.shape[:-2], k // g, g, n)
     absmax = grouped.abs().amax(dim=-2, keepdim=True)
     # All-zero columns (padded heads) have absmax 0: keep the scale finite.
-    scale = torch.clamp(absmax, min=1e-12) / qmax
+    scale = divide(torch.clamp(absmax, min=1e-12), qmax)
     q = torch.clamp(torch.round(grouped / scale), -qmax, qmax).to(torch.int8)
     # Contiguous whatever w's strides (the lm_head comes from wte^T): the
     # kernel reads rows of qw and scale in place.
@@ -157,17 +161,50 @@ def grouped_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     return (partial * scale[:, None, :].float()).sum(0)
 
 
-def quantized_linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def _int_mm_takes(xq: torch.Tensor, qw: torch.Tensor) -> bool:
+    """Whether ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32) takes this
+    product: on the card, more than 16 rows, K and N multiples of 8."""
+    return (xq.is_cuda and xq.shape[0] > 16 and xq.shape[1] % 8 == 0
+            and qw.shape[1] % 8 == 0)
+
+
+def w8a8_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(qw) with both operands int8: x quantized per row
+    (``quantize_rows``), the int8 products summed exactly, then
+    ``float(acc) * sx * scale[0]``. Per-channel scales only (scale (1, N)).
+    The plain matrix product for the rows the GEMV kernel does not take:
+    ``torch._int_mm`` on the card where its shape rules hold, else an f64
+    product (exact: |sum| <= K * 127^2 < 2^53). Both give the JAX
+    package's int32 sums, so the result is the same bits either way.
+    (rows, N) f32."""
+    if scale.shape[0] != 1:
+        raise ValueError(f"w8a8 needs per-channel scales (1, N), got {tuple(scale.shape)}")
+    xq, sx = quantize_rows(x)
+    if _int_mm_takes(xq, qw):
+        return kernels.w8a8_tail(torch._int_mm(xq, qw), sx, scale)
+    return kernels.w8a8_tail(xq.double() @ qw.double(), sx, scale)
+
+
+def quantized_linear(p: Dict[str, Any], x: torch.Tensor,
+                     act_quant: bool = False) -> torch.Tensor:
     """y = x @ dequant(p) (+ b), in x's dtype. Up to GEMV_MAX_ROWS rows run
     the dequant-GEMV kernel, which never materializes the float weight;
-    more rows dequantize to x's dtype and take one matmul. The f32 product
-    is cast to x's dtype before the bias is added."""
+    more rows dequantize to x's dtype and take one matmul. ``act_quant``
+    (w8a8) applies to a per-channel INT8 linear only: up to W8A8_MAX_ROWS
+    rows run the kernel's s8 x s8 body, more rows ``w8a8_matmul``. The f32
+    product is cast to x's dtype before the bias is added."""
     int4 = "qw4" in p
     q = p["qw4"] if int4 else p["qw"]
     *lead, k_in = x.shape
     x2 = x.reshape(-1, k_in)
     n = q.shape[-1]
-    if x2.shape[0] <= kernels.GEMV_MAX_ROWS:
+    rows = x2.shape[0]
+    w8a8 = act_quant and not int4 and p["scale"].shape[-2] == 1
+    if w8a8 and rows <= kernels.W8A8_MAX_ROWS:
+        y = kernels.qmm(x2.contiguous(), q, p["scale"], w8a8=True)
+    elif w8a8:
+        y = w8a8_matmul(x2, q, p["scale"])
+    elif rows <= kernels.GEMV_MAX_ROWS:
         y = kernels.qmm(x2.contiguous(), q, p["scale"], int4=int4)
     else:
         y = torch.matmul(x2, dequantize_linear(p, dtype=x.dtype)["w"])
