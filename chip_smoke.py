@@ -46,7 +46,7 @@ prints no result line:
 10. qmm      - the dequant-GEMV kernel against its plain version on the
                1.5B model's quantized weights: the six block linears at
                layers 0 and 47 (INT4, grouped) and the lm_head (INT8
-               per-channel, K=1600, N=50257), rows 1, 32 and 256, f32 and
+               per-channel, K=1600, N=50257), rows 1, 16, 32 and 256, f32 and
                bf16 activations.
 11. serve-1.5B - GPT-2 1.5B at full width and depth (48 layers, 25 heads,
                1600 wide; random bf16 weights from a fixed seed, INT4
@@ -131,7 +131,11 @@ prints no result line:
 23. times    - each kernel's device time per call at the main paths'
                shapes (CUDA-graph replay of many calls), its bound, its
                plain version's time and one PyTorch library call computing
-               the same function (timed only, never used by the port).
+               the same function (timed only, never used by the port):
+               attention at B=1 and the ring at B=16 (with the w8a8
+               engine's packed bf16 cache at 1.5B shapes), the sampler,
+               qmm at 1 and 16 rows per 1.5B linear and per step, the
+               w8a8 body and wmm.
 
 Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-22
 the packed one, which the card picks by itself at head_dim 64.
@@ -523,7 +527,7 @@ def check_qmm(qk, params, torch) -> None:
             params, None):
         k = qw.shape[0] * (2 if int4 else 1)
         errs = []
-        for rows in (1, 32, 256):
+        for rows in (1, 16, 32, 256):  # every body: CUDA cores, 16- and 64-row mma
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(rows, k, device="cuda", generator=g).to(dtype)
                 got = qk.qmm(x, qw, scale, int4=int4)
@@ -531,7 +535,7 @@ def check_qmm(qk, params, torch) -> None:
                 errs.append(check_close(f"qmm {name} rows={rows} {dtype}", got, want,
                                         atol, rtol, torch))
         log(f"qmm {name} K={k} N={qw.shape[1]} groups={scale.shape[0]} "
-            f"{'int4' if int4 else 'int8'}: rows 1/32/256 x f32/bf16 "
+            f"{'int4' if int4 else 'int8'}: rows 1/16/32/256 x f32/bf16 "
             f"max_abs_err={max(errs):.3e} (atol {atol}, rtol {rtol})")
 
 
@@ -1317,7 +1321,8 @@ def attention_work(args, n: int, S: int, L: int, quant: bool):
 
 
 # Attention kernels timed at the main paths' shapes: (JSON name, or None to
-# log only; TPU kernel line; INT8 cache; q dtype; B; ring; deferred; packed).
+# log only; TPU kernel line; INT8 cache; q dtype; B; ring; deferred; packed;
+# model shapes: float caches at 124M unless "1.5B", INT8 caches at 1.5B).
 ATTENTION_TIMES = (
     ("decode_attention_deferred", ":913", False, "float32", 1, False, True, False),
     (None, ":913", False, "bfloat16", 1, False, True, False),
@@ -1333,16 +1338,20 @@ ATTENTION_TIMES = (
     ("decode_attention", ":875", False, "float32", 1, False, False, False),
     ("decode_attention_packed", ":875", False, "float32", 1, False, False, True),
     ("decode_attention_quant", ":898", True, "bfloat16", 1, False, False, False),
-    ("decode_attention_quant_packed", ":898", True, "bfloat16", 1, False, False, True))
+    ("decode_attention_quant_packed", ":898", True, "bfloat16", 1, False, False, True),
+    # the w8a8 engine's bf16 cache: float, packed, 1.5B shapes (Hp=13)
+    ("decode_attention_deferred_packed_bf16_1p5b", ":913", False, "bfloat16", 1, False, True,
+     True, "1.5B"))
 
 
 def time_attention_kernels(att, ops, torch, counts, card: str):
     """Every attention kernel of ``ATTENTION_TIMES``, rotating over the
     layers so that the caches come from HBM: float at 124M shapes (12
-    heads, Hp=6), INT8 at 1.5B shapes (25 heads, Hp=13 with the phantom
-    head); B=1 over 1023 old rows (1024 rows for the appended form), and
-    the ring at B=16, R=1025, 1023 old rows per lane, starts spread over
-    the ring (most intervals wrap). The library yardstick is SDPA over the
+    heads, Hp=6) and the w8a8 engine's packed bf16 cache at 1.5B shapes,
+    INT8 at 1.5B shapes (25 heads, Hp=13 with the phantom head); B=1 over
+    1023 old rows (1024 rows for the appended form), and the ring at B=16,
+    R=1025, 1023 old rows per lane, starts spread over the ring (most
+    intervals wrap). The library yardstick is SDPA over the
     unpacked view of the same rows (copied ahead of time; for INT8
     dequantized ahead of time to q's dtype, 2 or 4 times the bytes), with a
     boolean mask over all R rows for the ring (the interval plus the next
@@ -1350,8 +1359,8 @@ def time_attention_kernels(att, ops, torch, counts, card: str):
     import torch.nn.functional as F
 
     entries = []
-    for name, replaces, quant, dtype, B, ring, deferred, packed in ATTENTION_TIMES:
-        L, H = (48, 25) if quant else (12, 12)
+    for name, replaces, quant, dtype, B, ring, deferred, packed, *model in ATTENTION_TIMES:
+        L, H = (48, 25) if quant or model == ["1.5B"] else (12, 12)
         dtype = getattr(torch, dtype)
         rows, W = ((H + 1) // 2, 128) if packed else (H, 64)
         S = RING_ROWS if ring else 1024
@@ -1420,53 +1429,63 @@ def qmm_work(qw, scale, int4: bool, rows: int, x_bytes: int):
 
 
 def time_qmm(qk, quantize, params, torch, counts, card: str):
-    """qmm at B=1 (rows 1), bf16 activations as served, per linear shape,
-    rotating over the 48 layers so that the weights come from HBM (the
-    lm_head alone is 80 MB). The yardstick is torch.matmul on the same
-    weights dequantized ahead of time to bf16: it reads 4x the INT4 bytes."""
+    """qmm at B=1 (rows 1) and at the batcher's 16 rows, bf16 activations as
+    served, per linear shape, rotating over the 48 layers so that the
+    weights come from HBM (the lm_head alone is 80 MB). The yardstick is
+    torch.matmul on the same weights dequantized ahead of time to bf16: it
+    reads 4x the INT4 bytes. The JSON entry is the B=1 step."""
     g = torch.Generator(device="cuda").manual_seed(8)
     L = params["blocks"]["attn"]["wq"]["scale"].shape[0]
     shapes = [("attn.wq/wk/wv/c_proj", [linears(params, i)[0][1:] for i in range(L)]),
               ("mlp.c_fc", [linears(params, i)[4][1:] for i in range(L)]),
               ("mlp.c_proj", [linears(params, i)[5][1:] for i in range(L)]),
               ("lm_head", [linears(params, None)[0][1:]])]
-    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    steps = {rows: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+             for rows in (1, 16)}
     errs = []
     for label, layers in shapes:
         qw, scale, int4 = layers[0]
         k = qw.shape[0] * (2 if int4 else 1)
-        x = torch.randn(1, k, device="cuda", generator=g).to(torch.bfloat16)
         dq = [quantize.dequantize_linear({"qw4" if i4 else "qw": w, "scale": s},
                                          torch.bfloat16)["w"] for w, s, i4 in layers]
-        errs.append(max_err(qk.qmm(x, qw, scale, int4=int4),
-                            qk.qmm_plain(x, qw, scale, int4=int4)))
         nl = len(layers)
-        ms = time_ms(lambda i: qk.qmm(x, *layers[i % nl][:2], int4=int4), max(8 * nl, 64))
-        plain_ms = time_ms(lambda i: qk.qmm_plain(x, *layers[i % nl][:2], int4=int4),
-                           max(2 * nl, 8))
-        lib_ms = time_ms(lambda i: torch.matmul(x, dq[i % nl]), max(8 * nl, 64))
-        nbytes, nops = qmm_work(qw, scale, int4, 1, x.element_size())
-        bms, by = bound_ms(nbytes, nops)
-        log(f"time qmm {label} K={k} N={qw.shape[1]} {'int4' if int4 else 'int8'} "
-            f"groups={scale.shape[0]} B=1 bf16: kernel {ms * 1e3:.2f} us, "
-            f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, "
-            f"torch.matmul on a pre-dequantized bf16 weight {lib_ms * 1e3:.2f} us, "
-            f"max_abs_err={errs[-1]:.3e} ({card})")
         calls = 4 * L if label.startswith("attn") else (L if label.startswith("mlp") else 1)
-        step["ms"] += calls * ms
-        step["plain_ms"] += calls * plain_ms
-        step["library_ms"] += calls * lib_ms
-        step["bytes"] += calls * nbytes
-        step["ops"] += calls * nops
+        for rows, step in steps.items():
+            x = torch.randn(rows, k, device="cuda", generator=g).to(torch.bfloat16)
+            errs.append(max_err(qk.qmm(x, qw, scale, int4=int4),
+                                qk.qmm_plain(x, qw, scale, int4=int4)))
+            ms = time_ms(lambda i: qk.qmm(x, *layers[i % nl][:2], int4=int4), max(8 * nl, 64))
+            plain_ms = time_ms(lambda i: qk.qmm_plain(x, *layers[i % nl][:2], int4=int4),
+                               max(2 * nl, 8))
+            lib_ms = time_ms(lambda i: torch.matmul(x, dq[i % nl]), max(8 * nl, 64))
+            nbytes, nops = qmm_work(qw, scale, int4, rows, x.element_size())
+            bms, by = bound_ms(nbytes, nops, PEAK_OPS_PER_S if rows == 1 else PEAK_BF16_OPS_PER_S)
+            geo = qk.qmm_geometry(rows, k, qw.shape[1], int4, x.dtype)
+            log(f"time qmm {label} K={k} N={qw.shape[1]} {'int4' if int4 else 'int8'} "
+                f"groups={scale.shape[0]} rows={rows} bf16 ({geo}): kernel "
+                f"{ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain "
+                f"{plain_ms * 1e3:.2f} us, torch.matmul on a pre-dequantized bf16 weight "
+                f"{lib_ms * 1e3:.2f} us, max_abs_err={errs[-1]:.3e} ({card})")
+            step["ms"] += calls * ms
+            step["plain_ms"] += calls * plain_ms
+            step["library_ms"] += calls * lib_ms
+            step["bytes"] += calls * nbytes
+            step["ops"] += calls * nops
         del dq
-    bms, by = bound_ms(step["bytes"], step["ops"])
-    log(f"time qmm per decode step (289 calls, B=1, bf16): kernel {step['ms']:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
-        f"torch.matmul on pre-dequantized bf16 weights {step['library_ms']:.4f} ms ({card})")
+    for rows, step in steps.items():
+        bms, by = bound_ms(step["bytes"], step["ops"],
+                           PEAK_OPS_PER_S if rows == 1 else PEAK_BF16_OPS_PER_S)
+        step["bound_ms"], step["bound_by"] = bms, by
+        log(f"time qmm per decode step (289 calls, rows={rows}, bf16): kernel "
+            f"{step['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
+            f"torch.matmul on pre-dequantized bf16 weights {step['library_ms']:.4f} ms "
+            f"({card})")
+    step = steps[1]
     return [{"name": "qmm", "route": "cuda", "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
              "replaces": "zig_gpt2_tpu/quant/kernels.py:256", "launches": counts["qmm"],
              "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
-             "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]}]
+             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+             "library_ms": step["library_ms"]}]
 
 
 def time_w8a8(qk, quantize, params, torch, counts, card: str):

@@ -614,3 +614,149 @@ def test_packed_engine_and_batcher_cuda_greedy_match_cpu(dev, monkeypatch, kv_qu
             assert _counts(fn) == (before[0], before[1], before[2] + L * 16,
                                    before[3] + L * b.metrics.steps)
     assert out["cuda"] == out["cpu"]
+
+
+# --- split-S attention and the one-launch qmm -----------------------------------
+
+def _stale_nan(args, caches, length):
+    """Copies of ``args`` whose float cache rows (and INT8 scale rows) at
+    or past each lane's length hold NaN, as a ring's stale rows may."""
+    out = list(args)
+    S = args[caches[0]].shape[3]
+    stale = torch.arange(S, device=length.device)[None, :] >= length[:, None]  # (B, S)
+    for i in caches:
+        if out[i].is_floating_point():
+            mask = stale[None, :, None, :]
+            out[i] = out[i].masked_fill(mask[..., None] if out[i].dim() == 5 else mask,
+                                        float("nan"))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ring", [False, True], ids=["prefix", "ring"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+@pytest.mark.parametrize("deferred", [True, False], ids=["deferred", "appended"])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_split_attention_matches_plain(dev, quant, deferred, packed, ring, dtype):
+    """S = 1024 (the ring R = 1025), where the kernel splits the rows:
+    lengths 0 (deferred) or 1, 1, a split boundary -1, +0 and +1, and S,
+    with NaN in every stale row. Each variant against its plain version,
+    two identical calls bit-equal, one launch per call, and the ring over
+    caches rotated by start (intervals across a split boundary and the
+    wrap) bit-equal to the prefix kernel over the linear caches."""
+    S, HP = (1025 if ring else 1024), 2
+    splits, chunk = att.attention_splits(6, HP, S)
+    assert splits > 1
+    length = torch.tensor([0 if deferred else 1, 1, chunk - 1, chunk, chunk + 1, S],
+                          dtype=torch.int32, device=dev)
+    B = length.numel()
+    g = torch.Generator(device=dev).manual_seed(31 + 2 * quant + deferred)
+    if packed:
+        args, caches = _packed_inputs(dev, g, 2, B, HP, S, dtype, quant, deferred)
+    elif quant:
+        full = _quant_attention_inputs(dev, g, 2, B, HP, S, 64, dtype)
+        args, caches = (full, (5, 6, 7, 8)) if deferred else ([full[0]] + full[5:],
+                                                               (1, 2, 3, 4))
+    else:
+        args = [torch.randn(B, HP, 64, device=dev, generator=g).to(dtype)
+                for _ in range(3 if deferred else 1)]
+        args += [torch.randn(2, B, HP, S, 64, device=dev, generator=g).to(dtype)
+                 for _ in range(2)]
+        caches = (3, 4) if deferred else (1, 2)
+    fn, plain = PACKED[quant, deferred]
+    args = _stale_nan(args, caches, length)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-4, 8e-3)
+    before = _counts(fn)
+    got = fn(*args, length, layer=1, packed=packed)
+    assert _counts(fn) == tuple(c + (i == (2 if packed else 0)) for i, c in enumerate(before))
+    torch.testing.assert_close(got.float(), plain(*args, length, layer=1, packed=packed).float(),
+                               atol=atol, rtol=rtol)
+    assert torch.equal(fn(*args, length, layer=1, packed=packed), got)
+    if ring:
+        start = torch.tensor([(S - 3 - 397 * b) % S for b in range(B)], dtype=torch.int32,
+                             device=dev)
+        rotated = [_rotate(a, start) if i in caches else a for i, a in enumerate(args)]
+        before = _counts(fn)
+        got_ring = fn(*rotated, length, layer=1, start=start, packed=packed)
+        assert _counts(fn) == tuple(c + (i == (3 if packed else 1))
+                                    for i, c in enumerate(before))
+        torch.testing.assert_close(
+            got_ring.float(),
+            plain(*rotated, length, layer=1, start=start, packed=packed).float(),
+            atol=atol, rtol=rtol)
+        assert torch.equal(got_ring, got)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_split_attention_does_not_depend_on_the_cache_rows(dev, quant, packed):
+    """The same rows in a cache of S = 1024 (16 splits) and of S = 300 (5
+    splits of the same chunk) give the same bits: the splits past a lane's
+    rows add exact zeros. (An engine's cache and a shorter replay of the
+    same request agree.)"""
+    g = torch.Generator(device=dev).manual_seed(41)
+    B, HP = 2, 1
+    if packed:
+        args, caches = _packed_inputs(dev, g, 1, B, HP, 1024, torch.bfloat16, quant, True)
+    elif quant:
+        args = _quant_attention_inputs(dev, g, 1, B, HP, 1024, 64, torch.bfloat16)
+        caches = (5, 6, 7, 8)
+    else:
+        args = [torch.randn(B, HP, 64, device=dev, generator=g).to(torch.bfloat16)
+                for _ in range(3)]
+        args += [torch.randn(1, B, HP, 1024, 64, device=dev, generator=g).to(torch.bfloat16)
+                 for _ in range(2)]
+        caches = (3, 4)
+    short = [a[:, :, :, :300].contiguous() if i in caches else a for i, a in enumerate(args)]
+    assert att.attention_splits(B, HP, 1024)[1] == att.attention_splits(B, HP, 300)[1]
+    assert att.attention_splits(B, HP, 1024)[0] > att.attention_splits(B, HP, 300)[0] > 1
+    fn = PACKED[quant, True][0]
+    length = torch.tensor([150, 300], dtype=torch.int32, device=dev)
+    assert torch.equal(fn(*args, length, layer=0, packed=packed),
+                       fn(*short, length, layer=0, packed=packed))
+
+
+@pytest.mark.parametrize("n", [384, 150], ids=["vector-N", "ragged-N"])
+@pytest.mark.parametrize("mode,k,group", [
+    ("int4", 1600, None),  # G = 32 (1.5B's K)
+    ("int8", 640, None),   # per-channel
+    ("int8", 640, 64),     # grouped INT8
+    ("int4", 96, 4),       # G < 8: scales read from L2
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 2, 15, 16, 17, 40, 256])
+def test_qmm_one_launch_matches_plain(dev, rows, dtype, mode, k, group, n):
+    """Every body (CUDA cores at one row and for f32 x; tensor cores at 16-
+    and 64-row tiles for bf16 x) on a 16-byte-aligned N and a ragged one,
+    split over K where the geometry says so: one launch per call, results
+    within the qmm tolerance, and two calls bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(rows * 7 + k + n)
+    w = torch.randn(k, n, device=dev, generator=g) * 0.05
+    p = quant.quantize_linear({"w": w}, mode, group)
+    int4 = mode == "int4"
+    qw = p["qw4"] if int4 else p["qw"]
+    x = torch.randn(rows, k, device=dev, generator=g).to(dtype)
+    before = qk.qmm.launches
+    got = qk.qmm(x, qw, p["scale"], int4=int4)
+    assert qk.qmm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (rows, n)
+    torch.testing.assert_close(got, qk.qmm_plain(x, qw, p["scale"], int4=int4), atol=2e-5,
+                               rtol=2e-5)
+    assert torch.equal(qk.qmm(x, qw, p["scale"], int4=int4), got)
+
+
+def test_qmm_splits_on_the_serving_shapes(dev):
+    """The 1.5B INT4 block linears at B=1 and 16 split K (the combine runs)
+    and still launch once per call."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    for k, n in ((1600, 1600), (1600, 6400), (6400, 1600)):
+        p = quant.quantize_linear({"w": torch.randn(k, n, device=dev, generator=g) * 0.05},
+                                  "int4")
+        for rows in (1, 16):
+            assert qk.qmm_geometry(rows, k, n, True, torch.bfloat16).splits > 1
+            x = torch.randn(rows, k, device=dev, generator=g).to(torch.bfloat16)
+            before = qk.qmm.launches
+            got = qk.qmm(x, p["qw4"], p["scale"], int4=True)
+            assert qk.qmm.launches == before + 1
+            torch.testing.assert_close(got, qk.qmm_plain(x, p["qw4"], p["scale"], int4=True),
+                                       atol=2e-5, rtol=2e-5)

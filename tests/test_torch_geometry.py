@@ -1,0 +1,186 @@
+"""The host-side launch geometry of the split-S attention kernel and of the
+one-launch qmm, on the CPU: plain Python that decides how the kernels in
+``zig_gpt2_tpu_torch/ops/csrc`` cut their work. Shapes only (never
+``length``), exact cover of the rows, the limits the kernels check, and the
+block counts the kernels' source notes give for the GPT-2 serving shapes.
+"""
+
+import inspect
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from zig_gpt2_tpu_torch.ops import _build
+from zig_gpt2_tpu_torch.ops import attention as att
+from zig_gpt2_tpu_torch.quant import kernels as qk
+
+CSRC = Path(_build.__file__).resolve().parent / "csrc"
+
+ATTN_SHAPES = [(B, H, S) for B in (1, 2, 4, 8, 16, 64) for H in (1, 3, 6, 12, 13, 25)
+               for S in (1, 17, 64, 150, 257, 1024, 1025, 4096)]
+
+
+def test_geometry_takes_shapes_only():
+    assert list(inspect.signature(att.attention_splits).parameters) == ["B", "H", "S"]
+    assert list(inspect.signature(qk.qmm_geometry).parameters) == ["rows", "k", "n", "int4",
+                                                                  "dtype"]
+
+
+@pytest.mark.parametrize("B,H,S", ATTN_SHAPES[::7] + [(1, 25, 1024), (16, 13, 1025)])
+def test_attention_splits_cover_the_rows_once(B, H, S):
+    splits, chunk = att.attention_splits(B, H, S)
+    assert splits >= 1 and chunk >= -(-att._ATTN_SPAN // att._ATTN_MAX_SPLITS)
+    covered = [i for s in range(splits) for i in range(s * chunk, min((s + 1) * chunk, S))]
+    assert covered == list(range(S))  # every row once, in order, no split empty
+    assert (splits - 1) * chunk < S <= splits * chunk
+
+
+def test_attention_splits_is_a_function_of_the_shapes():
+    for shape in ATTN_SHAPES:
+        assert att.attention_splits(*shape) == att.attention_splits(*shape)
+
+
+@pytest.mark.parametrize("B,H", sorted({(B, H) for B, H, _ in ATTN_SHAPES}))
+def test_attention_chunk_does_not_depend_on_the_cache_rows(B, H):
+    """A lane's rows fall into the same chunks in a cache of any S (the
+    kernel then gives the same bits), and a GPT-2 cache gets the fewest
+    splits that put a block on every SM."""
+    chunks = {att.attention_splits(B, H, S)[1] for S in (1, 17, 257, 1024, 1025, 4096)}
+    assert len(chunks) == 1
+    splits = att.attention_splits(B, H, att._ATTN_SPAN)[0]
+    assert splits <= att._ATTN_MAX_SPLITS
+    assert splits == att._ATTN_MAX_SPLITS or B * H * splits >= att._ATTN_MIN_BLOCKS
+    assert splits == 1 or B * H * (splits // 2) < att._ATTN_MIN_BLOCKS
+
+
+@pytest.mark.parametrize("B,H,S,splits,chunk,blocks", [
+    (1, 25, 1024, 8, 136, 200),    # 1.5B engine, unpacked
+    (1, 13, 1024, 16, 68, 208),    # 1.5B engine, packed (phantom head)
+    (1, 12, 1024, 16, 68, 192),    # 124M engine, unpacked
+    (1, 6, 1024, 16, 68, 96),      # 124M engine, packed
+    (16, 25, 1025, 1, 1088, 400),  # 1.5B batcher ring, unpacked: fills the card
+    (16, 13, 1025, 1, 1088, 208),  # packed
+    (16, 25, 257, 1, 1088, 400),   # the served batcher's R = 257
+    (16, 6, 1025, 2, 544, 192),    # 124M batcher, packed: 96 blocks are too few
+    (8, 12, 257, 1, 544, 96),      # 124M batcher, B=8: one split of its 257 rows
+])
+def test_attention_splits_on_the_serving_shapes(B, H, S, splits, chunk, blocks):
+    assert att.attention_splits(B, H, S) == (splits, chunk)
+    assert B * H * splits == blocks
+
+
+def test_attention_splits_rejects_empty_shapes():
+    with pytest.raises(ValueError):
+        att.attention_splits(1, 0, 1024)
+    with pytest.raises(ValueError):
+        att.attention_splits(1, 2, 0)
+
+
+def test_attention_tile_constants_match_the_kernel():
+    src = (CSRC / "decode_attention.cu").read_text()
+    assert re.search(r"constexpr int kWarps = (\d+);", src).group(1) == "8"
+    assert "__launch_bounds__(kThreads, 2)" in src
+    assert "const dim3 grid(a.splits, a.H, a.B);" in src
+
+
+QMM_SHAPES = [(rows, k, n, int4, dtype)
+              for rows in (1, 2, 4, 15, 16, 17, 40, 64, 65, 256)
+              for k, n in ((64, 8), (96, 150), (640, 1000), (1600, 1600), (1600, 6400),
+                           (6400, 1600), (1600, 50257))
+              for int4 in (False, True)
+              for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("rows,k,n,int4,dtype", QMM_SHAPES[::9])
+def test_qmm_geometry_covers_k_once(rows, k, n, int4, dtype):
+    geo = qk.qmm_geometry(rows, k, n, int4, dtype)
+    p = k // 2 if int4 else k
+    assert geo.splits >= 1 and geo.split_rows % qk._QMM_TILE_ROWS == 0
+    assert (geo.splits - 1) * geo.split_rows < p <= geo.splits * geo.split_rows
+    covered = [i for s in range(geo.splits)
+               for i in range(s * geo.split_rows, min((s + 1) * geo.split_rows, p))]
+    assert covered == list(range(p))
+    assert geo.tiles == -(-rows // geo.row_tile) * -(-n // qk._QMM_COLS)
+    assert geo.splits <= 65535  # gridDim.z
+
+
+@pytest.mark.parametrize("rows,k,n,int4,dtype", QMM_SHAPES[::5])
+def test_qmm_geometry_fits_the_body(rows, k, n, int4, dtype):
+    """The body follows rows and dtype, and a split's x fits the body's
+    shared memory as csrc/qmm.cu computes it."""
+    geo = qk.qmm_geometry(rows, k, n, int4, dtype)
+    if dtype == torch.bfloat16 and rows > 1:
+        assert geo.row_tile == (16 if rows <= 16 else 64)  # the tensor cores
+        x_bytes = geo.row_tile * ((2 if int4 else 1) * geo.split_rows + 8) * 2
+        budget = qk._QMM_X_BYTES_WIDE if geo.row_tile == 64 else qk._QMM_X_BYTES
+    else:
+        assert geo.row_tile == (1 if rows == 1 else 4)  # the CUDA cores
+        x_bytes = geo.row_tile * (2 if int4 else 1) * geo.split_rows * 4
+        budget = qk._QMM_X_BYTES
+    assert x_bytes <= budget
+
+
+@pytest.mark.parametrize("k,n,int4,rows,row_tile,splits,blocks", [
+    (1600, 1600, True, 1, 1, 13, 169),      # attn Q/K/V/c_proj, B=1
+    (1600, 6400, True, 1, 1, 5, 250),       # c_fc
+    (6400, 1600, True, 1, 1, 17, 221),      # MLP c_proj
+    (1600, 50257, False, 1, 1, 1, 393),     # INT8 lm_head: enough columns already
+    (1600, 1600, True, 16, 16, 7, 91),      # the batcher's 16 rows, one pass
+    (1600, 6400, True, 16, 16, 5, 250),
+    (6400, 1600, True, 16, 16, 17, 221),
+])
+def test_qmm_geometry_on_the_serving_shapes(k, n, int4, rows, row_tile, splits, blocks):
+    geo = qk.qmm_geometry(rows, k, n, int4, torch.bfloat16)
+    assert (geo.row_tile, geo.splits, geo.tiles * geo.splits) == (row_tile, splits, blocks)
+
+
+def test_qmm_geometry_is_a_function_of_the_shapes():
+    for shape in QMM_SHAPES:
+        assert qk.qmm_geometry(*shape) == qk.qmm_geometry(*shape)
+    with pytest.raises(ValueError):
+        qk.qmm_geometry(0, 64, 8, False, torch.float32)
+
+
+def test_qmm_constants_match_the_kernel():
+    src = (CSRC / "qmm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kKT") == qk._QMM_TILE_ROWS
+    assert const("kNT") == qk._QMM_COLS
+    assert const("kXBytes") == qk._QMM_X_BYTES
+    assert const("kXBytesWide") == qk._QMM_X_BYTES_WIDE
+    assert "qmm_reduce_kernel" not in src  # the weight-only body is one launch
+
+
+def _c_params(src: str, name: str) -> int:
+    m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+    return len(m.group(1).split(","))
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signatures_match_the_entry_points(name):
+    src = "\n".join(p.read_text() for p in sorted(CSRC.glob("*.cu")))
+    assert _c_params(src, name) == len(_build.SIGNATURES[name])
+
+
+def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
+    (tmp_path / "a.cu").write_text("// a")
+    (tmp_path / "h.cuh").write_text("// h1")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._digest([tmp_path / "a.cu"])
+    (tmp_path / "h.cuh").write_text("// h2")
+    assert _build._digest([tmp_path / "a.cu"]) != first
+
+
+def test_tickets_grow_and_keep_the_old_tensors(monkeypatch):
+    monkeypatch.setattr(_build, "_TICKETS", {})
+    small = _build.tickets("cpu", 10)
+    assert small.dtype == torch.int32 and small.numel() >= 10 and not small.any()
+    assert _build.tickets("cpu", 5) is small
+    big = _build.tickets("cpu", small.numel() + 1)
+    assert big.numel() > small.numel() and not big.any()
+    assert _build._TICKETS[torch.device("cpu")] == [small, big]

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
 process per source, all started together), the objects are linked into one
 shared library with a plain C interface, and the library is loaded with
 ``ctypes``. The build happens at first use, into ``ops/build/`` (ignored by
-git), under a name that carries a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+git), under a name that carries a hash of the sources, the headers they
+share (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.
 
 Nothing here runs at import: the CPU tests import every module, and the CPU
 has no ``nvcc``.
@@ -36,16 +37,16 @@ _F = ctypes.c_float
 # C signatures of the library's entry points (every pointer and the stream
 # as c_void_p, so ctypes never truncates one to 32 bits). The attention
 # entry points take their operands, length, start (null for the prefix
-# rows) and out; B, H, S, D, layer; scale; the dtype and packed codes; the
-# stream.
-_ATTENTION = [_I] * 5 + [_F, _I, _I, _P]
+# rows), out, the split scratch and tickets; B, H, S, D, layer, splits,
+# chunk; scale; the dtype and packed codes; the stream.
+_ATTENTION = [_I] * 7 + [_F, _I, _I, _P]
 SIGNATURES = {
-    "zg2_decode_attention_deferred": [_P] * 8 + _ATTENTION,
-    "zg2_decode_attention_quant_deferred": [_P] * 12 + _ATTENTION,
-    "zg2_decode_attention": [_P] * 6 + _ATTENTION,
-    "zg2_decode_attention_quant": [_P] * 8 + _ATTENTION,
+    "zg2_decode_attention_deferred": [_P] * 10 + _ATTENTION,
+    "zg2_decode_attention_quant_deferred": [_P] * 14 + _ATTENTION,
+    "zg2_decode_attention": [_P] * 8 + _ATTENTION,
+    "zg2_decode_attention_quant": [_P] * 10 + _ATTENTION,
     "zg2_sample_categorical": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "zg2_qmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "zg2_qmm": [_P] * 6 + [_I] * 9 + [_P],
     "zg2_qmm_w8a8": [_P] * 6 + [_I] * 5 + [_P],
     "zg2_wmm": [_P] * 4 + [_I] * 6 + [_P],
 }
@@ -69,7 +70,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -125,6 +126,26 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_TICKETS: dict = {}
+_MIN_TICKETS = 4096
+
+
+def tickets(device, n: int):
+    """At least ``n`` int32 counters at 0 on ``device``, for the split
+    combines of the attention and qmm kernels: the last block of each
+    group sets its counter back to 0, so one tensor serves every launch on
+    the stream. A larger request allocates a larger tensor; the older ones
+    stay alive, since a captured CUDA graph may still hold their address."""
+    import torch
+
+    device = torch.device(device)
+    held = _TICKETS.setdefault(device, [])
+    if not held or held[-1].numel() < n:
+        size = max(_MIN_TICKETS, 2 * n, 2 * held[-1].numel() if held else 0)
+        held.append(torch.zeros(size, dtype=torch.int32, device=device))
+    return held[-1]
 
 
 def check(err: int, name: str) -> None:

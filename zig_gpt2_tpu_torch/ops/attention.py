@@ -10,10 +10,12 @@ no serving path of either package runs. Each takes the prefix mask or,
 given ``start``, the ring interval, and the unpacked layout or, with
 ``packed=True``, the head-pair-packed one. The kernel is
 ``csrc/decode_attention.cu``, one body with the cache type, the ring, the
-layout and the self-term as template parameters. A CUDA tensor launches it
-(or the wrapper raises); a CPU tensor runs the plain version. Each wrapper
-counts its launches per variant: ``launches`` (prefix), ``ring_launches``,
-``packed_launches`` and ``packed_ring_launches``.
+layout and the self-term as template parameters, launched once per call
+over (splits, H, B) blocks (``attention_splits``: the cache rows split
+into chunks, merged in split order by the last block). A CUDA tensor
+launches it (or the wrapper raises); a CPU tensor runs the plain version.
+Each wrapper counts its launches per variant: ``launches`` (prefix),
+``ring_launches``, ``packed_launches`` and ``packed_ring_launches``.
 
 Packed layout (head_dim 64): adjacent heads (2p, 2p + 1) share one 2D-wide
 row, lanes [0, D) and [D, 2D); rows are (..., Hp, 2D) and caches
@@ -203,17 +205,46 @@ def _check(q, k_cache, tensors, length, start, layer, packed):
             raise ValueError(f"{name} must be contiguous")
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if packed:
-        if W != 128:
-            raise ValueError(f"packed rows of {W} elements unsupported (head_dim 64 only)")
-        for name, t, *_ in tensors:
-            if t.dim() == 5 and t.data_ptr() % 16:  # the body's vector loads
-                raise ValueError(f"{name} must be 16-byte aligned")
-    elif W % 32 or not 32 <= W <= 128:
+    if packed and W != 128:
+        raise ValueError(f"packed rows of {W} elements unsupported (head_dim 64 only)")
+    if not packed and (W % 32 or not 32 <= W <= 128):
         raise ValueError(f"head_dim {W} unsupported (32, 64, 96 or 128)")
+    for name, t, *_ in tensors:
+        if t.dim() == 5 and t.data_ptr() % 16:  # the kernel's 16-byte row copies
+            raise ValueError(f"{name} must be 16-byte aligned")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
     return L, B, H, S, W // 2 if packed else W
+
+
+# Split geometry of the attention kernel (csrc/decode_attention.cu): each
+# block walks ``chunk`` logical rows of one (lane, row of heads), and the
+# last block of the ``splits`` merges their partials. Chosen from (B, H, S)
+# alone, never from ``length`` (on the card; reading it would cost the
+# batcher a host sync, and a captured graph could not follow it). The chunk
+# depends on B and H only: a split past a lane's rows adds exact zeros, so
+# the same rows give the same bits in a cache of any S (an engine's cache
+# and a shorter replay of the same request agree bit for bit).
+_ATTN_MIN_BLOCKS = 132     # one block on each of the H100's 132 SMs
+_ATTN_MAX_SPLITS = 16      # of a GPT-2 cache
+_ATTN_SPAN = 1088          # rows of a GPT-2 cache: the 1024-token context and slack
+
+
+def attention_splits(B: int, H: int, S: int) -> tuple[int, int]:
+    """(splits, chunk) for a call over B lanes of H rows of heads (heads,
+    or pairs when packed) with S cache rows: split s covers the logical rows
+    [s * chunk, min((s + 1) * chunk, S)), so the splits cover [0, S) once.
+    The chunk divides _ATTN_SPAN rows into the fewest power-of-two splits
+    (at most _ATTN_MAX_SPLITS) that give every SM a block (B * H * splits
+    >= _ATTN_MIN_BLOCKS): at B=1 the split fills the card, at B=16 the
+    lanes already do."""
+    if min(B, H, S) < 1:
+        raise ValueError(f"attention_splits: B, H and S must be positive, got {B, H, S}")
+    p = 1
+    while B * H * p < _ATTN_MIN_BLOCKS and p < _ATTN_MAX_SPLITS:
+        p *= 2
+    chunk = -(-_ATTN_SPAN // p)
+    return -(-S // chunk), chunk
 
 
 def _counted(wrapper):
@@ -225,16 +256,25 @@ def _counted(wrapper):
 def _launch(wrapper, q, ptrs, length, start, sizes, layer, packed):
     """Launch the library's entry point for ``wrapper`` (``zg2_`` + its
     name, which takes a null ``start`` for the prefix rows and a packed
-    flag) and count the launch. ``ptrs`` are the operands' data pointers
-    before ``length``. Returns the output, like q."""
+    flag) once, with the split geometry of ``attention_splits`` and, for
+    more than one split, its scratch: the partials (B, H, splits, W + 4)
+    f32 and the per-device tickets. Counts the launch. ``ptrs`` are the
+    operands' data pointers before ``length``. Returns the output, like q."""
     _, B, H, S, D = sizes
     out = torch.empty_like(q)
+    splits, chunk = attention_splits(B, H, S)
+    scratch = (None, None)
+    if splits > 1:  # held until the launch is enqueued
+        scratch = (torch.empty((B, H, splits, q.shape[-1] + 4), dtype=torch.float32,
+                               device=q.device), _build.tickets(q.device, B * H))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     entry = getattr(_build.library(), "zg2_" + wrapper.__name__)
     variant = ("packed_" if packed else "") + ("ring_" if start is not None else "")
+    partial, tickets = (None if t is None else t.data_ptr() for t in scratch)
     _build.check(entry(*ptrs, length.data_ptr(), None if start is None else start.data_ptr(),
-                       out.data_ptr(), B, H, S, D, int(layer), 1.0 / math.sqrt(D),
-                       _DTYPE_CODES[q.dtype], int(packed), stream),
+                       out.data_ptr(), partial, tickets, B, H, S, D, int(layer), splits,
+                       chunk, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], int(packed),
+                       stream),
                  f"{wrapper.__name__} ({variant or 'prefix_'}launch)")
     setattr(wrapper, variant + "launches", getattr(wrapper, variant + "launches") + 1)
     return out

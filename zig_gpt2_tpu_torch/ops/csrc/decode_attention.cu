@@ -25,12 +25,12 @@
 // hold stale data and, in the deferred order, the row being appended this
 // step.
 //
-// Ring (RING): the block walks the logical rows i in [0, len) in the same
-// order, with the same warp and tile split, as the prefix kernel, and reads
-// physical row (start + i) mod S, computed per row since a tile may straddle
-// the wrap. So a ring lane reads exactly the bytes a prefix lane of the same
-// length reads (no mask scan over S), and a ring cache that holds a linear
-// cache's rows rotated by start gives a bit-identical result.
+// Ring (RING): the blocks walk the logical rows i in [0, len) with the same
+// splits, tiles and warp rows as the prefix kernel, and copy physical row
+// (start + i) mod S, computed per row since a tile may straddle the wrap.
+// So a ring lane reads exactly the bytes a prefix lane of the same length
+// reads (no mask scan over S), and a ring cache that holds a linear cache's
+// rows rotated by start gives a bit-identical result.
 //
 // INT8 cache (QUANT): k_new, v_new and the caches are int8, with f32 scales
 // ks_new, vs_new (B, H) and planes k_scale, v_scale (L, B, H, S) read at the
@@ -44,52 +44,89 @@
 // elements, and H counts pairs (Hp). Lanes [0, D) of pair p are head 2p and
 // lanes [D, 2D) head 2p + 1. An INT8 scale is per pair: one f32 per packed
 // row, planes (L, B, Hp, S) and new-row scales (B, Hp); it multiplies both
-// halves' scores, and the V scale weights both halves' V. One block per
-// (b, pair); each warp reads a whole 128-element pair row, 4 elements per
-// lane (a 16 B load at f32, 8 B at bf16, 4 B at int8), lanes 0-15 holding
+// halves' scores, and the V scale weights both halves' V. Each warp reads
+// a whole 128-element pair row, 4 elements per lane (one shared-memory load
+// of 16 B at f32, 8 B at bf16, 4 B at int8), lanes 0-15 holding
 // head 2p and lanes 16-31 head 2p + 1. Scores reduce over a half-warp and
 // each lane keeps only its own head's (m, den, acc) state, so one scale
 // load serves both heads of the row. The packed grid has half the blocks
-// (13 * 16 = 208 for the 1.5B batcher).
+// of each split (13 * 16 = 208 for the 1.5B batcher).
 //
-// Bound on the H100: device-memory bytes. One call reads 2 * B * H * len * D
-// cache elements (plus 2 * B * H * len scales for INT8, half that when
-// packed) and does about 4 flops per element read, far below the ~20 flops
-// per byte where the f32 (non-tensor) units would become the limit. At
-// GPT-2 124M (H=12, D=64), len 1024, f32: 6.3 MB, 1.9 us at 3.35 TB/s. At
-// GPT-2 1.5B INT8 (H=25, D=64), len 1023, B=1: 3.3 MB of int8 plus 0.2 MB
-// of scales, 1.0 us.
+// Bound on the H100: device-memory bytes, and at B = 1 the SMs in use. One
+// call reads 2 * B * H * len * D cache elements (plus 2 * B * H * len
+// scales for INT8, half that when packed) and does about 4 flops per
+// element read, far below the ~20 flops per byte where the f32 (non-tensor)
+// units would become the limit. At GPT-2 124M (H=12, D=64), len 1024, f32:
+// 6.3 MB, 1.9 us at 3.35 TB/s. At GPT-2 1.5B INT8 (H=25, D=64), len 1023,
+// B=1: 3.3 MB of int8 plus 0.2 MB of scales, 1.0 us. With one block per
+// (b, head) a B=1 call runs on 25 (or 13 packed) of the 132 SMs, and each
+// block walks all rows in turn with a few rows in flight per warp.
 //
-// Design against that bound: one block per (b, row of heads) reads its
-// layer slice by pointer offset ((layer * B + b) * H + h) * S * W, so no
-// slice is copied. Eight warps each take tiles of kRows consecutive rows; a
-// tile's K and V rows (and scales) are all loaded before any arithmetic so
-// that every warp keeps kRows row loads in flight, and each lane reads
-// W / 32 neighbouring elements so a warp's row load is one contiguous
-// segment. Each warp keeps its own online softmax state; the eight states
-// are merged once through shared memory. Every instantiation is held to two
-// resident blocks per SM (at most 128 registers a thread): with more, one
-// block fits per SM and a B=16 call's 208 packed or 400 unpacked blocks run
-// in more waves over the 132 SMs. Left free, the INT8 ring instantiations
-// took up to 192 (packed) and 164 (unpacked) registers and 153 and 142 us,
-// against 83 and 79 us under the bound (H100, B=16, R=1025, 1.5B shapes,
-// tools/kernel_ab.py).
-//
-// What it leaves to a later PR: the grid is B * H blocks, so at B = 1 most
-// of the 132 SMs idle and one block's latency sets the time; an unpacked
-// INT8 row is 64 bytes, 2 bytes per lane. The fix is a split-S
-// flash-decode: several blocks per (b, h), each over a range of rows, and
-// a combine pass over their (m, den, acc) partials.
+// Design against that bound: split-S flash-decode in one launch.
+// - The grid is (splits, H, B). Block s walks the logical rows
+//   [s * chunk, min((s + 1) * chunk, len)); the host picks splits and
+//   chunk from (B, H, S) alone (ops/attention.py attention_splits), never
+//   from length, which lives on the card. The chunk depends on B and H
+//   only (enough blocks for every SM over a GPT-2 cache), so a lane's
+//   result does not depend on the cache's S: splits past its rows add
+//   exact zeros. At 1.5B B=1 that is 8 splits of 136 rows (200 blocks),
+//   packed 16 of 68 (208), at 124M 16 of 68. At B=16 the 400 (208 packed)
+//   blocks already fill the card and take one split.
+// - Rows reach shared memory by cp.async, 16 bytes a thread, in a ring of
+//   kStages = 2 tiles of TR rows (TR * row bytes = 8 KB for K and for V),
+//   with INT8 scales by 4-byte copies; tile t + 1 is in flight while tile
+//   t is summed. (On the H100 this beat 4 tiles of 4 KB and 8 tiles of 4 KB
+//   in dynamic shared memory at B=16: fewer block barriers per row.) A row's bytes are contiguous, so a warp's copy covers 8 INT8
+//   rows of 64 bytes at once. Rows past a split's end are never read: their
+//   copies zero-fill (stale rows may hold NaN). The ring maps each row to
+//   its physical row (start + i) mod S in the copy, so the arithmetic sees
+//   the prefix kernel's logical order and a ring cache rotated by start
+//   gives a bit-identical result.
+// - Each of the 8 warps sums TR / 8 rows of every tile. A lane reads 16
+//   bytes of a row from shared memory (an INT8 row of 64 bytes is 4 lanes,
+//   so a warp reads 8 rows at once; an f32 row 16 lanes), the head's lanes
+//   sum the dot product by shuffles, and each lane keeps the online softmax
+//   state of its row slot; the slots merge by a fixed shuffle tree, the
+//   warps through shared memory. Only split 0's warp 0 is seeded with the
+//   self-term in the deferred form. (head_dim 96, whose rows are no power
+//   of two of 16 bytes, takes 32 lanes per row.)
+// - The combine is in the same launch: each block writes its (m, den, acc)
+//   partial to a scratch tensor, takes a ticket from a self-resetting
+//   counter per (b, head), and the last block to arrive merges the
+//   partials in split order (the order, not the arrival, fixes every
+//   rounding, so the result is deterministic). A thread-block cluster
+//   merging through distributed shared memory was the other choice; it
+//   caps the splits at 8 (16 non-portable) and needs the whole cluster
+//   co-scheduled on one GPC, while a ticket costs one atomic per block and
+//   a read of splits * (W + 4) floats from L2 by one block.
+// - No tensor cores, on purpose: there is one query row per head (M = 1),
+//   and the bound is bytes and the SMs in use, not products.
+// - Every instantiation is held to two resident blocks per SM (at most 128
+//   registers a thread; left free the INT8 ring instantiations took up to
+//   192 and ran 1.8x slower at B=16, PR 4's tools/kernel_ab.py).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kRows = 8;  // rows per warp tile
+constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 2;        // tiles in flight per block
+constexpr int kTileBytes = 8192;  // bytes of K rows (and of V rows) per tile
+
+// Rows per tile for a row of RB bytes: the largest power of two, at least
+// one row per warp, whose K rows fit kTileBytes.
+template <int RB>
+__host__ __device__ constexpr int tile_rows() {
+  int t = kWarps;
+  while (2 * t * RB <= kTileBytes) t *= 2;
+  return t;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -101,35 +138,48 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-// Four neighbouring elements (16-byte, 8-byte or 4-byte aligned) as f32,
-// with one load instruction.
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-__device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  const char4 v = *reinterpret_cast<const char4*>(p);
-  o[0] = (float)v.x; o[1] = (float)v.y; o[2] = (float)v.z; o[3] = (float)v.w;
+// A lane's N neighbouring elements of a row in shared memory, as f32: one
+// 16-byte load when they are 16 bytes, else element by element.
+template <int N, typename C>
+__device__ __forceinline__ void load_elems(const C* p, float* o) {
+  if constexpr (N * sizeof(C) == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (sizeof(C) == 4) {
+        o[j] = __uint_as_float(w[j]);
+      } else if constexpr (sizeof(C) == 2) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+        o[2 * j] = f.x;
+        o[2 * j + 1] = f.y;
+      } else {  // int8 b as (2^23 + (b ^ 0x80)) - (2^23 + 128): no conversion
+        const uint32_t u = w[j] ^ 0x80808080u;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          o[4 * j + b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b)) - 8388736.0f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = to_f32(p[i]);
+  }
 }
 
-// Sum over the lanes that hold one head: the whole warp, or (PACKED) the
-// half-warp (xor 8, 4, 2, 1 stays inside lanes 0-15 and 16-31).
-template <bool PACKED>
-__device__ __forceinline__ float head_sum(float x) {
+// Sum over the L lanes that hold one head of a row: aligned groups of L
+// neighbouring lanes (xor L/2, ..., 1 stays inside the group).
+template <int L>
+__device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
-  for (int o = PACKED ? 8 : 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = L / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
 // Every pointer and size of one call. H counts the cache's rows per lane:
 // heads, or head pairs when packed. The self-term pointers are null in the
 // appended form, the scale pointers for a float cache, start for the prefix.
+// partial: (B, H, splits, W + 4) f32 scratch and tickets: (B * H) int32
+// counters at 0, both unused when splits == 1.
 struct Args {
   const void* q;
   const void* k_new;
@@ -143,25 +193,45 @@ struct Args {
   const int32_t* length;
   const int32_t* start;
   void* out;
-  int B, H, S, D, layer;
+  float* partial;
+  int* tickets;
+  int B, H, S, D, layer, splits, chunk;
   float scale;
 };
 
 // T: type of q and out. C: type of k_new, v_new and the caches (T, or int8_t
 // when QUANT). RING: read the interval from start. PACKED: head-pair rows.
-// DEFERRED: seed warp 0 with the self-term. DPL: row elements per lane
-// (W / 32, with W = D, or 2D when packed).
+// DEFERRED: seed split 0's warp 0 with the self-term. DPL: W / 32, with the
+// row width W = D, or 2D when packed.
 template <typename T, typename C, bool QUANT, bool RING, bool PACKED, bool DEFERRED, int DPL>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+__global__ void __launch_bounds__(kThreads, 2)
     decode_attention_kernel(const Args a) {
   constexpr int W = DPL * 32;
-  static_assert(!PACKED || DPL == 4, "the packed body reads 4 elements per lane");
+  constexpr int RB = W * (int)sizeof(C);  // bytes per row
+  constexpr int EPC = 16 / (int)sizeof(C);  // elements per 16-byte copy
+  constexpr int CPR = RB / 16;              // copies per row
+  constexpr int TR = tile_rows<RB>();
+  constexpr int RPW = TR / kWarps;          // rows per warp per tile
+  constexpr int kHalves = PACKED ? 2 : 1;
+  constexpr int kScaleRows = QUANT ? TR : 1;
+  static_assert(!PACKED || DPL == 4, "packed rows are two heads of 64");
+  static_assert(RB % 16 == 0, "rows are copied 16 bytes at a time");
+
+  __shared__ __align__(16) C sk[kStages][TR * W];
+  __shared__ __align__(16) C sv[kStages][TR * W];
+  __shared__ float sks[kStages][kScaleRows];
+  __shared__ float svs[kStages][kScaleRows];
+  __shared__ float sm_m[kWarps][kHalves];
+  __shared__ float sm_den[kWarps][kHalves];
+  __shared__ float sm_acc[kWarps][W];
+
   const T* q = static_cast<const T*>(a.q);
   const C* k_new = static_cast<const C*>(a.k_new);
   const C* v_new = static_cast<const C*>(a.v_new);
   const int S = a.S;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -179,143 +249,246 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
     st = a.start[b] % S;
     if (st < 0) st += S;
   }
+  const int lo = split * a.chunk;
+  const int hi = min(lo + a.chunk, len);
+  const int ntiles = hi > lo ? (hi - lo + TR - 1) / TR : 0;
 
-  float qf[DPL];
+  // Tile t of this split into stage t % kStages (an empty group past the
+  // last tile keeps the wait counts uniform).
+  auto issue = [&](int t) {
+    if (t < ntiles) {
+      const int stage = t % kStages;
+      const int base = lo + t * TR;
+      for (int c = threadIdx.x; c < TR * CPR; c += kThreads) {
+        const int r = c / CPR, part = c - r * CPR;
+        const int i = base + r;
+        const bool ok = i < hi;
+        int row = 0;
+        if (ok) {
+          row = i;
+          if (RING) {
+            row += st;  // below 2 S: one subtraction wraps it
+            if (row >= S) row -= S;
+          }
+        }
+        const int64_t o = (int64_t)row * W + part * EPC;
+        zg2::cp_async16(&sk[stage][r * W + part * EPC], kc + o, ok);
+        zg2::cp_async16(&sv[stage][r * W + part * EPC], vc + o, ok);
+      }
+      if constexpr (QUANT) {
+        for (int r = threadIdx.x; r < TR; r += kThreads) {
+          const int i = base + r;
+          const bool ok = i < hi;
+          int row = 0;
+          if (ok) {
+            row = i;
+            if (RING) {
+              row += st;
+              if (row >= S) row -= S;
+            }
+          }
+          zg2::cp_async4(&sks[stage][r], ksc + row, ok);
+          zg2::cp_async4(&svs[stage][r], vsc + row, ok);
+        }
+      }
+    }
+    zg2::cp_async_commit();
+  };
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) qf[i] = to_f32(q[row_off + lane * DPL + i]);
+  for (int t = 0; t < kStages - 1; ++t) issue(t);
 
-  float m, den, acc[DPL];
-  if (DEFERRED && warp == 0) {  // the self-term seeds warp 0's recurrence
+  // Lane layout: LPR lanes read one row, EPL elements (16 bytes) each, so
+  // a warp step covers RPI rows (8 INT8 rows of 64 bytes); a head's dot
+  // product reduces over its HL lanes. A row width that is no power of two
+  // (head_dim 96) takes 32 lanes per row instead.
+  constexpr bool kVec = (RB & (RB - 1)) == 0 && RB <= 512;
+  constexpr int LPR = kVec ? RB / 16 : 32;
+  constexpr int EPL = W / LPR;
+  constexpr int RPI = 32 / LPR;
+  constexpr int HL = LPR / kHalves;
+  constexpr int STEPS = RPW / RPI;
+  static_assert(STEPS >= 1 && RPW % RPI == 0, "a warp's tile rows are whole steps");
+  const int gi = lane / LPR;        // the lane's row within a step
+  const int col = (lane % LPR) * EPL;  // its first element of the row
+  const int hh = col * kHalves / W;    // its head within the row
+
+  float qf[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) qf[i] = to_f32(q[row_off + col + i]);
+
+  // Each lane keeps the online softmax state of its row of every step.
+  float m = -INFINITY, den = 0.f, acc[EPL];
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) acc[i] = 0.f;
+  if (DEFERRED && split == 0 && warp == 0) {  // the self-term seeds one recurrence
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) s += qf[i] * to_f32(k_new[row_off + lane * DPL + i]);
-    m = head_sum<PACKED>(s) * a.scale;
-    const float vs = QUANT ? a.vs_new[head] : 1.f;
-    if (QUANT) m *= a.ks_new[head];
-    den = 1.f;
+    for (int i = 0; i < EPL; ++i) s += qf[i] * to_f32(k_new[row_off + col + i]);
+    s = group_sum<HL>(s) * a.scale;
+    if (QUANT) s *= a.ks_new[head];
+    if (gi == 0) {
+      m = s;
+      den = 1.f;
+      const float vs = QUANT ? a.vs_new[head] : 1.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const float v = to_f32(v_new[row_off + lane * DPL + i]);
-      acc[i] = QUANT ? v * vs : v;
+      for (int i = 0; i < EPL; ++i) {
+        const float v = to_f32(v_new[row_off + col + i]);
+        acc[i] = QUANT ? v * vs : v;
+      }
     }
-  } else {
-    m = -INFINITY;
-    den = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
   }
 
-  // Each tile starts below len, so its first row is valid and its max finite.
-  for (int t0 = warp * kRows; t0 < len; t0 += kWarps * kRows) {
-    float kr[kRows][DPL], vr[kRows][DPL], ks[kRows], vs[kRows];
+  for (int t = 0; t < ntiles; ++t) {
+    issue(t + kStages - 1);
+    zg2::cp_async_wait<kStages - 1>();  // this thread's copies of tile t landed
+    __syncthreads();                     // and every thread's
+    const int stage = t % kStages;
+    const int first = lo + t * TR;  // logical row of the tile's first row
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = t0 + r < len;
-      int row = t0 + r;
-      if (RING) {
-        row += st;  // below 2 S for a valid row: one subtraction wraps it
-        if (row >= S) row -= S;
-      }
-      const int64_t o = (int64_t)row * W + lane * DPL;
-      if constexpr (PACKED) {
-        if (ok) {
-          load4(kc + o, kr[r]);
-          load4(vc + o, vr[r]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) kr[r][i] = vr[r][i] = 0.f;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          kr[r][i] = ok ? to_f32(kc[o + i]) : 0.f;
-          vr[r][i] = ok ? to_f32(vc[o + i]) : 0.f;
-        }
-      }
-      ks[r] = QUANT && ok ? ksc[row] : 1.f;
-      vs[r] = QUANT && ok ? vsc[row] : 1.f;
-    }
-    float s[kRows];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int j = 0; j < STEPS; ++j) {
+      const int r = warp * RPW + j * RPI + gi;
+      float kf[EPL];
+      load_elems<EPL>(&sk[stage][r * W + col], kf);
       float p = 0.f;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) p += qf[i] * kr[r][i];
-      p = head_sum<PACKED>(p) * a.scale;
-      if (QUANT) p *= ks[r];
-      s[r] = t0 + r < len ? p : -INFINITY;
-      tmax = fmaxf(tmax, s[r]);
+      for (int i = 0; i < EPL; ++i) p += qf[i] * kf[i];
+      p = group_sum<HL>(p) * a.scale;
+      if constexpr (QUANT) p *= sks[stage][r];
+      if (first + r < hi) {
+        const float m_new = fmaxf(m, p);
+        const float corr = expf(m - m_new);  // 0 while m = -inf
+        const float e = expf(p - m_new);
+        den = den * corr + e;
+        float ev = e;
+        if constexpr (QUANT) ev *= svs[stage][r];
+        float vf[EPL];
+        load_elems<EPL>(&sv[stage][r * W + col], vf);
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) acc[i] = acc[i] * corr + ev * vf[i];
+        m = m_new;
+      }
     }
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    den *= corr;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= corr;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float e = t0 + r < len ? expf(s[r] - m_new) : 0.f;
-      den += e;
-      const float ev = QUANT ? e * vs[r] : e;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] += ev * vr[r][i];
-    }
-    m = m_new;
+    __syncthreads();  // the stage is free for the copy issued next
   }
+  zg2::cp_async_wait<0>();
 
-  // Merge the warps' states, per head (the row's two heads when packed).
-  // In the deferred form warp 0 always holds a finite max (the self-term);
-  // in the appended form warp 0 holds the first tile.
-  constexpr int kHalves = PACKED ? 2 : 1;
-  __shared__ float sm_m[kWarps][kHalves];
-  __shared__ float sm_den[kWarps][kHalves];
-  __shared__ float sm_acc[kWarps][W];
-  if ((lane & (32 / kHalves - 1)) == 0) {
-    sm_m[warp][lane * kHalves / 32] = m;
-    sm_den[warp][lane * kHalves / 32] = den;
+  // Merge the rows of a step within the warp (a fixed xor tree: partners
+  // compute the same sums), then the warps' states through shared memory,
+  // per head (the row's two heads when packed). A state that saw no row
+  // holds m = -inf and adds nothing.
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+    const float m_o = __shfl_xor_sync(0xffffffffu, m, o);
+    const float d_o = __shfl_xor_sync(0xffffffffu, den, o);
+    const float mx = fmaxf(m, m_o);
+    const float c = m == -INFINITY ? 0.f : expf(m - mx);
+    const float c_o = m_o == -INFINITY ? 0.f : expf(m_o - mx);
+    den = den * c + d_o * c_o;
+#pragma unroll
+    for (int i = 0; i < EPL; ++i)
+      acc[i] = acc[i] * c + __shfl_xor_sync(0xffffffffu, acc[i], o) * c_o;
+    m = mx;
   }
+  if (gi == 0) {
+    if (col % (W / kHalves) == 0) {
+      sm_m[warp][hh] = m;
+      sm_den[warp][hh] = den;
+    }
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) sm_acc[warp][lane * DPL + i] = acc[i];
+    for (int i = 0; i < EPL; ++i) sm_acc[warp][col + i] = acc[i];
+  }
   __syncthreads();
-  if (threadIdx.x < W) {
-    const int d = threadIdx.x;
-    const int half = d * kHalves / W;
-    float mx = sm_m[0][half];
+  const int d = threadIdx.x;
+  const int half = d * kHalves / W;
+  float mx = -INFINITY, dsum = 0.f, asum = 0.f;
+  if (d < W) {
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][half]);
-    float dsum = 0.f, asum = 0.f;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][half]);
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][half] - mx);  // 0 for a warp that saw no rows
+      const float c = sm_m[w][half] == -INFINITY ? 0.f : expf(sm_m[w][half] - mx);
       dsum += sm_den[w][half] * c;
       asum += sm_acc[w][d] * c;
     }
-    static_cast<T*>(a.out)[row_off + d] = from_f32<T>(asum / dsum);
   }
+  T* out = static_cast<T*>(a.out);
+  if (gridDim.x == 1) {
+    if (d < W) out[row_off + d] = from_f32<T>(asum / dsum);
+    return;
+  }
+
+  // Split combine: this block's partial, then the last block of the
+  // (b, head) merges all of them in split order.
+  float* part = a.partial + head * gridDim.x * (W + 4);
+  if (d < W) {
+    part[split * (W + 4) + d] = asum;
+    if ((d & (W / kHalves - 1)) == 0) {
+      part[split * (W + 4) + W + half] = mx;
+      part[split * (W + 4) + W + 2 + half] = dsum;
+    }
+  }
+  if (!zg2::last_to_arrive(a.tickets + head, gridDim.x)) return;
+  // The partials, 16 at a time, into shared memory (the K stages are free)
+  // so that their L2 round trips overlap, each batch merged in split order
+  // into the running state. A split past the lane's rows adds exact zeros,
+  // so the result does not depend on how many splits the cache's S made.
+  static_assert(sizeof(sk) >= 16 * (W + 4) * sizeof(float), "room for 16 partials");
+  float* ps = reinterpret_cast<float*>(&sk[0][0]);
+  float gm = -INFINITY, gd = 0.f, ga = 0.f;
+  for (int s0 = 0; s0 < (int)gridDim.x; s0 += 16) {
+    const int ns = min(16, (int)gridDim.x - s0);
+    for (int i = threadIdx.x; i < ns * (W + 4); i += kThreads)
+      ps[i] = __ldcg(part + s0 * (W + 4) + i);
+    __syncthreads();
+    if (d < W) {
+      float bm = gm;
+      for (int s = 0; s < ns; ++s) bm = fmaxf(bm, ps[s * (W + 4) + W + half]);
+      const float co = gm == -INFINITY ? 0.f : expf(gm - bm);
+      gd *= co;
+      ga *= co;
+      for (int s = 0; s < ns; ++s) {
+        const float* pt = ps + s * (W + 4);
+        const float ms = pt[W + half];
+        const float c = ms == -INFINITY ? 0.f : expf(ms - bm);
+        gd += pt[W + 2 + half] * c;
+        ga += pt[d] * c;
+      }
+      gm = bm;
+    }
+    __syncthreads();
+  }
+  if (d < W) out[row_off + d] = from_f32<T>(ga / gd);
+}
+
+template <typename T, typename C, bool QUANT, bool RING, bool PACKED, bool DEFERRED, int DPL>
+cudaError_t launch_body(const Args& a, dim3 grid, cudaStream_t stream) {
+  decode_attention_kernel<T, C, QUANT, RING, PACKED, DEFERRED, DPL>
+      <<<grid, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename T, typename C, bool QUANT, bool RING, bool PACKED, bool DEFERRED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (RING && a.S <= 0) return cudaErrorInvalidValue;  // start % S
-  const dim3 grid(a.H, a.B);
-  const dim3 block(kWarps * 32);
-#define ZG2_LAUNCH(DPL)                                                              \
-  decode_attention_kernel<T, C, QUANT, RING, PACKED, DEFERRED, DPL><<<grid, block, 0, \
-                                                                     stream>>>(a)
+  // The splits cover [0, S) and none starts past it; a split launch needs
+  // its scratch.
+  if (a.splits < 1 || a.chunk < 1 || (int64_t)a.chunk * a.splits < a.S ||
+      (int64_t)a.chunk * (a.splits - 1) >= (a.S > 0 ? a.S : 1) ||
+      (a.splits > 1 && (!a.partial || !a.tickets)))
+    return cudaErrorInvalidValue;
+  const dim3 grid(a.splits, a.H, a.B);
   if constexpr (PACKED) {
     if (a.D != 64) return cudaErrorInvalidValue;
-    ZG2_LAUNCH(4);
+    return launch_body<T, C, QUANT, RING, PACKED, DEFERRED, 4>(a, grid, stream);
   } else {
     switch (a.D) {
-      case 32: ZG2_LAUNCH(1); break;
-      case 64: ZG2_LAUNCH(2); break;
-      case 96: ZG2_LAUNCH(3); break;
-      case 128: ZG2_LAUNCH(4); break;
+      case 32: return launch_body<T, C, QUANT, RING, PACKED, DEFERRED, 1>(a, grid, stream);
+      case 64: return launch_body<T, C, QUANT, RING, PACKED, DEFERRED, 2>(a, grid, stream);
+      case 96: return launch_body<T, C, QUANT, RING, PACKED, DEFERRED, 3>(a, grid, stream);
+      case 128: return launch_body<T, C, QUANT, RING, PACKED, DEFERRED, 4>(a, grid, stream);
       default: return cudaErrorInvalidValue;
     }
   }
-#undef ZG2_LAUNCH
-  return cudaGetLastError();
 }
 
 // The packed instantiations exist for DPL = 4 only (head_dim 64).
@@ -346,12 +519,12 @@ int dispatch(const Args& a, bool quant, bool packed, int dtype, void* stream) {
 Args args(const void* q, const void* k_new, const void* ks_new, const void* v_new,
           const void* vs_new, const void* k_cache, const void* k_scale,
           const void* v_cache, const void* v_scale, const void* length,
-          const void* start, void* out, int B, int H, int S, int D, int layer,
-          float scale) {
+          const void* start, void* out, void* partial, void* tickets, int B, int H,
+          int S, int D, int layer, int splits, int chunk, float scale) {
   return Args{q, k_new, (const float*)ks_new, v_new, (const float*)vs_new, k_cache,
               (const float*)k_scale, v_cache, (const float*)v_scale,
-              (const int32_t*)length, (const int32_t*)start, out, B, H, S, D, layer,
-              scale};
+              (const int32_t*)length, (const int32_t*)start, out, (float*)partial,
+              (int*)tickets, B, H, S, D, layer, splits, chunk, scale};
 }
 
 // --- entry points. One per form and cache type; each takes start (null for
@@ -360,8 +533,10 @@ Args args(const void* q, const void* k_new, const void* ks_new, const void* v_ne
 // D = 64). dtype code of q and out: 0 = float32, 1 = bfloat16 (also the
 // type of a float cache and its current rows). For an INT8 cache k_new,
 // v_new and the caches are int8, with f32 scales ks_new, vs_new (B, H) and
-// planes k_scale, v_scale (L, B, H, S) (per pair when packed). Each
-// returns a cudaError_t. -------------------------------------------------
+// planes k_scale, v_scale (L, B, H, S) (per pair when packed). splits and
+// chunk: the split geometry (splits * chunk >= S); partial (B, H, splits,
+// W + 4) f32 and tickets (B * H) int32 at 0, unused (may be null) when
+// splits == 1. Each returns a cudaError_t. -----------------------------
 
 template <bool DEFERRED>
 int dispatch_start(const Args& a, bool quant, int packed, int dtype, void* stream) {
@@ -373,11 +548,12 @@ int dispatch_start(const Args& a, bool quant, int packed, int dtype, void* strea
 
 extern "C" int zg2_decode_attention_deferred(
     const void* q, const void* k_new, const void* v_new, const void* k_cache,
-    const void* v_cache, const void* length, const void* start, void* out, int B,
-    int H, int S, int D, int layer, float scale, int dtype, int packed, void* stream) {
+    const void* v_cache, const void* length, const void* start, void* out,
+    void* partial, void* tickets, int B, int H, int S, int D, int layer, int splits,
+    int chunk, float scale, int dtype, int packed, void* stream) {
   return dispatch_start<true>(args(q, k_new, nullptr, v_new, nullptr, k_cache, nullptr,
-                                   v_cache, nullptr, length, start, out, B, H, S, D,
-                                   layer, scale),
+                                   v_cache, nullptr, length, start, out, partial,
+                                   tickets, B, H, S, D, layer, splits, chunk, scale),
                               false, packed, dtype, stream);
 }
 
@@ -385,34 +561,37 @@ extern "C" int zg2_decode_attention_quant_deferred(
     const void* q, const void* k_new, const void* ks_new, const void* v_new,
     const void* vs_new, const void* k_cache, const void* k_scale,
     const void* v_cache, const void* v_scale, const void* length,
-    const void* start, void* out, int B, int H, int S, int D, int layer,
-    float scale, int dtype, int packed, void* stream) {
+    const void* start, void* out, void* partial, void* tickets, int B, int H, int S,
+    int D, int layer, int splits, int chunk, float scale, int dtype, int packed,
+    void* stream) {
   return dispatch_start<true>(args(q, k_new, ks_new, v_new, vs_new, k_cache, k_scale,
-                                   v_cache, v_scale, length, start, out, B, H, S, D,
-                                   layer, scale),
+                                   v_cache, v_scale, length, start, out, partial,
+                                   tickets, B, H, S, D, layer, splits, chunk, scale),
                               true, packed, dtype, stream);
 }
 
 // The appended form (no self-term).
 extern "C" int zg2_decode_attention(const void* q, const void* k_cache,
                                     const void* v_cache, const void* length,
-                                    const void* start, void* out, int B, int H, int S,
-                                    int D, int layer, float scale, int dtype,
+                                    const void* start, void* out, void* partial,
+                                    void* tickets, int B, int H, int S, int D, int layer,
+                                    int splits, int chunk, float scale, int dtype,
                                     int packed, void* stream) {
   return dispatch_start<false>(args(q, nullptr, nullptr, nullptr, nullptr, k_cache,
-                                    nullptr, v_cache, nullptr, length, start, out, B, H,
-                                    S, D, layer, scale),
+                                    nullptr, v_cache, nullptr, length, start, out, partial,
+                                    tickets, B, H, S, D, layer, splits, chunk, scale),
                                false, packed, dtype, stream);
 }
 
 extern "C" int zg2_decode_attention_quant(const void* q, const void* k_cache,
                                           const void* k_scale, const void* v_cache,
                                           const void* v_scale, const void* length,
-                                          const void* start, void* out, int B, int H,
-                                          int S, int D, int layer, float scale,
+                                          const void* start, void* out, void* partial,
+                                          void* tickets, int B, int H, int S, int D,
+                                          int layer, int splits, int chunk, float scale,
                                           int dtype, int packed, void* stream) {
   return dispatch_start<false>(args(q, nullptr, nullptr, nullptr, nullptr, k_cache,
-                                    k_scale, v_cache, v_scale, length, start, out, B, H,
-                                    S, D, layer, scale),
+                                    k_scale, v_cache, v_scale, length, start, out, partial,
+                                    tickets, B, H, S, D, layer, splits, chunk, scale),
                                true, packed, dtype, stream);
 }

@@ -21,194 +21,662 @@
 // version's order, so the two agree bit for bit. This file must be built
 // without fast math (no -use_fast_math: x / sx is IEEE division).
 //
-// Bound on the H100: device-memory bytes. A decode call (rows = 1) reads
-// each weight byte once and does 2 operations per weight, about 4 per byte
-// at INT4; that is far below the ~20 flops per byte where the f32 units
+// Bound on the H100: device-memory bytes for a decode call. A call with
+// one row reads each weight byte once and does 2 operations per weight,
+// about 4 per byte at INT4, below the ~20 flops per byte where the f32 units
 // would become the limit. At GPT-2 1.5B: c_fc is a 5.12 MB INT4 tile plus
 // 1.28 MB of scales, 1.9 us at 3.35 TB/s; the INT8 lm_head is 80.4 MB,
 // 24 us; a w8a8 c_fc is 10.24 MB, 3.1 us, and a w8a8 B=1 step's 289 GEMVs
-// about 1.58 GB, 0.47 ms. (At 16-64 rows the w8a8 body's int32
-// multiply-adds, one instruction per product, would bound it before the
-// bytes; the int8 tensor cores would not.)
+// about 1.58 GB, 0.47 ms. At 16 rows and more the products come into it:
+// one CUDA-core multiply-add per weight and row would be 16 instructions
+// per weight for the batcher; the bf16 tensor cores do them for almost
+// nothing.
 //
-// Design against that bound: one thread per output column, so a warp reads
-// 32 neighbouring bytes of a weight row at once (one 32-byte sector); the
-// loop over K is unrolled so that each thread keeps eight row loads in
-// flight. The activations of the block's rows are staged in shared memory
-// kChunk packed rows at a time and read by all threads as a broadcast (for
-// w8a8 already quantized, as int). A thread keeps RT row accumulators in
-// registers (RT = 1 for a single row, else 8 with the rows tiled over
-// gridDim.y). To fill 132 SMs when N is small (1600 columns is 13 blocks),
-// gridDim.z splits the K range; each split writes its partial sums (f32,
-// or int32 for w8a8) and a second pass adds the splits in order and
-// applies the per-channel scale (and for w8a8 the row scales, which block
-// (0, y, 0) stores), so the result does not depend on the launch. Every
-// w8a8 block first reduces its rows' absmax over the whole of K (the TPU
-// kernel likewise quantizes x in every program): rows x K reads from L2,
-// against K x 128 weight bytes per block, and no extra launch.
+// Design of the weight-only bodies against that bound (the w8a8 body below
+// is PR 5's, unchanged):
+// - One launch per call. The grid is (row tiles, column tiles of 128,
+//   K splits); the host picks the split from the shapes alone
+//   (quant/kernels.py qmm_geometry) so that the card holds a few blocks per
+//   SM. Each block writes its partial sums, takes a ticket from a
+//   self-resetting counter per output tile, and the last block to arrive
+//   adds the splits in split order and applies the per-channel scale, so
+//   the result does not depend on the arrival order. (A cluster reducing
+//   through distributed shared memory was the other choice; it caps the
+//   splits at 8 or 16 and the 1.5B MLP c_proj takes 17.) The separate
+//   reduce launch of PR 2 is gone: 289 launches per 1.5B decode step.
+// - Weight tiles of 64 packed rows x 128 columns reach shared memory by
+//   16-byte cp.async in a ring of 3 stages (9 KB each, up to 27 KB in
+//   flight per block besides the scales), so the card keeps far more bytes
+//   in flight than PR 2's one-byte loads. (5 stages were no faster on the
+//   H100.) A row whose 128 bytes are not
+//   16-byte aligned (any N that is not a multiple of 16: the lm_head's
+//   50257, the tests' 150) is copied as the 9 aligned 16-byte pieces that
+//   cover it and read at its offset: the narrower path, picked by the
+//   address, not by failure. Group scales (G >= 8) are staged beside each
+//   tile with 4-byte copies, with a per-row index into them; a smaller G
+//   reads its scales from L2.
+// - x of the block's rows over its K range is read once into shared
+//   memory before the loop (while the first tiles are in flight).
+// - One row, or f32 x at any rows: CUDA cores. Each lane owns 4
+//   neighbouring columns (one 32-bit shared load of 4 weights), each of
+//   the 8 warps 8 of the tile's 64 rows, and the warps' sums are added in
+//   warp order at the end. f32 x stays on f32 FMAs (TF32 would break the
+//   2e-5 tolerance). Rows tile by 4.
+// - Two or more rows with bf16 x: tensor cores, mma.sync.m16n8k16 (bf16 in,
+//   f32 sums). Each warp dequantizes its 16 columns of the tile straight
+//   into B fragments (nibble or int8, times the group scale, rounded to
+//   bf16 as round_x does; per-channel weights are exact in bf16 and the
+//   scale comes at the end), and reuses them for every 16-row A tile of x
+//   in the block: 16 rows (the batcher's B=16 in one pass over the weight)
+//   or 64. Above 64 rows, the row blocks of one weight tile sit next to
+//   each other in launch order, so the weight is read from device memory
+//   about once and from L2 after that. bf16 products are exact in f32: only
+//   the order of the f32 sums differs from the plain version.
 //
-// What it leaves to a later PR: byte loads give each warp only 32 bytes per
-// load in flight, and the partial sums of a split launch add traffic. Four
-// columns per thread with 32-bit loads (N % 4 == 0 for every block linear),
-// __dp4a or the int8 tensor cores (mma.sync s8) for w8a8, wider rows on the
-// tensor cores for prefill, and one launch per layer for the three
-// projections are the next steps.
+// The w8a8 body (PR 5): one thread per output column reading one weight
+// byte per row, the block's rows of x quantized into shared memory kChunk
+// rows at a time, int32 row accumulators (8-row tiles over gridDim.y), and
+// K splits whose int32 partials a second pass adds and scales (block
+// (0, y, 0) stores the row scales); every block first reduces its rows'
+// absmax over the whole of K, as each TPU program re-quantizes x. Its
+// redesign (__dp4a or mma.sync s8, one launch) is the next one.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int kCols = 128;  // threads per block: one output column each
-constexpr int kChunk = 64;  // packed weight rows per shared-memory stage
+constexpr int kCols = 128;  // w8a8 body: threads per block, one output column each
+constexpr int kChunk = 64;  // w8a8 body: rows per shared-memory stage
+
+// The weight-only bodies.
+constexpr int kThreads = 256;         // 8 warps
+constexpr int kNT = 128;              // output columns per block
+constexpr int kKT = 64;               // packed weight rows per tile
+constexpr int kStages = 3;            // tiles in flight per block
+constexpr int kWS = kNT + 16;         // bytes per staged weight row (misaligned pieces)
+constexpr int kPieces = kWS / 16;     // 16-byte copies per staged row
+constexpr int kMaxGroupRows = 9;      // scale rows a tile touches: (kKT - 1) / G + 2, G >= 8
+constexpr int kXBytes = 32768;        // x in shared memory: CUDA cores, 16-row mma
+constexpr int kXBytesWide = 65536;    // 64-row mma
+constexpr int kMaxSmem = kStages * (kKT * kWS + 2 * kKT + 2 * kMaxGroupRows * kNT * 4) +
+                         kXBytesWide;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// The dequantized weight rounded to the activation dtype.
-__device__ __forceinline__ float round_as(float w, const float*) { return w; }
-__device__ __forceinline__ float round_as(float w, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(w));
+// Two dequantized weights rounded to the activation dtype (one packed
+// conversion for bf16; nothing for f32).
+__device__ __forceinline__ void round_pair(float&, float&, const float*) {}
+__device__ __forceinline__ void round_pair(float& a, float& b, const __nv_bfloat16*) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
+  a = __low2float(r);
+  b = __high2float(r);
 }
 
-// Sign-extends the low nibble of v.
-__device__ __forceinline__ int nibble(int v) { return ((v & 15) ^ 8) - 8; }
+// Weights as floats without a conversion instruction: a byte k in [0, 255]
+// placed under the exponent of 2^23 is the float 2^23 + k, exactly. So the
+// signed nibble n is (2^23 + (n ^ 8)) - (2^23 + 8), and the signed byte b
+// is (2^23 + (b ^ 0x80)) - (2^23 + 128). ``lanes`` holds four such k, one
+// per byte; byte_float picks byte i.
+__device__ __forceinline__ float byte_float(uint32_t lanes, int i, float bias) {
+  return __uint_as_float(__byte_perm(lanes, 0x4B000000u, 0x7540 + i)) - bias;
+}
+constexpr float kNibbleBias = 8388616.0f;  // 2^23 + 8
+constexpr float kByteBias = 8388736.0f;    // 2^23 + 128
+// The four low (high) nibbles of v, each xor 8, one per byte.
+__device__ __forceinline__ uint32_t low_nibbles(uint32_t v) {
+  return (v & 0x0F0F0F0Fu) ^ 0x08080808u;
+}
+__device__ __forceinline__ uint32_t high_nibbles(uint32_t v) {
+  return ((v >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+}
 
-// T: activation type. INT4: qw holds the half-split pack. PER_CHANNEL: one
-// scale group (G == K). RT: rows per thread.
-template <typename T, bool INT4, bool PER_CHANNEL, int RT>
-__global__ void __launch_bounds__(kCols)
-qmm_kernel(const T* __restrict__ x, const int8_t* __restrict__ qw,
-           const float* __restrict__ scale, float* __restrict__ part,
-           int rows, int K, int N, int G, int split_rows) {
-  const int n = blockIdx.x * kCols + threadIdx.x;
-  const int r0 = blockIdx.y * RT;
-  const int half = K / 2;
-  const int P = INT4 ? half : K;  // packed weight rows
-  const int p_begin = blockIdx.z * split_rows;
-  const int p_end = min(P, p_begin + split_rows);
-  const bool live = n < N;
+// Every pointer and size of one weight-only call. split_rows: packed rows
+// per K split, a multiple of kKT; splits is gridDim.z. part: (splits, rows,
+// N) f32 and tickets: one int32 at 0 per (row tile, column tile), unused
+// when splits == 1.
+struct QArgs {
+  const void* x;
+  const int8_t* qw;
+  const float* scale;
+  float* part;
+  int* tickets;
+  float* out;
+  int rows, K, N, G, split_rows;
+};
 
-  // x[r0 + r, p] for the stage's packed rows p; for INT4 also x[r0 + r, p + K/2].
-  __shared__ float xs[RT][INT4 ? 2 * kChunk : kChunk];
+// Scale rows per set staged with a tile (0: the scales are read from L2).
+__host__ __device__ __forceinline__ int group_rows(int K, int G) {
+  if (G == K || G < 8) return 0;
+  const int n = (kKT - 1) / G + 2;
+  return n < kMaxGroupRows ? n : kMaxGroupRows;
+}
 
-  float acc[RT];
-#pragma unroll
-  for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+__host__ __device__ __forceinline__ int stage_bytes(bool int4, int K, int G) {
+  const int gr = group_rows(K, G);
+  return kKT * kWS + (gr ? 2 * kKT + (int4 ? 2 : 1) * gr * kNT * 4 : 0);
+}
 
-  // Grouped scales: the current group of the low (and high) row, reloaded
-  // when the row crosses a group boundary (uniform over the block).
-  int g_lo = p_begin / G, g_hi = (p_begin + half) / G;
-  int next_lo = (g_lo + 1) * G, next_hi = (g_hi + 1) * G;
-  float s_lo = 0.f, s_hi = 0.f;
-  if (!PER_CHANNEL && live && p_begin < p_end) {
-    s_lo = scale[(int64_t)g_lo * N + n];
-    if (INT4) s_hi = scale[(int64_t)g_hi * N + n];
+// The ring of weight tiles of one block: columns [c0, c0 + kNT), packed
+// rows [p_begin, p_end) in tiles of kKT. A stage holds the tile's rows
+// (kWS bytes each, a row's first column at its 16-byte offset), then, for
+// staged group scales, each row's index into the stage's scale rows (low,
+// high) and the scale rows (low; high for INT4). Holds the sizes it needs
+// by value (a reference to the kernel's parameter would put it in local
+// memory).
+template <bool INT4>
+struct Tiles {
+  const int8_t* qw;
+  const float* scale;
+  unsigned char* smem;
+  int K, N, G, bytes, c0, ncols, p_begin, p_end, ntiles, half, gr;
+
+  __device__ __forceinline__ Tiles(const QArgs& a, unsigned char* s, int col0, int split)
+      : qw(a.qw), scale(a.scale), smem(s), K(a.K), N(a.N), G(a.G), c0(col0) {
+    half = K / 2;
+    const int P = INT4 ? half : K;
+    gr = group_rows(K, G);
+    bytes = stage_bytes(INT4, K, G);
+    ncols = min(kNT, N - c0);
+    p_begin = split * a.split_rows;
+    p_end = min(P, p_begin + a.split_rows);
+    ntiles = p_end > p_begin ? (p_end - p_begin + kKT - 1) / kKT : 0;
+  }
+  __device__ __forceinline__ unsigned char* stage(int t) const {
+    return smem + (t % kStages) * bytes;
+  }
+  __device__ __forceinline__ const int8_t* w(int t) const { return (const int8_t*)stage(t); }
+  __device__ __forceinline__ unsigned char* index(int t, int set) const {
+    return stage(t) + kKT * kWS + set * kKT;
+  }
+  __device__ __forceinline__ float* scales(int t, int set) const {
+    return (float*)(stage(t) + kKT * kWS + 2 * kKT) + set * gr * kNT;
+  }
+  // Byte offset of packed row p's first column in its staged row.
+  __device__ __forceinline__ int shift(int p) const {
+    return (int)((uintptr_t)(qw + (int64_t)p * N + c0) & 15);
   }
 
-  for (int pc = p_begin; pc < p_end; pc += kChunk) {
-    const int len = min(kChunk, p_end - pc);
-    __syncthreads();  // the previous stage's reads are done
-    for (int i = threadIdx.x; i < RT * len; i += kCols) {
-      const int r = i / len, c = i - r * len;
-      const bool ok = r0 + r < rows;
-      const int64_t xo = (int64_t)(r0 + r) * K + pc + c;
-      xs[r][c] = ok ? to_f32(x[xo]) : 0.f;
-      if (INT4) xs[r][kChunk + c] = ok ? to_f32(x[xo + half]) : 0.f;
-    }
-    __syncthreads();
-    if (!live) continue;
-    const int8_t* wp = qw + (int64_t)pc * N + n;
-#pragma unroll 8
-    for (int c = 0; c < len; ++c) {
-      const int b = wp[(int64_t)c * N];
-      const int p = pc + c;
-      float w_lo = (float)(INT4 ? nibble(b) : b);
-      float w_hi = INT4 ? (float)nibble(b >> 4) : 0.f;
-      if (!PER_CHANNEL) {
-        if (p == next_lo) {
-          ++g_lo;
-          next_lo += G;
-          s_lo = scale[(int64_t)g_lo * N + n];
-        }
-        w_lo = round_as(w_lo * s_lo, x);
-        if (INT4) {
-          if (p + half == next_hi) {
-            ++g_hi;
-            next_hi += G;
-            s_hi = scale[(int64_t)g_hi * N + n];
+  // Copy tile t into its stage; an empty group past the last tile keeps
+  // the wait counts uniform.
+  __device__ __forceinline__ void issue(int t) const {
+    if (t < ntiles) {
+      const int p0 = p_begin + t * kKT;
+      const int nr = min(kKT, p_end - p0);
+      unsigned char* st = stage(t);
+      const char* safe = (const char*)((uintptr_t)qw & ~(uintptr_t)15);
+      for (int c = threadIdx.x; c < kKT * kPieces; c += kThreads) {
+        const int r = c / kPieces, j = c - r * kPieces;
+        const char* row = (const char*)(qw + (int64_t)(p0 + r) * N + c0);
+        const int sh = (int)((uintptr_t)row & 15);
+        // Each piece holds a byte of the row, so it lies on a mapped page.
+        const bool ok = r < nr && 16 * j < sh + ncols;
+        zg2::cp_async16(st + r * kWS + 16 * j, ok ? row - sh + 16 * j : safe, ok);
+      }
+      if (gr) {
+        const int ngroups = K / G;
+        for (int set = 0; set < (INT4 ? 2 : 1); ++set) {
+          const int first = p0 + set * half;  // original row of the tile's first row
+          const int g0 = first / G;
+          const int g1 = (first + nr - 1) / G;
+          unsigned char* idx = index(t, set);
+          for (int r = threadIdx.x; r < kKT; r += kThreads)
+            idx[r] = r < nr ? (first + r) / G - g0 : 0;
+          float* sc = scales(t, set);
+          for (int c = threadIdx.x; c < gr * kNT; c += kThreads) {
+            const int g = g0 + c / kNT, col = c % kNT;
+            const bool ok = g <= g1 && g < ngroups && col < ncols;
+            zg2::cp_async4(sc + c, ok ? scale + (int64_t)g * N + c0 + col : scale, ok);
           }
-          w_hi = round_as(w_hi * s_hi, x);
         }
       }
+    }
+    zg2::cp_async_commit();
+  }
+
+  // The group scales of tile row r (original row p: low rows set 0, the
+  // high rows of an INT4 pack set 1) for the block's columns col .. col +
+  // NC - 1 (NC = 4: 16-byte aligned col), from the stage, or with small
+  // groups (not staged) from L2.
+  template <int NC>
+  __device__ __forceinline__ void group_scales(int t, int set, int r, int p, int col,
+                                               float* out) const {
+    if (gr) {
+      const float* sc = scales(t, set) + index(t, set)[r] * kNT + col;
+      if constexpr (NC == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(sc);
+        out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+      } else {
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        acc[r] += xs[r][c] * w_lo;
-        if (INT4) acc[r] += xs[r][kChunk + c] * w_hi;
+        for (int i = 0; i < NC; ++i) out[i] = sc[i];
+      }
+      return;
+    }
+    const int g = p / G;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      out[i] = c0 + col + i < N && g < K / G ? __ldg(scale + (int64_t)g * N + c0 + col + i)
+                                            : 0.f;
+  }
+  // Whether aligned runs of n tile rows share their group in both sets (n
+  // divides G and K / 2; tiles start at multiples of 64): the tensor-core
+  // body then looks a run's scale up once.
+  __device__ __forceinline__ bool shares(int n) const { return G % n == 0 && half % n == 0; }
+};
+
+// One output of this block's K range: the result of a one-split launch
+// (times the per-channel scale), else this split's partial sum.
+__device__ __forceinline__ void put(const QArgs& a, bool per_channel, int row, int col,
+                                    float v) {
+  if (row >= a.rows || col >= a.N) return;
+  if (gridDim.z == 1)
+    a.out[(int64_t)row * a.N + col] = per_channel ? v * a.scale[col] : v;
+  else
+    a.part[((int64_t)blockIdx.z * a.rows + row) * a.N + col] = v;
+}
+
+// After every put of the block: the last block of the output tile to
+// arrive adds the splits in split order and applies the per-channel scale.
+// Each thread owns U = NROWS * kNT / kThreads outputs and reads their
+// partials kZ splits at a time, so that U * kZ loads are in flight at once.
+template <int NROWS>
+__device__ __forceinline__ void finish(const QArgs& a, bool per_channel, int r0, int c0) {
+  constexpr int U = (NROWS * kNT + kThreads - 1) / kThreads;
+  constexpr int kZ = U >= 16 ? 2 : 8;
+  if (gridDim.z == 1) return;
+  if (!zg2::last_to_arrive(a.tickets + blockIdx.y * gridDim.x + blockIdx.x, gridDim.z))
+    return;
+  const int64_t total = (int64_t)a.rows * a.N;
+  const int splits = gridDim.z;
+  int64_t at[U];
+  bool ok[U];
+  float s[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int o = threadIdx.x + u * kThreads;
+    const int row = r0 + o / kNT, col = c0 + o % kNT;
+    ok[u] = o < NROWS * kNT && row < a.rows && col < a.N;
+    at[u] = ok[u] ? (int64_t)row * a.N + col : 0;
+    s[u] = 0.f;
+  }
+  for (int z0 = 0; z0 < splits; z0 += kZ) {
+    float v[kZ][U];
+#pragma unroll
+    for (int z = 0; z < kZ; ++z)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        v[z][u] = ok[u] && z0 + z < splits ? __ldcg(a.part + (z0 + z) * total + at[u]) : 0.f;
+#pragma unroll
+    for (int z = 0; z < kZ; ++z)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (z0 + z < splits) s[u] += v[z][u];
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (ok[u]) a.out[at[u]] = per_channel ? s[u] * a.scale[at[u] % a.N] : s[u];
+}
+
+// x rows [r0, r0 + nrows) over the packed rows [p_begin, p_end) into
+// shared memory as U (f32 or bf16), row stride ld: low rows at [0, sr),
+// for INT4 the high rows (p + K/2) at [sr, 2 sr); zeros past the rows and
+// the range. Loads go out kBatch at a time per thread, so that their
+// latencies overlap.
+template <bool INT4, typename T, typename U>
+__device__ __forceinline__ void stage_x(const QArgs& a, U* xs, int ld, int r0, int nrows,
+                                        int p_begin, int p_end) {
+  constexpr int kBatch = 8;
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
+  const T* x = static_cast<const T*>(a.x);
+  const int sr = a.split_rows;
+  const int width = INT4 ? 2 * sr : sr;
+  // 16 bytes at a time when every row and range starts on 16 bytes (K and
+  // K / 2 multiples of E; split_rows is a multiple of 64), else one element.
+  const bool vec = ((uintptr_t)x & 15) == 0 && a.K % E == 0 && (!INT4 || (a.K / 2) % E == 0);
+  const int step = vec ? E : 1;
+  const int total = nrows * width / step;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * kThreads) {
+    uint4 w[kBatch];  // 16 raw bytes, or one f32 in .x
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      const int r = i * step / width, j = i * step - r * width;
+      const bool high = INT4 && j >= sr;
+      const int p = p_begin + (high ? j - sr : j);
+      const int64_t at = (int64_t)(r0 + r) * a.K + p + (high ? a.K / 2 : 0);
+      // A 16-byte piece is wholly inside or wholly past the range: p_end is
+      // P or a multiple of 64, and P is a multiple of E.
+      const bool ok = i < total && r0 + r < a.rows && p < p_end;
+      w[u] = make_uint4(0, 0, 0, 0);
+      if (vec && ok)
+        w[u] = __ldg(reinterpret_cast<const uint4*>(x + at));
+      else if (ok)
+        w[u].x = __float_as_uint(to_f32(x[at]));
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i >= total) break;
+      const int r = i * step / width, j = i * step - r * width;
+      const T* e = reinterpret_cast<const T*>(&w[u]);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        if (k >= step) break;
+        const float v = vec ? to_f32(e[k]) : __uint_as_float(w[u].x);
+        if constexpr (std::is_same<U, float>::value)
+          xs[r * ld + j + k] = v;
+        else
+          xs[r * ld + j + k] = __float2bfloat16(v);  // exact: x is bf16
       }
     }
   }
-  if (!live) return;
-  // One split: the final result. Several: this split's partial sums.
-  const float s = (PER_CHANNEL && gridDim.z == 1) ? scale[n] : 1.f;
+}
+
+// CUDA-core body: one row (RT = 1), or f32 x in row tiles of RT = 4.
+template <typename T, bool INT4, bool PER_CHANNEL, int RT>
+__global__ void __launch_bounds__(kThreads, 2) qmm_simt_kernel(const QArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * RT, c0 = blockIdx.y * kNT;
+  const Tiles<INT4> tiles(a, smem, c0, blockIdx.z);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) tiles.issue(t);
+  const int ld = INT4 ? 2 * a.split_rows : a.split_rows;
+  float* xs = (float*)(smem + kStages * tiles.bytes);
+  stage_x<INT4, T>(a, xs, ld, r0, RT, tiles.p_begin, tiles.p_end);
+
+  float acc[RT][4];
 #pragma unroll
   for (int r = 0; r < RT; ++r)
-    if (r0 + r < rows)
-      part[((int64_t)blockIdx.z * rows + r0 + r) * N + n] = acc[r] * s;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+
+  for (int t = 0; t < tiles.ntiles; ++t) {
+    tiles.issue(t + kStages - 1);
+    zg2::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int p0 = tiles.p_begin + t * kKT;
+    const int nr = min(kKT, tiles.p_end - p0);
+    const int8_t* w = tiles.w(t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = warp * 8 + j;  // the warp's rows of the tile
+      if (r >= nr) break;
+      const int p = p0 + r;
+      const int sh = tiles.shift(p);
+      const int8_t* wr = w + r * kWS + sh + 4 * lane;
+      uint32_t v;  // the 4 weight bytes of columns 4 lane .. 4 lane + 3
+      if ((sh & 3) == 0)
+        v = *reinterpret_cast<const uint32_t*>(wr);
+      else
+        v = (uint32_t)(uint8_t)wr[0] | (uint32_t)(uint8_t)wr[1] << 8 |
+            (uint32_t)(uint8_t)wr[2] << 16 | (uint32_t)(uint8_t)wr[3] << 24;
+      const int xo = p - tiles.p_begin;
+      float xl[RT], xh[RT];
+#pragma unroll
+      for (int rr = 0; rr < RT; ++rr) {
+        xl[rr] = xs[rr * ld + xo];
+        xh[rr] = INT4 ? xs[rr * ld + a.split_rows + xo] : 0.f;
+      }
+      float sl[4], sh4[4];
+      if (!PER_CHANNEL) {
+        tiles.template group_scales<4>(t, 0, r, p, 4 * lane, sl);
+        if (INT4) tiles.template group_scales<4>(t, 1, r, p + tiles.half, 4 * lane, sh4);
+      }
+      // Columns 4 lane + i: the low rows' weights, and the high rows' of an
+      // INT4 pack.
+      float wl[4], wh[4];
+      const uint32_t lo = INT4 ? low_nibbles(v) : v ^ 0x80808080u;
+      const uint32_t hi = INT4 ? high_nibbles(v) : 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wl[i] = byte_float(lo, i, INT4 ? kNibbleBias : kByteBias);
+        wh[i] = INT4 ? byte_float(hi, i, kNibbleBias) : 0.f;
+        if (!PER_CHANNEL) {
+          wl[i] *= sl[i];
+          if (INT4) wh[i] *= sh4[i];
+        }
+      }
+      if (!PER_CHANNEL) {
+        round_pair(wl[0], wl[1], (const T*)nullptr);
+        round_pair(wl[2], wl[3], (const T*)nullptr);
+        if (INT4) {
+          round_pair(wh[0], wh[1], (const T*)nullptr);
+          round_pair(wh[2], wh[3], (const T*)nullptr);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int rr = 0; rr < RT; ++rr) {
+          acc[rr][i] += xl[rr] * wl[i];
+          if (INT4) acc[rr][i] += xh[rr] * wh[i];
+        }
+    }
+    __syncthreads();  // the stage is free for the copy issued next
+  }
+  zg2::cp_async_wait<0>();
+  __syncthreads();
+
+  // The warps' sums, added in warp order (the stages are free now).
+  float* red = (float*)smem;
+#pragma unroll
+  for (int rr = 0; rr < RT; ++rr)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[(warp * RT + rr) * kNT + 4 * lane + i] = acc[rr][i];
+  __syncthreads();
+  for (int o = threadIdx.x; o < RT * kNT; o += kThreads) {
+    const int rr = o / kNT, col = o % kNT;
+    float v = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kThreads / 32; ++wi) v += red[(wi * RT + rr) * kNT + col];
+    put(a, PER_CHANNEL, r0 + rr, c0 + col, v);
+  }
+  finish<RT>(a, PER_CHANNEL, r0, c0);
 }
 
-// out[r, n] = sum over splits in order, times the per-channel scale.
-template <bool PER_CHANNEL>
-__global__ void qmm_reduce_kernel(const float* __restrict__ part,
-                                  const float* __restrict__ scale,
-                                  float* __restrict__ out, int rows, int N,
-                                  int splits) {
-  const int64_t total = (int64_t)rows * N;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[z * total + i];
-  out[i] = PER_CHANNEL ? s * scale[i % N] : s;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <typename T, bool INT4, bool PER_CHANNEL>
-cudaError_t launch(const void* x, const void* qw, const void* scale, void* part,
-                   void* out, int rows, int K, int N, int G, int splits,
-                   cudaStream_t stream) {
-  const int P = INT4 ? K / 2 : K;
-  const int split_rows = (P + splits - 1) / splits;
-  const int rt = rows == 1 ? 1 : 8;
-  const dim3 grid((N + kCols - 1) / kCols, (rows + rt - 1) / rt, splits);
-  float* dst = (float*)(splits == 1 ? out : part);
-  if (rt == 1)
-    qmm_kernel<T, INT4, PER_CHANNEL, 1><<<grid, kCols, 0, stream>>>(
-        (const T*)x, (const int8_t*)qw, (const float*)scale, dst, rows, K, N, G,
-        split_rows);
-  else
-    qmm_kernel<T, INT4, PER_CHANNEL, 8><<<grid, kCols, 0, stream>>>(
-        (const T*)x, (const int8_t*)qw, (const float*)scale, dst, rows, K, N, G,
-        split_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const int64_t total = (int64_t)rows * N;
-  qmm_reduce_kernel<PER_CHANNEL><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      (const float*)part, (const float*)scale, (float*)out, rows, N, splits);
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Tensor-core body: bf16 x, MT 16-row tiles per block. Warp w owns the
+// tile's columns [16 w, 16 w + 16) as two 8-column fragments.
+template <bool INT4, bool PER_CHANNEL, int MT>
+__global__ void __launch_bounds__(kThreads, 2) qmm_mma_kernel(const QArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;  // fragment row group, thread in group
+  const int r0 = blockIdx.x * 16 * MT, c0 = blockIdx.y * kNT;
+  const Tiles<INT4> tiles(a, smem, c0, blockIdx.z);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) tiles.issue(t);
+  // Row stride of x: (ld / 2) % 32 == 4 words, so the 8 row groups of a
+  // fragment load fall in distinct banks.
+  const int ld = (INT4 ? 2 * a.split_rows : a.split_rows) + 8;
+  __nv_bfloat16* xs = (__nv_bfloat16*)(smem + kStages * tiles.bytes);
+  stage_x<INT4, __nv_bfloat16>(a, xs, ld, r0, 16 * MT, tiles.p_begin, tiles.p_end);
+  const int m_tiles = min(MT, (a.rows - r0 + 15) / 16);
+
+  float acc[MT][2][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][f][i] = 0.f;
+
+  for (int t = 0; t < tiles.ntiles; ++t) {
+    tiles.issue(t + kStages - 1);
+    zg2::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int p0 = tiles.p_begin + t * kKT;
+    const int nr = min(kKT, tiles.p_end - p0);
+    const int8_t* w = tiles.w(t);
+#pragma unroll
+    for (int s = 0; s < kKT / 16; ++s) {
+      if (16 * s >= nr) break;
+      // Fragment rows of this k step: 2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9.
+      int rows4[4] = {16 * s + 2 * tq, 16 * s + 2 * tq + 1, 16 * s + 2 * tq + 8,
+                      16 * s + 2 * tq + 9};
+      int sh[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sh[e] = tiles.shift(p0 + rows4[e]);
+      const bool share = tiles.shares(2), quad = tiles.shares(16);
+      uint32_t blo[2][2], bhi[2][2];
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int col = warp * 16 + f * 8 + g;
+        float lo[4], hi[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t b = (uint8_t)w[rows4[e] * kWS + sh[e] + col];
+          lo[e] = byte_float(INT4 ? low_nibbles(b) : b ^ 0x80u, 0,
+                             INT4 ? kNibbleBias : kByteBias);
+          hi[e] = INT4 ? byte_float(high_nibbles(b), 0, kNibbleBias) : 0.f;
+        }
+        if (!PER_CHANNEL) {
+          // The fragment's rows 2 tq, 2 tq + 1, 2 tq + 8 and 2 tq + 9 share a
+          // group when 16 divides G (and K / 2 for INT4), a pair when 2 does;
+          // otherwise each row looks its own up.
+          float sc[2][4];
+#pragma unroll
+          for (int set = 0; set < (INT4 ? 2 : 1); ++set) {
+            const int off = set * tiles.half;
+            tiles.template group_scales<1>(t, set, rows4[0], p0 + rows4[0] + off, col,
+                                           &sc[set][0]);
+            if (quad) {
+              sc[set][1] = sc[set][2] = sc[set][3] = sc[set][0];
+            } else {
+              tiles.template group_scales<1>(t, set, rows4[2], p0 + rows4[2] + off, col,
+                                             &sc[set][2]);
+#pragma unroll
+              for (int e = 0; e < 4; e += 2) {
+                if (share)
+                  sc[set][e + 1] = sc[set][e];
+                else
+                  tiles.template group_scales<1>(t, set, rows4[e + 1],
+                                                 p0 + rows4[e + 1] + off, col, &sc[set][e + 1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            lo[e] *= sc[0][e];
+            if (INT4) hi[e] *= sc[1][e];
+          }
+        }
+        blo[f][0] = pack_bf16(lo[0], lo[1]);
+        blo[f][1] = pack_bf16(lo[2], lo[3]);
+        if (INT4) {
+          bhi[f][0] = pack_bf16(hi[0], hi[1]);
+          bhi[f][1] = pack_bf16(hi[2], hi[3]);
+        }
+      }
+      const int k = p0 - tiles.p_begin + 16 * s + 2 * tq;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m >= m_tiles) break;
+        const __nv_bfloat16* xa = xs + (m * 16 + g) * ld + k;
+        uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(xa),
+                          *reinterpret_cast<const uint32_t*>(xa + 8 * ld),
+                          *reinterpret_cast<const uint32_t*>(xa + 8),
+                          *reinterpret_cast<const uint32_t*>(xa + 8 * ld + 8)};
+        mma_bf16(acc[m][0], af, blo[0]);
+        mma_bf16(acc[m][1], af, blo[1]);
+        if (INT4) {
+          const __nv_bfloat16* xh = xa + a.split_rows;
+          uint32_t ah[4] = {*reinterpret_cast<const uint32_t*>(xh),
+                            *reinterpret_cast<const uint32_t*>(xh + 8 * ld),
+                            *reinterpret_cast<const uint32_t*>(xh + 8),
+                            *reinterpret_cast<const uint32_t*>(xh + 8 * ld + 8)};
+          mma_bf16(acc[m][0], ah, bhi[0]);
+          mma_bf16(acc[m][1], ah, bhi[1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  zg2::cp_async_wait<0>();
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m >= m_tiles) break;
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const int row = r0 + m * 16 + g;
+      const int col = c0 + warp * 16 + f * 8 + 2 * tq;
+      put(a, PER_CHANNEL, row, col, acc[m][f][0]);
+      put(a, PER_CHANNEL, row, col + 1, acc[m][f][1]);
+      put(a, PER_CHANNEL, row + 8, col, acc[m][f][2]);
+      put(a, PER_CHANNEL, row + 8, col + 1, acc[m][f][3]);
+    }
+  }
+  finish<16 * MT>(a, PER_CHANNEL, r0, c0);
+}
+
+template <void (*Kernel)(QArgs)>
+cudaError_t launch_kernel(dim3 grid, int smem, const QArgs& a, cudaStream_t stream) {
+  // Above 48 KB a block's dynamic shared memory needs the attribute: set
+  // once per body, to the most any call asks for.
+  static const cudaError_t allowed =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (allowed != cudaSuccess) return allowed;
+  Kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// The body for (T, rows): CUDA cores for f32 x or one row (row tile 1 or
+// 4), tensor cores for bf16 x and two or more rows (row tile 16 or 64).
 template <typename T>
-cudaError_t dispatch(const void* x, const void* qw, const void* scale, void* part,
-                     void* out, int rows, int K, int N, int G, int splits, int int4,
-                     cudaStream_t stream) {
-  const bool per_channel = G == K;
+int row_tile(int rows) {
+  if (std::is_same<T, __nv_bfloat16>::value && rows > 1) return rows <= 16 ? 16 : 64;
+  return rows == 1 ? 1 : 4;
+}
+
+template <typename T, bool INT4, bool PER_CHANNEL>
+cudaError_t launch(const QArgs& a, int splits, cudaStream_t stream) {
+  const int rt = row_tile<T>(a.rows);
+  const bool mma = rt >= 16;
+  const int width = INT4 ? 2 * a.split_rows : a.split_rows;
+  const int x_bytes = mma ? rt * (width + 8) * 2 : rt * width * 4;
+  if (x_bytes > (rt == 64 ? kXBytesWide : kXBytes)) return cudaErrorInvalidValue;
+  const int smem = kStages * stage_bytes(INT4, a.K, a.G) + x_bytes;
+  const dim3 grid((a.rows + rt - 1) / rt, (a.N + kNT - 1) / kNT, splits);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (rt == 16)
+      return launch_kernel<qmm_mma_kernel<INT4, PER_CHANNEL, 1>>(grid, smem, a, stream);
+    if (rt == 64)
+      return launch_kernel<qmm_mma_kernel<INT4, PER_CHANNEL, 4>>(grid, smem, a, stream);
+  }
+  if (rt == 1)
+    return launch_kernel<qmm_simt_kernel<T, INT4, PER_CHANNEL, 1>>(grid, smem, a, stream);
+  return launch_kernel<qmm_simt_kernel<T, INT4, PER_CHANNEL, 4>>(grid, smem, a, stream);
+}
+
+template <typename T>
+cudaError_t dispatch(const QArgs& a, int splits, int int4, cudaStream_t stream) {
+  const bool per_channel = a.G == a.K;
   if (int4)
-    return per_channel
-        ? launch<T, true, true>(x, qw, scale, part, out, rows, K, N, G, splits, stream)
-        : launch<T, true, false>(x, qw, scale, part, out, rows, K, N, G, splits, stream);
-  return per_channel
-      ? launch<T, false, true>(x, qw, scale, part, out, rows, K, N, G, splits, stream)
-      : launch<T, false, false>(x, qw, scale, part, out, rows, K, N, G, splits, stream);
+    return per_channel ? launch<T, true, true>(a, splits, stream)
+                       : launch<T, true, false>(a, splits, stream);
+  return per_channel ? launch<T, false, true>(a, splits, stream)
+                     : launch<T, false, false>(a, splits, stream);
 }
 
 // The w8a8 body: per-channel INT8 weights, x quantized per row. RT: rows
@@ -337,20 +805,29 @@ cudaError_t launch_w8a8(const void* x, const void* qw, const void* scale, void* 
 
 }  // namespace
 
-// dtype code of x: 0 = float32, 1 = bfloat16. G: rows per scale group (K
-// for per-channel). part: (splits, rows, N) f32 scratch, unused when
-// splits == 1. Returns a cudaError_t.
-extern "C" int zg2_qmm(const void* x, const void* qw, const void* scale,
-                       void* part, void* out, int rows, int K, int N, int G,
-                       int splits, int int4, int dtype, void* stream) {
+// The weight-only body. dtype code of x: 0 = float32, 1 = bfloat16. G: rows
+// per scale group (K for per-channel). splits x split_rows: the K split
+// (packed rows; split_rows a multiple of 64 and the splits covering K or
+// K/2 with none empty); row_tile: the rows per block, which must be the
+// body's (1 or 4 for the CUDA cores, 16 or 64 for the tensor cores). part:
+// (splits, rows, N) f32 scratch and tickets: one int32 at 0 per (row tile,
+// column tile of 128), unused when splits == 1. Returns a cudaError_t.
+extern "C" int zg2_qmm(const void* x, const void* qw, const void* scale, void* part,
+                       void* tickets, void* out, int rows, int K, int N, int G, int splits,
+                       int split_rows, int rtile, int int4, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (rows < 1 || K < 1 || N < 1 || G < 1 || K % G || splits < 1 || (int4 && K % 2))
+  if (rows < 1 || K < 1 || N < 1 || G < 1 || K % G || (int4 && K % 2) || splits < 1 ||
+      split_rows < kKT || split_rows % kKT || (splits > 1 && (!part || !tickets)))
     return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch<float>(x, qw, scale, part, out, rows, K, N, G, splits, int4, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, qw, scale, part, out, rows, K, N, G, splits,
-                                   int4, st);
+  const int P = int4 ? K / 2 : K;
+  if ((int64_t)splits * split_rows < P || (int64_t)(splits - 1) * split_rows >= P)
+    return cudaErrorInvalidValue;
+  const QArgs a{x, (const int8_t*)qw, (const float*)scale, (float*)part, (int*)tickets,
+                (float*)out, rows, K, N, G, split_rows};
+  if (dtype == 0 && rtile == row_tile<float>(rows))
+    return dispatch<float>(a, splits, int4, st);
+  if (dtype == 1 && rtile == row_tile<__nv_bfloat16>(rows))
+    return dispatch<__nv_bfloat16>(a, splits, int4, st);
   return cudaErrorInvalidValue;
 }
 

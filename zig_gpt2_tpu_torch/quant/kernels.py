@@ -35,6 +35,8 @@ passes the view ``qw[idx]``, which copies nothing.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from zig_gpt2_tpu_torch.ops import _build
@@ -108,8 +110,9 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
     scale: (K/G, N) float32, G = K for per-channel. All contiguous, on one
     device. ``w8a8`` takes the s8 x s8 body for a per-channel INT8 weight
     (rows <= W8A8_MAX_ROWS) and is ignored for any other weight. Returns
-    (rows, N) float32. Launches count in ``qmm.launches``, w8a8 launches
-    in ``qmm.w8a8_launches``."""
+    (rows, N) float32. One launch per call (the weight-only body's K split
+    and its combine are in the kernel, ``qmm_geometry``). Launches count in
+    ``qmm.launches``, w8a8 launches in ``qmm.w8a8_launches``."""
     if x.device.type == "cpu":
         return qmm_plain(x, qw, scale, int4=int4, w8a8=w8a8)
     if x.device.type != "cuda":
@@ -136,10 +139,10 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
     for name, t in (("x", x), ("qw", qw), ("scale", scale)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    splits = _k_splits(rows, n, kp)
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if w8a8:
+        splits = _k_splits(rows, n, kp)
         # A split launch keeps the int32 partial sums and the row scales
         # for its reduce pass, which applies them; one split needs neither.
         partial, sx = out, out
@@ -153,11 +156,15 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
         _build.check(err, "qmm (w8a8)")
         qmm.w8a8_launches += 1
         return out
-    partial = (torch.empty((splits, rows, n), dtype=torch.float32, device=x.device)
-               if splits > 1 else out)
+    geo = qmm_geometry(rows, k, n, int4, x.dtype)
+    scratch = (None, None)
+    if geo.splits > 1:  # held until the launch is enqueued
+        scratch = (torch.empty((geo.splits, rows, n), dtype=torch.float32, device=x.device),
+                   _build.tickets(x.device, geo.tiles))
+    partial, tickets = (None if t is None else t.data_ptr() for t in scratch)
     err = _build.library().zg2_qmm(
-        x.data_ptr(), qw.data_ptr(), scale.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), rows, k, n, k // groups, splits, int(int4),
+        x.data_ptr(), qw.data_ptr(), scale.data_ptr(), partial, tickets, out.data_ptr(),
+        rows, k, n, k // groups, geo.splits, geo.split_rows, geo.row_tile, int(int4),
         _DTYPE_CODES[x.dtype], stream)
     _build.check(err, "qmm")
     qmm.launches += 1
@@ -212,7 +219,7 @@ def wmm(x, w):
 
 wmm.launches = 0
 
-# Launch geometry shared with csrc/qmm.cu and csrc/wmm.cu: one thread per
+# Launch geometry of csrc/wmm.cu and of qmm's w8a8 body: one thread per
 # output column, _QMM_COLS columns per block, row tiles of 8 (1 for a
 # single row).
 _QMM_COLS = 128
@@ -221,10 +228,64 @@ _MIN_SPLIT_ROWS = 32      # packed weight rows per K split, at least
 
 
 def _k_splits(rows: int, n: int, kp: int) -> int:
-    """How many K ranges a kernel splits the weight into (each block
-    sums one range; a second pass adds the ranges in order, so the result
-    does not depend on the launch). Enough blocks to fill the card, and
-    no range shorter than _MIN_SPLIT_ROWS packed rows."""
+    """How many K ranges the w8a8 body or wmm splits the weight into (each
+    block sums one range; a second pass adds the ranges in order, so the
+    result does not depend on the launch). Enough blocks to fill the card,
+    and no range shorter than _MIN_SPLIT_ROWS packed rows."""
     tiles = -(-n // _QMM_COLS) * (1 if rows == 1 else -(-rows // 8))
     want = -(-_TARGET_BLOCKS // tiles)
     return max(1, min(want, kp // _MIN_SPLIT_ROWS))
+
+
+# Launch geometry of qmm's weight-only bodies (csrc/qmm.cu): blocks of
+# _QMM_COLS columns and a row tile of x; K split into ranges of split_rows
+# packed rows (a multiple of the kernel's _QMM_TILE_ROWS-row tiles), merged
+# in split order by the last block of each output tile.
+_QMM_TILE_ROWS = 64
+_QMM_SLOTS = 2 * 132        # two resident blocks on each of the H100's 132 SMs
+_QMM_X_BYTES = 32768        # x of a block's range in shared memory
+_QMM_X_BYTES_WIDE = 65536   # ... for the 64-row tensor-core body
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmGeometry:
+    """One weight-only qmm launch: ``row_tile`` rows of x per block (1 or
+    4 on the CUDA cores, 16 or 64 on the tensor cores), ``tiles`` output
+    tiles (row tiles x column tiles; one ticket each), and the K split:
+    ``splits`` ranges of ``split_rows`` packed weight rows."""
+    row_tile: int
+    tiles: int
+    splits: int
+    split_rows: int
+
+
+def qmm_geometry(rows: int, k: int, n: int, int4: bool, dtype) -> QmmGeometry:
+    """The weight-only launch for x (rows, K) of ``dtype`` and an N-column
+    weight, from these shapes alone. Two or more bf16 rows take the tensor
+    cores (16-row tiles up to 16 rows, else 64), one row or f32 x the CUDA
+    cores (1 row, else tiles of 4). The K split aims at _QMM_SLOTS blocks,
+    in ranges that are whole tiles; with more than one row it keeps the
+    partial sums (4 bytes per row, column and split) below the weight's
+    bytes; and a range's x must fit the body's shared memory."""
+    if min(rows, k, n) < 1:
+        raise ValueError(f"qmm_geometry: rows, K and N must be positive, got {rows, k, n}")
+    if dtype == torch.bfloat16 and rows > 1:
+        row_tile = 16 if rows <= 16 else 64
+    else:
+        row_tile = 1 if rows == 1 else 4
+    width = 2 if int4 else 1
+    if row_tile >= 16:  # bf16 x, rows padded by 8 elements
+        budget = _QMM_X_BYTES_WIDE if row_tile == 64 else _QMM_X_BYTES
+        cap = (budget // (2 * row_tile) - 8) // width
+    else:  # f32 x
+        cap = _QMM_X_BYTES // (4 * row_tile * width)
+    cap = cap // _QMM_TILE_ROWS * _QMM_TILE_ROWS
+    p = k // 2 if int4 else k
+    tiles = -(-rows // row_tile) * -(-n // _QMM_COLS)
+    want = -(-_QMM_SLOTS // tiles)
+    if rows > 1:
+        want = min(want, max(1, p // (4 * rows)))
+    split_rows = -(-p // want)
+    split_rows = -(-split_rows // _QMM_TILE_ROWS) * _QMM_TILE_ROWS
+    split_rows = min(split_rows, cap)
+    return QmmGeometry(row_tile, tiles, -(-p // split_rows), split_rows)

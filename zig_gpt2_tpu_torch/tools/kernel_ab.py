@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the decode-attention kernels of one source tree, on
-inputs that are the same for every tree, so that two trees compare.
+"""Device time of the decode-attention kernels and of the dequant GEMV
+``qmm`` of one source tree, on inputs that are the same for every tree, so
+that two trees compare.
 
     python3 zig_gpt2_tpu_torch/tools/kernel_ab.py [--root DIR] [--label NAME]
 
@@ -8,8 +9,8 @@ inputs that are the same for every tree, so that two trees compare.
 the one holding this script); an older checkout works as long as its
 wrappers take ``start=``. The kernels are built from that tree's sources.
 To compare two trees on one card, run them in one session in the order
-A, B, B, A. Prints the tree's attention kernels' register counts (from
-its ``ptxas -v`` log), then one JSON line per kernel: the device time per
+A, B, B, A. Prints the tree's attention and qmm kernels' register counts
+(from its ``ptxas -v`` log), then one JSON line per kernel: the device time per
 call by CUDA-graph replay (``--repeats`` readings of ``10 L`` calls
 rotating over the L layers), the error against the plain version and a
 checksum of the inputs. The inputs are drawn on the card from fixed seeds:
@@ -19,13 +20,19 @@ Kernels, at the serving paths' shapes: the unpacked INT8 ring kernel (B=16,
 R=1025, 1.5B shapes: 48 layers, 25 heads, bf16 q, 1023 old rows per lane),
 the unpacked float ring kernel (124M shapes, f32), and, where the tree has
 the packed layout, the packed INT8 ring kernel on the same rows packed in
-pairs (13 rows with the phantom head); then each INT8 kernel at B=1 over
-the prefix rows of lane 0 (the engine's shape).
+pairs (13 rows with the phantom head); then each of them at B=1 over the
+prefix rows of lane 0 (the engine's shape). ``qmm`` at GPT-2 1.5B's
+INT4 block linears (1600x1600 G=32, 1600x6400 G=32, 6400x1600 G=128,
+rotating over 48 layers) and its INT8 per-channel lm_head (1600x50257),
+bf16 x of 1 and 16 rows (the engine's and the batcher's), with a line per
+shape and the sum over one decode step's 289 calls (``--kernels`` picks
+``attention``, ``qmm`` or both).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import re
 import shutil
@@ -147,12 +154,12 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(here), help="checkout to time")
     ap.add_argument("--label", default=None, help="name printed with each line")
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--kernels", default="attention,qmm",
+                    help="comma-separated: attention, qmm")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     label = args.label or root.name
     sys.path.insert(0, str(root))
-    import inspect
-
     import torch
 
     if not torch.cuda.is_available():
@@ -165,10 +172,25 @@ def main(argv=None) -> int:
         print(f"kernel_ab: imported {att.__file__}, not from {root}", file=sys.stderr)
         return 1
     _, secs, log = _build.build()
-    print(f"{label}: build {secs:.1f} s; attention kernels' registers:")
+    print(f"{label}: build {secs:.1f} s; attention and qmm kernels' registers:")
     for name, used in register_report(log):
-        if "decode_attention" in name:
+        if "decode_attention" in name or ("qmm" in name and "w8a8" not in name):
             print(f"  {label}: {name}: {used}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    kinds = set(args.kernels.split(","))
+    if "attention" in kinds:
+        time_attention(att, label, card, args.repeats, torch)
+    if "qmm" in kinds:
+        time_qmm(label, card, args.repeats, torch)
+    return 0
+
+
+def time_attention(att, label, card, repeats, torch):
+    """Each attention case per call, ``repeats`` readings of ``10 L`` calls
+    rotating over the L layers: the ring at B=16, then lane 0 of each at
+    B=1 over the prefix rows."""
     has_packed = "packed" in inspect.signature(att.decode_attention_quant_deferred).parameters
 
     start, length = ring_lanes(torch)
@@ -190,24 +212,59 @@ def main(argv=None) -> int:
     one = [(f"{name.replace(' ring', '')} B=1 prefix", kernel, plain,
             [t[:1].contiguous() if t.dim() <= 3 else t[:, :1].contiguous() for t in ops], L,
             {**kw, "start": None})
-           for name, kernel, plain, ops, L, kw in cases if "int8" in name]
+           for name, kernel, plain, ops, L, kw in cases]
     cases += one
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip()
     for name, kernel, plain, ops, L, kw in cases:
         kw = {"start": start, **kw}
         lanes = length[:ops[0].shape[0]]
         err = (kernel(*ops, lanes, layer=0, **kw).float()
                - plain(*ops, lanes, layer=0, **kw).float()).abs().max().item()
         times = [time_us(lambda i: kernel(*ops, lanes, layer=i % L, **kw), 10 * L, torch)
-                 for _ in range(args.repeats)]
+                 for _ in range(repeats)]
         print(json.dumps({"tree": label, "kernel": name, "B": ops[0].shape[0], "R": R,
                           "old_rows": N,
                           "us": times, "us_median": statistics.median(times),
                           "max_abs_err_vs_plain": err,
                           "input_checksum": checksum(ops, torch), "card": card}))
-    return 0
+
+
+# (label, K, N, INT4, group size, calls per decode step) at GPT-2 1.5B.
+QMM_SHAPES = (("attn 1600x1600 int4", 1600, 1600, True, 32, 4 * 48),
+              ("mlp.c_fc 1600x6400 int4", 1600, 6400, True, 32, 48),
+              ("mlp.c_proj 6400x1600 int4", 6400, 1600, True, 128, 48),
+              ("lm_head 1600x50257 int8", 1600, 50257, False, 1600, 1))
+
+
+def time_qmm(label, card, repeats, torch):
+    """qmm per call at each shape of ``QMM_SHAPES`` and per decode step,
+    bf16 x of 1 and 16 rows. Block linears rotate over 48 layers of random
+    packed bytes (every byte is a valid INT4 pair) and scales, so that the
+    weights come from HBM; the lm_head is one 80 MB weight."""
+    from zig_gpt2_tpu_torch.quant import kernels as qk
+
+    step = {}
+    for name, k, n, int4, group, calls in QMM_SHAPES:
+        L = 48 if calls > 1 else 1
+        g = torch.Generator(device="cuda").manual_seed(k + n)
+        qw = torch.randint(-128 if int4 else -127, 128, (L, k // 2 if int4 else k, n),
+                           device="cuda", generator=g, dtype=torch.int8)
+        scale = torch.rand(L, k // group, n, device="cuda", generator=g) * 0.01 + 1e-3
+        for rows in (1, 16):
+            x = torch.randn(rows, k, device="cuda", generator=g).to(torch.bfloat16)
+            err = (qk.qmm(x, qw[0], scale[0], int4=int4)
+                   - qk.qmm_plain(x, qw[0], scale[0], int4=int4)).abs().max().item()
+            times = [time_us(lambda i: qk.qmm(x, qw[i % L], scale[i % L], int4=int4),
+                             max(8 * L, 64), torch) for _ in range(repeats)]
+            us = statistics.median(times)
+            step[rows] = step.get(rows, 0.0) + calls * us
+            print(json.dumps({"tree": label, "kernel": f"qmm {name}", "rows": rows, "us": times,
+                              "us_median": us, "max_abs_err_vs_plain": err,
+                              "input_checksum": checksum([qw[0], scale[0], x], torch),
+                              "card": card}))
+        del qw, scale
+    for rows, us in step.items():
+        print(json.dumps({"tree": label, "kernel": "qmm per 1.5B decode step (289 calls)",
+                          "rows": rows, "ms": us / 1e3, "card": card}))
 
 
 if __name__ == "__main__":
