@@ -23,9 +23,12 @@ prints no result line:
                1024}, f32 and bf16 q, layers 0 and last; and the ring kernel
                over per-lane-rotated caches equals the prefix kernel over the
                linear caches bit for bit.
-6. sampler   - the Gumbel-max sampler kernel against its plain version,
-               B=4, V=50257, with and without a top-k/top-p threshold:
-               identical ids.
+6. sampler   - the Gumbel-max sampler kernel (split over the vocab)
+               against its plain version, B 1, 4, 16 and 17 x V 7, 1000 and
+               50257, f32 and bf16, with and without a top-k/top-p threshold:
+               identical ids, with and without ``return_max``, whose z* is the
+               plain version's within 2 ulp; +inf ties placed in different
+               splits of a row give the smaller id.
 7. serve     - GPT-2 124M, fp32, at full width (random weights from a fixed
                seed, a BPE trained in-process, vocab padded to 50257 rows)
                on ``InferenceEngine(device="cuda")``: three prompts x 32 new
@@ -103,8 +106,9 @@ prints no result line:
 19. w8a8     - the w8a8 (s8 x s8) body of the qmm kernel against its plain
                version on a 1.5B INT8 per-channel tree with the phantom head
                padded in: the six block linears at layers 0 and 47 (Q/K/V
-               1600x1664) and the lm_head (K=1600, N=50257), rows 1, 16 and
-               64, f32 and bf16 activations, bit for bit; 65 rows go to
+               1600x1664) and the lm_head (K=1600, N=50257), rows 1, 2, 15,
+               16, 17, 33 and 64, f32 and bf16 activations, bit for bit and
+               one launch per call; 65 rows go to
                ``w8a8_matmul`` (``torch._int_mm``; the exact f64 product for
                the lm_head's N) and launch no kernel.
 20. serve-w8a8-1.5B - GPT-2 1.5B at full width and depth, the bf16
@@ -118,7 +122,11 @@ prints no result line:
                steps; then ``ContinuousBatcher(batch_size=16, max_seq=256,
                kv_quant="int8")``: 32 greedy requests (prompts 8-120, budgets
                32-96) on a ring and on a linear cache, identical, and the
-               near-tie check against the engine.
+               near-tie check against the engine; then ``torch.profiler`` over
+               32 steps of that batcher at B=16 (T=0.8, top-k 40, top-p 0.9):
+               kernels per step, 289 w8a8 kernels per step (one per call, no
+               reduce pass), busy and idle share, top kernels, one host sync
+               per step.
 21. wmm      - the float GEMV kernel against its plain version at 124M
                shapes (768x768 for each of Q/K/V and c_proj, 768x3072,
                3072x768), rows 1, 8 and 256, f32 and bf16 weights and
@@ -133,9 +141,9 @@ prints no result line:
                plain version's time and one PyTorch library call computing
                the same function (timed only, never used by the port):
                attention at B=1 and the ring at B=16 (with the w8a8
-               engine's packed bf16 cache at 1.5B shapes), the sampler,
-               qmm at 1 and 16 rows per 1.5B linear and per step, the
-               w8a8 body and wmm.
+               engine's packed bf16 cache at 1.5B shapes), the sampler at
+               B=1 and B=16, qmm and the w8a8 body at 1 and 16 rows per 1.5B
+               linear and per step, and wmm.
 
 Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-22
 the packed one, which the card picks by itself at head_dim 64.
@@ -165,6 +173,10 @@ PEAK_INT8_OPS_PER_S = 1979e12
 # of 2 mul-hi, 2 mul-lo, 4 xor and 2 key adds; then ~14 for the uniform,
 # two logs, the scale, the add, the mask and the running argmax.
 SAMPLER_OPS_PER_ELEM = 114
+# return_max: the kernel's z* against the plain version's, relative: 2 ulp
+# (the kernel's logf against torch.log, both without fast math on the card,
+# so equal bits are expected).
+SAMPLER_ZMAX_RTOL = 2.0 ** -22
 
 # (atol, rtol). bf16: one bf16 ulp, since kernel and plain version each
 # round one f32 result to bf16 once.
@@ -482,26 +494,55 @@ def check_attention_packed(att, ops, torch) -> None:
 
 
 def check_sampler(sk, sampling, torch) -> None:
-    B, V = 4, 50257
+    """Phase 6: ids identical to the plain version at every row count of the
+    vocab split, with and without a top-k/top-p threshold; return_max's z*
+    within SAMPLER_ZMAX_RTOL of the plain version's (the largest gap is
+    logged); ties placed in different splits of a row."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    for dtype in (torch.float32, torch.bfloat16):
-        logits = (torch.randn(B, V, device="cuda", generator=g) * 3).to(dtype)
-        thresh = sampling._threshold(logits, 0.8, 40, 0.9)
-        for trial in range(4):
-            seeds = torch.randint(0, 2**31 - 1, (B,), device="cuda", dtype=torch.int32,
-                                  generator=g)
-            for th in (None, thresh):
-                got = sk.sample_categorical(logits, seeds, 0.8, th)
-                want = sk.sample_categorical_plain(logits, seeds, 0.8, th)
-                same = bool(torch.equal(got, want))
-                log(f"sampler {dtype} trial={trial} thresh={th is not None}: "
-                    f"ids={got.tolist()} identical={same}")
-                if not same:
-                    raise AssertionError(f"sampler kernel ids differ: {got.tolist()} vs "
-                                         f"{want.tolist()}")
-                if th is not None and (logits.float().gather(1, got.long()[:, None])[:, 0]
-                                       < th).any():
-                    raise AssertionError("sampler drew an id below its threshold")
+    worst = 0.0
+    for B in (1, 4, 16, 17):
+        for V in (7, 1000, 50257):
+            splits, chunk = sk.sampler_geometry(B, V)
+            for dtype in (torch.float32, torch.bfloat16):
+                logits = (torch.randn(B, V, device="cuda", generator=g) * 3).to(dtype)
+                thresh = sampling._threshold(logits, 0.8, min(40, V - 1), 0.9)
+                for trial in range(2):
+                    seeds = torch.randint(0, 2**31 - 1, (B,), device="cuda",
+                                          dtype=torch.int32, generator=g)
+                    for th in (None, thresh):
+                        got, zmax = sk.sample_categorical(logits, seeds, 0.8, th,
+                                                          return_max=True)
+                        want, want_z = sk.sample_categorical_plain(logits, seeds, 0.8, th,
+                                                                   return_max=True)
+                        if not torch.equal(got, want) or not torch.equal(
+                                got, sk.sample_categorical(logits, seeds, 0.8, th)):
+                            raise AssertionError(
+                                f"sampler B={B} V={V} {dtype}: kernel ids differ: "
+                                f"{got.tolist()} vs {want.tolist()}")
+                        gap = ((zmax - want_z).abs() / want_z.abs().clamp(min=1e-30)).max().item()
+                        worst = max(worst, gap)
+                        if gap > SAMPLER_ZMAX_RTOL:
+                            raise AssertionError(f"sampler B={B} V={V}: z* differs from the "
+                                                 f"plain version's by {gap:.3e} (relative)")
+                        if th is not None and (logits.float().gather(1, got.long()[:, None])[:, 0]
+                                               < th).any():
+                            raise AssertionError("sampler drew an id below its threshold")
+            log(f"sampler B={B} V={V} ({splits} splits of {chunk}): f32/bf16 x "
+                f"thresh none/top-k top-p, ids identical to the plain version")
+    V = 50257
+    splits, chunk = sk.sampler_geometry(3, V)
+    logits = torch.full((3, V), -5.0, device="cuda")
+    ties = [(chunk + 7, 2 * chunk + 1), (40, V - 1), (chunk - 1, chunk)]
+    for b, (i, j) in enumerate(ties):
+        logits[b, i] = logits[b, j] = float("inf")
+    seeds = torch.tensor([3, 4, 5], dtype=torch.int32, device="cuda")
+    for _ in range(8):
+        got = sk.sample_categorical(logits, seeds, 1.0).tolist()
+        if got != [i for i, _ in ties]:
+            raise AssertionError(f"sampler ties across splits: {got}, expected the smaller ids")
+    log(f"sampler ties across splits (chunk {chunk}) at {ties}: the smaller id, 8 of 8 calls; "
+        f"return_max z* largest relative gap to the plain version {worst:.3e} "
+        f"(bound {SAMPLER_ZMAX_RTOL:.3e})")
 
 
 def linears(params, layer):
@@ -820,6 +861,9 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str, label: str = "ser
     return counts, engine, ids, floor
 
 
+W8A8_ROWS = (1, 2, 15, 16, 17, 33, 64)  # every 16-row tile count, partly padded tiles
+
+
 def check_w8a8(qk, quantize, params, torch) -> None:
     """Phase 19: the w8a8 body against its plain version, bit for bit, on an
     INT8 per-channel tree; 65 rows take ``w8a8_matmul`` and no kernel."""
@@ -828,7 +872,8 @@ def check_w8a8(qk, quantize, params, torch) -> None:
     for name, qw, scale, _ in linears(params, 0) + linears(params, last) + linears(
             params, None):
         k, n = qw.shape
-        for rows in (1, 16, 64):
+        geos = {rows: qk.w8a8_geometry(rows, k, n) for rows in W8A8_ROWS}
+        for rows in W8A8_ROWS:
             for dtype in (torch.float32, torch.bfloat16):
                 x = (torch.randn(rows, k, device="cuda", generator=g) * 3).to(dtype)
                 if rows > 1:  # an all-zero row (the 1e-12 floor)
@@ -853,7 +898,8 @@ def check_w8a8(qk, quantize, params, torch) -> None:
                            qk.qmm_plain(x, qw, scale, w8a8=True))
         if not same or y.shape != (65, n):
             raise AssertionError(f"w8a8 {name}: w8a8_matmul differs from the exact product")
-        log(f"w8a8 {name} K={k} N={n}: rows 1/16/64 x f32/bf16 bit-equal to the plain version; "
+        log(f"w8a8 {name} K={k} N={n}: rows {W8A8_ROWS} x f32/bf16 bit-equal to the plain "
+            f"version, one launch each (splits {[geos[r].splits for r in W8A8_ROWS]}); "
             f"65 rows through w8a8_matmul "
             f"({'torch._int_mm' if quantize._int_mm_takes(x, qw) else 'f64 product'}) "
             f"equal to the exact product, no kernel launched")
@@ -1129,16 +1175,24 @@ def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, ca
     return counts, b
 
 
-def trace_batcher(batcher, config_mod, torch, card: str, label: str = "trace-batcher") -> dict:
-    """Phases 14 and 18: 32 steps at full occupancy, T=0.8 top-k 40 top-p
-    0.9. Returns the trace's row."""
+def trace_batcher(batcher, config_mod, torch, card: str, label: str = "trace-batcher",
+                  weights: str = "INT4 (lm_head INT8), bf16 activations",
+                  w8a8_per_step: int = 0) -> dict:
+    """Phases 14, 18 and 20: 32 steps at full occupancy, T=0.8 top-k 40
+    top-p 0.9, in one profiler window. The window loses the first kernels
+    launched into it (on an H100, from none to more than a step's worth,
+    more as the process ages), so two untraced steps pad its start and a
+    marker kernel opens each traced step. The check is per step: no step
+    records more than ``w8a8_per_step`` w8a8 GEMV kernels, at least one
+    records exactly that many (one per call), and no qmm reduce pass
+    appears. Returns the trace's row."""
     import warnings
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    steps = 32
+    steps, pad = 32, 2
     batcher.sampling = config_mod.SamplingConfig(temperature=0.8, top_k=40, top_p=0.9,
                                                  seed=5)
     for ids, _ in batch_requests(41, batcher.batch_size, batcher.config.vocab_size,
@@ -1146,43 +1200,71 @@ def trace_batcher(batcher, config_mod, torch, card: str, label: str = "trace-bat
         batcher.submit(ids, 64)
     batcher.step()  # admits every slot: the traced steps admit and retire nothing
     torch.cuda.synchronize()
+    wall_us = 0.0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        for _ in range(pad):
+            batcher.step()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                for _ in range(steps):
+            for _ in range(steps):
+                torch.cuda._sleep(1000)  # the step's marker
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    t0 = time.perf_counter()
                     batcher.step()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        wall_us = (time.perf_counter() - t0) * 1e6
+                    wall_us += (time.perf_counter() - t0) * 1e6
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+    # In launch order (a device event's id is its launch's correlation id):
+    # by start time, a marker once fell 2954 kernels into the next step.
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: (e.id, e.time_range.start))
+    by_step = []  # the kernels of each traced step whose marker was recorded
+    for e in events:
+        if "spin_kernel" in e.name:
+            by_step.append([])
+        elif by_step:
+            by_step[-1].append((e.name, e.time_range.end - e.time_range.start))
+    kernels = [k for step in by_step for k in step]
+    per_step = [(len(step), sum("qmm_w8a8" in name for name, _ in step)) for step in by_step]
     syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
     active = sum(r is not None for r in batcher.slots)
-    kernels = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
-    row = {"model": "1558M", "weights": "INT4 (lm_head INT8), bf16 activations",
+    row = {"model": "1558M", "weights": weights,
            "kv_cache": f"int8 ring, {layout_name(batcher.config)}",
            "batch": batcher.batch_size, "active_slots": active,
            "temperature": 0.8, "traced_batcher_steps": steps,
            "traced_wall_ms": wall_us / 1e3, "host_syncs_per_step": syncs / steps,
            "card": card}
     if kernels:
-        busy = sum(us for _, us in kernels)
+        n = len(by_step)
+        busy = sum(us for _, us in kernels) / n  # per step, as the wall time below
+        wall = wall_us / steps
         by_name = defaultdict(float)
         for name, us in kernels:
             by_name[name[:80]] += us
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         attn = sum(us for name, us in kernels if "decode_attention_kernel" in name)
-        row.update({"device_busy_ms_per_step": busy / 1e3 / steps,
-                    "device_busy_share": busy / wall_us,
-                    "device_idle_share": 1.0 - busy / wall_us,
-                    "kernels_per_decode_step": len(kernels) / steps,
-                    "attention_kernel_us_per_step": attn / steps,
-                    "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top}})
+        w8a8 = [us for name, us in kernels if "qmm_w8a8" in name]
+        row.update({"w8a8_kernels_per_step": len(w8a8) / n,
+                    "w8a8_kernel_ms_per_step": sum(w8a8) / 1e3 / n})
+        if any("reduce" in name for name, _ in kernels if "qmm" in name):
+            raise AssertionError(f"{label}: a qmm reduce pass is in the trace")
+        row.update({"steps_in_trace": n,
+                    "kernels_by_step": sorted({k for k, _ in per_step}),
+                    "w8a8_kernels_by_step": sorted({w for _, w in per_step})})
+        row.update({"device_busy_ms_per_step": busy / 1e3,
+                    "device_busy_share": busy / wall,
+                    "device_idle_share": 1.0 - busy / wall,
+                    "kernels_per_decode_step": len(kernels) / n,
+                    "attention_kernel_us_per_step": attn / n,
+                    "top_kernels_ms_per_step": {k: v / 1e3 / n for k, v in top}})
     else:
         row["device_busy_share"] = "not measured (no device events in the trace)"
     log(f"{label} {json.dumps(row)}")
+    if any(w > w8a8_per_step for _, w in per_step) or (
+            w8a8_per_step and w8a8_per_step not in {w for _, w in per_step}):
+        raise AssertionError(f"{label}: w8a8 kernels per step {[w for _, w in per_step]}, "
+                             f"expected {w8a8_per_step} (one per call)")
     if active != batcher.batch_size:
         raise AssertionError(f"the traced steps ran {active} of {batcher.batch_size} slots")
     if syncs != steps:
@@ -1248,35 +1330,44 @@ def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str) -> 
                     "device_busy_share": busy / wall_us,
                     "device_idle_share": 1.0 - busy / wall_us,
                     "kernels_per_decode_step": len(kernels) / steps,
+                    "w8a8_kernels_per_step": sum("qmm_w8a8" in n for n, _ in kernels) / steps,
                     "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top}})
+        if any("reduce" in name for name, _ in kernels if "qmm" in name):
+            raise AssertionError("a qmm reduce pass is in the decode trace")
     else:
         row["device_busy_share"] = "not measured (no device events in the trace)"
     log(f"trace {json.dumps(row)}")
 
 
 def time_sampler(sk, torch, counts, card: str):
-    """The sampler at B=1 over the 50257-id vocab, f32 logits, plain
-    temperature."""
-    B, V, T = 1, 50257, 0.8
+    """The sampler at B=1 (the engines) and B=16 (the sampled batchers) over
+    the 50257-id vocab, f32 logits, plain temperature. The JSON entry is
+    B=1's."""
+    V, T = 50257, 0.8
     g = torch.Generator(device="cuda").manual_seed(4)
-    logits = torch.randn(B, V, device="cuda", generator=g)
-    seeds = torch.randint(0, 2**31 - 1, (B,), device="cuda", dtype=torch.int32, generator=g)
-    err = float((sk.sample_categorical(logits, seeds, T).long()
-                 - sk.sample_categorical_plain(logits, seeds, T).long()).abs().max().item())
-    ms = time_ms(lambda i: sk.sample_categorical(logits, seeds, T), 400)
-    plain_ms = time_ms(lambda i: sk.sample_categorical_plain(logits, seeds, T), 40,
-                       graph=False)  # it copies 1/T from the host
-    u = torch.rand(B, V, device="cuda", generator=g)
-    lib_ms = time_ms(lambda i: torch.argmax(logits / T - torch.log(-torch.log(u)), -1), 400)
-    bms, by = bound_ms(V * 4 * B + 8 * B, SAMPLER_OPS_PER_ELEM * V * B)
-    log(f"time sampler f32 B={B} V={V}: kernel {ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us "
-        f"({by}), plain {plain_ms * 1e3:.2f} us, argmax-gumbel {lib_ms * 1e3:.2f} us, "
-        f"max_abs_err={err} ({card})")
-    return [{"name": "sample_categorical", "route": "cuda",
-             "source": "zig_gpt2_tpu_torch/ops/csrc/sampling.cu",
-             "replaces": "zig_gpt2_tpu/ops/sampling_kernel.py:37",
-             "launches": counts["sampler"], "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}]
+    entries = {}
+    for B in (1, 16):
+        logits = torch.randn(B, V, device="cuda", generator=g)
+        seeds = torch.randint(0, 2**31 - 1, (B,), device="cuda", dtype=torch.int32,
+                              generator=g)
+        err = float((sk.sample_categorical(logits, seeds, T).long()
+                     - sk.sample_categorical_plain(logits, seeds, T).long()).abs().max().item())
+        ms = time_ms(lambda i: sk.sample_categorical(logits, seeds, T), 400)
+        plain_ms = time_ms(lambda i: sk.sample_categorical_plain(logits, seeds, T), 40,
+                           graph=False)  # it copies 1/T from the host
+        u = torch.rand(B, V, device="cuda", generator=g)
+        lib_ms = time_ms(lambda i: torch.argmax(logits / T - torch.log(-torch.log(u)), -1), 400)
+        bms, by = bound_ms(V * 4 * B + 8 * B, SAMPLER_OPS_PER_ELEM * V * B)
+        log(f"time sampler f32 B={B} V={V} ({sk.sampler_geometry(B, V)[0]} splits): kernel "
+            f"{ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, "
+            f"argmax-gumbel {lib_ms * 1e3:.2f} us, max_abs_err={err} ({card})")
+        entries[B] = {"name": "sample_categorical", "route": "cuda",
+                      "source": "zig_gpt2_tpu_torch/ops/csrc/sampling.cu",
+                      "replaces": "zig_gpt2_tpu/ops/sampling_kernel.py:37",
+                      "launches": counts["sampler"], "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": lib_ms}
+    return [entries[1]]
 
 
 def time_attention(name, replaces, launches, kernel, plain, args, L, lib, nbytes, nops,
@@ -1490,11 +1581,12 @@ def time_qmm(qk, quantize, params, torch, counts, card: str):
 
 def time_w8a8(qk, quantize, params, torch, counts, card: str):
     """The w8a8 body at rows 1 and 16, bf16 activations as served, per
-    linear shape of the phantom-padded 1.5B tree, rotating over the 48
-    layers so that the weights come from HBM. The yardstick is torch.matmul
-    on the same weights dequantized ahead of time to bf16 (twice the int8
-    bytes); ``torch._int_mm``, which needs more than 16 rows, is timed at 32
-    rows and logged only."""
+    linear shape of the phantom-padded 1.5B tree and per 289-call decode
+    step, rotating over the 48 layers so that the weights come from HBM.
+    The yardstick is torch.matmul on the same weights dequantized ahead of
+    time to bf16 (twice the int8 bytes); ``torch._int_mm``, which needs more
+    than 16 rows, is timed at 32 rows and logged only. The JSON entry is
+    the B=1 step."""
     g = torch.Generator(device="cuda").manual_seed(23)
     L = params["blocks"]["attn"]["wq"]["scale"].shape[0]
     shapes = [("attn.wq/wk/wv", [linears(params, i)[0][1:3] for i in range(L)], 3 * L),
@@ -1502,7 +1594,8 @@ def time_w8a8(qk, quantize, params, torch, counts, card: str):
               ("mlp.c_fc", [linears(params, i)[4][1:3] for i in range(L)], L),
               ("mlp.c_proj", [linears(params, i)[5][1:3] for i in range(L)], L),
               ("lm_head", [linears(params, None)[0][1:3]], 1)]
-    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    steps = {rows: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+             for rows in (1, 16)}
     errs = []
     for label, layers, calls in shapes:
         qw, scale = layers[0]
@@ -1510,7 +1603,7 @@ def time_w8a8(qk, quantize, params, torch, counts, card: str):
         nl = len(layers)
         dq = [quantize.dequantize_linear({"qw": w, "scale": s}, torch.bfloat16)["w"]
               for w, s in layers]
-        for rows in (1, 16):
+        for rows, step in steps.items():
             x = torch.randn(rows, k, device="cuda", generator=g).to(torch.bfloat16)
             errs.append(max_err(qk.qmm(x, qw, scale, w8a8=True),
                                 qk.qmm_plain(x, qw, scale, w8a8=True)))
@@ -1521,31 +1614,35 @@ def time_w8a8(qk, quantize, params, torch, counts, card: str):
             nbytes = qw.numel() + scale.numel() * 4 + rows * k * 2 + rows * n * 4
             nops = 2 * rows * k * n
             bms, by = bound_ms(nbytes, nops, PEAK_INT8_OPS_PER_S)
-            log(f"time qmm w8a8 {label} K={k} N={n} rows={rows} bf16: kernel {ms * 1e3:.2f} us, "
+            log(f"time qmm w8a8 {label} K={k} N={n} rows={rows} bf16 "
+                f"({qk.w8a8_geometry(rows, k, n)}): kernel {ms * 1e3:.2f} us, "
                 f"bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, torch.matmul "
                 f"on a pre-dequantized bf16 weight {lib_ms * 1e3:.2f} us, "
                 f"max_abs_err={errs[-1]:.3e} ({card})")
-            if rows == 1:
-                step["ms"] += calls * ms
-                step["plain_ms"] += calls * plain_ms
-                step["library_ms"] += calls * lib_ms
-                step["bytes"] += calls * nbytes
-                step["ops"] += calls * nops
+            step["ms"] += calls * ms
+            step["plain_ms"] += calls * plain_ms
+            step["library_ms"] += calls * lib_ms
+            step["bytes"] += calls * nbytes
+            step["ops"] += calls * nops
         x32 = torch.randint(-127, 128, (32, k), device="cuda", generator=g, dtype=torch.int8)
         if quantize._int_mm_takes(x32, qw):
             int_ms = time_ms(lambda i: torch._int_mm(x32, layers[i % nl][0]), max(8 * nl, 64))
             log(f"time torch._int_mm {label} K={k} N={n} rows=32 (int8 x int8 -> int32, "
                 f"library yardstick only): {int_ms * 1e3:.2f} us ({card})")
         del dq
-    bms, by = bound_ms(step["bytes"], step["ops"], PEAK_INT8_OPS_PER_S)
-    log(f"time qmm w8a8 per decode step (289 calls, B=1, bf16): kernel {step['ms']:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, torch.matmul on "
-        f"pre-dequantized bf16 weights {step['library_ms']:.4f} ms ({card})")
+    for rows, step in steps.items():
+        bms, by = bound_ms(step["bytes"], step["ops"], PEAK_INT8_OPS_PER_S)
+        step["bound_ms"], step["bound_by"] = bms, by
+        log(f"time qmm w8a8 per decode step (289 calls, rows={rows}, bf16): kernel "
+            f"{step['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
+            f"torch.matmul on pre-dequantized bf16 weights {step['library_ms']:.4f} ms ({card})")
+    step = steps[1]
     return [{"name": "qmm_w8a8", "route": "cuda",
              "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
              "replaces": "zig_gpt2_tpu/quant/kernels.py:77", "launches": counts["qmm_w8a8"],
              "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
-             "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]}]
+             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+             "library_ms": step["library_ms"]}]
 
 
 def time_wmm(qk, params, torch, counts, card: str):
@@ -1647,7 +1744,7 @@ def main() -> int:
         check_attention_int8(att, ops, torch)
         phase("attention-ring: ring kernels vs plain, B=16 R=1025")
         check_attention_ring(att, ops, torch)
-        phase("sampler: kernel vs plain, B=4 V=50257")
+        phase("sampler: kernel vs plain, B 1/4/16/17 x V 7/1000/50257, return_max, ties")
         check_sampler(sk, sampling, torch)
         vocab, merges = tok.train_bpe(DEMO_TEXT, vocab_size=512)
         encoder = tok.Encoder(vocab, merges)
@@ -1716,6 +1813,9 @@ def main() -> int:
         counts_wb1p5b, batcher = serve_batcher_1p5b(
             pkg, batcher_mod, torch, config_w8, params_w8, max(floor, floor_w8), card,
             "serve-batcher-w8a8-1.5B", sampled_half=False)
+        trace_batcher(batcher, config_mod, torch, card, "trace-batcher-w8a8-1.5B",
+                      "w8a8 (INT8 weights and activations), bf16 activations",
+                      w8a8_per_step=gemv_counts(config_w8, 1, [])["qmm_w8a8"])
         del batcher
         phase("wmm: float GEMV kernel vs plain at 124M shapes")
         check_wmm(qk, params_124m, torch)

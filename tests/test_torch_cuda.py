@@ -17,7 +17,8 @@ of qmm bit for bit (int32 sums are exact, and kernel and plain version
 quantize x and take the f32 tail in one order), and ``w8a8_matmul`` through
 ``torch._int_mm`` equal to its f64 product; wmm atol/rtol 1e-4 (f32 sums of
 up to 3072 products in another order than the plain version's matmul);
-sampler ids identical.
+sampler ids identical, its return_max z* within 2 ulp of the plain
+version's (equal bits expected).
 """
 
 import numpy as np
@@ -166,11 +167,15 @@ def test_qmm_wrapper_validates(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,n", [(64, 200), (1600, 1664), (6400, 1600)])
-@pytest.mark.parametrize("rows", [1, 16, 64])
+@pytest.mark.parametrize("k,n", [(64, 200), (100, 150), (1000, 256), (2600, 150),
+                                 (1600, 1664), (6400, 1600)])
+@pytest.mark.parametrize("rows", [1, 2, 15, 16, 17, 33, 64])
 def test_qmm_w8a8_kernel_bit_equal_to_plain(dev, rows, k, n, dtype):
     """The w8a8 body at 1.5B's K and N (1664: Q/K/V with the phantom head),
-    rows with an all-zero row and exact .5 steps: bit for bit."""
+    K not a multiple of 32 (100, 1000, 2600) and a ragged N (150, 200), one
+    split (64), splits added in a cluster (100, 1000, 1600) and by ticket
+    (2600, 6400), rows that fill 16-row tiles partly (2, 15, 17, 33), rows
+    with an all-zero row and exact .5 steps: bit for bit."""
     g = torch.Generator(device=dev).manual_seed(rows + k)
     p = quant.quantize_linear({"w": torch.randn(k, n, device=dev, generator=g) * 0.05},
                               "int8")
@@ -287,14 +292,18 @@ def test_engine_cuda_w8a8_and_wmm_greedy_match_cpu(dev, monkeypatch):
     assert qk.wmm.launches == before + 6 * cfg.n_layers * 16
 
 
+@pytest.mark.parametrize("B", [1, 4, 5, 16, 17])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("V", [7, 1000, 50257])
-def test_sampler_kernel_matches_plain(dev, dtype, V):
-    g = torch.Generator(device=dev).manual_seed(V)
-    logits = (torch.randn(5, V, device=dev, generator=g) * 2).to(dtype)
+def test_sampler_kernel_matches_plain(dev, dtype, V, B):
+    """Every row count of the vocab split (one block per row at V = 7, up
+    to 197 at B=1, V=50257; rows b >= 1 of an odd V start off 16 bytes):
+    identical ids, one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(V + B)
+    logits = (torch.randn(B, V, device=dev, generator=g) * 2).to(dtype)
     thresh = logits.float().topk(min(3, V), -1).values[:, -1].contiguous()
     for _ in range(3):
-        seeds = torch.randint(0, 2**31 - 1, (5,), device=dev, dtype=torch.int32, generator=g)
+        seeds = torch.randint(0, 2**31 - 1, (B,), device=dev, dtype=torch.int32, generator=g)
         for th in (None, thresh):
             assert torch.equal(sk.sample_categorical(logits, seeds, 0.7, th),
                                sk.sample_categorical_plain(logits, seeds, 0.7, th))
@@ -307,6 +316,38 @@ def test_sampler_kernel_ties_and_counter(dev):
     before = sk.sample_categorical.launches
     assert sk.sample_categorical(logits, seeds, 1.0).tolist() == [40, 40]
     assert sk.sample_categorical.launches == before + 1
+    # Ties in different splits of a split row: the smallest id wins
+    # whichever block arrives last.
+    V = 50257
+    splits, chunk = sk.sampler_geometry(3, V)
+    assert splits > 2
+    logits = torch.full((3, V), -5.0, device=dev)
+    ties = [(chunk + 7, 2 * chunk + 1), (40, V - 1), (chunk - 1, chunk)]
+    for b, (i, j) in enumerate(ties):
+        logits[b, i] = logits[b, j] = float("inf")
+    seeds = torch.tensor([3, 4, 5], dtype=torch.int32, device=dev)
+    for _ in range(5):
+        ids, zmax = sk.sample_categorical(logits, seeds, 1.0, return_max=True)
+        assert ids.tolist() == [i for i, _ in ties] and torch.isinf(zmax).all()
+    assert sk.sample_categorical.launches == before + 6
+
+
+@pytest.mark.parametrize("thresh", [False, True], ids=["all", "top-k"])
+@pytest.mark.parametrize("B,V", [(1, 50257), (16, 50257), (17, 1000), (4, 7)])
+def test_sampler_kernel_return_max(dev, B, V, thresh):
+    """return_max: the kernel's ids equal its ids without the flag and the
+    plain version's; z* is the plain version's within 2 ulp (the card's
+    logf in the kernel against torch.log: no fast math on either side, so
+    equal bits are expected, and the bound is what the test allows)."""
+    g = torch.Generator(device=dev).manual_seed(B * V)
+    logits = (torch.randn(B, V, device=dev, generator=g) * 2).to(torch.bfloat16)
+    th = logits.float().topk(min(40, V), -1).values[:, -1].contiguous() if thresh else None
+    seeds = torch.randint(0, 2**31 - 1, (B,), device=dev, dtype=torch.int32, generator=g)
+    ids, zmax = sk.sample_categorical(logits, seeds, 0.8, th, return_max=True)
+    want_ids, want_z = sk.sample_categorical_plain(logits, seeds, 0.8, th, return_max=True)
+    assert torch.equal(ids, sk.sample_categorical(logits, seeds, 0.8, th))
+    assert torch.equal(ids, want_ids)
+    torch.testing.assert_close(zmax, want_z, rtol=2.0 ** -22, atol=0.0)
 
 
 def test_engine_cuda_greedy_matches_cpu(dev):
@@ -743,6 +784,23 @@ def test_qmm_one_launch_matches_plain(dev, rows, dtype, mode, k, group, n):
     torch.testing.assert_close(got, qk.qmm_plain(x, qw, p["scale"], int4=int4), atol=2e-5,
                                rtol=2e-5)
     assert torch.equal(qk.qmm(x, qw, p["scale"], int4=int4), got)
+
+
+@pytest.mark.parametrize("k,n", [(1600, 1664), (1664, 1600), (1600, 6400), (6400, 1600),
+                                 (1600, 50257)])
+def test_qmm_w8a8_one_launch_on_the_serving_shapes(dev, k, n):
+    """The 1.5B w8a8 shapes at 1 and 16 rows, split over K where the
+    geometry says so (the combine runs): one launch, bit-equal to the plain
+    version, and two calls bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    p = quant.quantize_linear({"w": torch.randn(k, n, device=dev, generator=g) * 0.05}, "int8")
+    for rows in (1, 16):
+        x = (torch.randn(rows, k, device=dev, generator=g) * 3).to(torch.bfloat16)
+        before = (qk.qmm.launches, qk.qmm.w8a8_launches)
+        got = qk.qmm(x, p["qw"], p["scale"], w8a8=True)
+        assert (qk.qmm.launches, qk.qmm.w8a8_launches) == (before[0], before[1] + 1)
+        assert torch.equal(got, qk.qmm_plain(x, p["qw"], p["scale"], w8a8=True))
+        assert torch.equal(qk.qmm(x, p["qw"], p["scale"], w8a8=True), got)
 
 
 def test_qmm_splits_on_the_serving_shapes(dev):

@@ -1,5 +1,6 @@
-"""The host-side launch geometry of the split-S attention kernel and of the
-one-launch qmm, on the CPU: plain Python that decides how the kernels in
+"""The host-side launch geometry of the split-S attention kernel, of the
+one-launch qmm (weight-only and w8a8 bodies) and of the vocab-split sampler,
+on the CPU: plain Python that decides how the kernels in
 ``zig_gpt2_tpu_torch/ops/csrc`` cut their work. Shapes only (never
 ``length``), exact cover of the rows, the limits the kernels check, and the
 block counts the kernels' source notes give for the GPT-2 serving shapes.
@@ -14,6 +15,7 @@ import torch
 
 from zig_gpt2_tpu_torch.ops import _build
 from zig_gpt2_tpu_torch.ops import attention as att
+from zig_gpt2_tpu_torch.ops import sampling_kernel as sk
 from zig_gpt2_tpu_torch.quant import kernels as qk
 
 CSRC = Path(_build.__file__).resolve().parent / "csrc"
@@ -184,3 +186,111 @@ def test_tickets_grow_and_keep_the_old_tensors(monkeypatch):
     big = _build.tickets("cpu", small.numel() + 1)
     assert big.numel() > small.numel() and not big.any()
     assert _build._TICKETS[torch.device("cpu")] == [small, big]
+
+
+# --- the sampler's vocab split and the w8a8 body's K split --------------------
+
+SAMPLER_SHAPES = [(B, V) for B in (1, 2, 4, 16, 17, 64, 65535)
+                  for V in (1, 7, 100, 128, 129, 1000, 50257, 50304)]
+
+
+def test_sampler_and_w8a8_geometry_take_shapes_only():
+    assert list(inspect.signature(sk.sampler_geometry).parameters) == ["B", "V"]
+    assert list(inspect.signature(qk.w8a8_geometry).parameters) == ["rows", "k", "n"]
+
+
+@pytest.mark.parametrize("B,V", SAMPLER_SHAPES)
+def test_sampler_geometry_covers_the_vocab_once(B, V):
+    splits, chunk = sk.sampler_geometry(B, V)
+    assert splits >= 1 and chunk % sk._SAMPLER_THREADS == 0
+    covered = [j for s in range(splits) for j in range(s * chunk, min((s + 1) * chunk, V))]
+    assert covered == list(range(V))  # every id once, in order, no split empty
+    assert (splits - 1) * chunk < V <= splits * chunk
+    assert B * splits <= max(B, sk._SAMPLER_SLOTS + B)  # about two blocks per SM, at most
+
+
+def test_sampler_geometry_is_a_function_of_the_shapes():
+    for shape in SAMPLER_SHAPES:
+        assert sk.sampler_geometry(*shape) == sk.sampler_geometry(*shape)
+    for bad in ((0, 10), (1, 0)):
+        with pytest.raises(ValueError):
+            sk.sampler_geometry(*bad)
+
+
+@pytest.mark.parametrize("B,V,splits,chunk", [
+    (1, 50257, 197, 256),    # the engines: ~200 blocks where one ran before
+    (4, 50257, 66, 768),
+    (16, 50257, 17, 3072),   # the sampled batchers
+    (17, 50257, 16, 3200),
+    (1, 7, 1, 128),          # a small vocab: one block, no combine
+])
+def test_sampler_geometry_on_the_serving_shapes(B, V, splits, chunk):
+    assert sk.sampler_geometry(B, V) == (splits, chunk)
+
+
+def test_sampler_constants_match_the_kernel():
+    src = (CSRC / "sampling.cu").read_text()
+    assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) == \
+        sk._SAMPLER_THREADS
+    assert "dim3(splits, B)" in src and "zg2::last_to_arrive(tickets + b, splits)" in src
+
+
+W8A8_SHAPES = [(rows, k, n) for rows in (1, 2, 15, 16, 17, 32, 33, 64)
+               for k, n in ((64, 8), (100, 150), (1000, 200), (1600, 1664), (1664, 1600),
+                            (1600, 6400), (6400, 1600), (1600, 50257))]
+
+
+@pytest.mark.parametrize("rows,k,n", W8A8_SHAPES[::3])
+def test_w8a8_geometry_covers_k_once_and_fits_the_body(rows, k, n):
+    geo = qk.w8a8_geometry(rows, k, n)
+    assert geo.split_rows % qk._QMM_TILE_ROWS == 0
+    covered = [i for s in range(geo.splits)
+               for i in range(s * geo.split_rows, min((s + 1) * geo.split_rows, k))]
+    assert covered == list(range(k))
+    assert geo.tiles == -(-n // qk._QMM_COLS) and geo.splits <= 65535  # gridDim.y
+    assert geo.m_tiles == (1 if rows <= 16 else 2 if rows <= 32 else 4)
+    assert rows <= 16 * geo.m_tiles
+    if geo.cluster:  # every split of a column tile in one portable cluster
+        assert 2 <= geo.splits <= qk._W8A8_CLUSTER_SPLITS
+        assert geo.tiles < qk._W8A8_CLUSTER_TILES
+    x_bytes = 16 * geo.m_tiles * (geo.split_rows + 16)  # csrc/qmm.cu launch_w8a8
+    assert x_bytes <= (qk._W8A8_X_BYTES if geo.m_tiles == 1 else qk._W8A8_X_BYTES_WIDE)
+
+
+def test_w8a8_geometry_is_a_function_of_the_shapes():
+    for shape in W8A8_SHAPES:
+        assert qk.w8a8_geometry(*shape) == qk.w8a8_geometry(*shape)
+    for bad in ((0, 64, 8), (65, 64, 8), (1, 0, 8), (1, 64, 0)):
+        with pytest.raises(ValueError):
+            qk.w8a8_geometry(*bad)
+
+
+@pytest.mark.parametrize("k,n,rows,splits,blocks,cluster", [
+    (1600, 1664, 1, 7, 91, True),      # attn Q/K/V with the phantom head, B=1
+    (1664, 1600, 1, 7, 91, True),      # attn c_proj
+    (1600, 6400, 1, 5, 250, False),    # c_fc: 50 column tiles, ticket
+    (6400, 1600, 1, 20, 260, False),   # MLP c_proj: long K, ticket
+    (1600, 50257, 1, 1, 393, False),   # INT8 lm_head: enough columns already
+    (1600, 1664, 16, 7, 91, True),     # the batcher's 16 rows: the same blocks, one pass
+    (6400, 1600, 16, 20, 260, False),
+    (1600, 50257, 16, 1, 393, False),
+])
+def test_w8a8_geometry_on_the_serving_shapes(k, n, rows, splits, blocks, cluster):
+    geo = qk.w8a8_geometry(rows, k, n)
+    assert (geo.splits, geo.tiles * geo.splits, geo.cluster) == (splits, blocks, cluster)
+
+
+def test_w8a8_constants_match_the_kernel():
+    src = (CSRC / "qmm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kW8XBytes") == qk._W8A8_X_BYTES
+    assert const("kW8XBytesWide") == qk._W8A8_X_BYTES_WIDE
+    assert "return rows <= 16 ? 1 : rows <= 32 ? 2 : 4;" in src  # w8a8_m_tiles
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
+    assert qk._W8A8_CLUSTER_SPLITS == 8  # the portable cluster size the entry point takes
+    assert "(cluster && (splits < 2 || splits > 8))" in src
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "qmm_w8a8_reduce_kernel" not in src  # the w8a8 body is one launch too

@@ -108,3 +108,53 @@ def test_bf16_logits_read_as_f32(rng):
     seeds = torch.tensor([1, 2, 3], dtype=torch.int32)
     assert torch.equal(sk.sample_categorical(logits, seeds, 0.8),
                        sk.sample_categorical(logits.float(), seeds, 0.8))
+
+
+# --- return_max: the winning z* (the JAX kernel's ``return_max``) -------------
+
+@pytest.mark.parametrize("thresh", [False, True], ids=["all", "top-k"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_return_max_is_the_z_of_the_returned_id(rng, dtype, thresh):
+    """z* equals logit_id * (1/T) + g_id of the returned id, recomputed from
+    ``gumbel_noise``, bit for bit, and is the row's largest kept z; the ids
+    are the same with and without the flag."""
+    T = 0.7
+    logits = torch.from_numpy((rng.standard_normal((6, 3000)) * 2).astype(np.float32)).to(dtype)
+    seeds = torch.from_numpy(rng.integers(0, 2**31 - 1, 6).astype(np.int32))
+    th = logits.float().topk(50, -1).values[:, -1].contiguous() if thresh else None
+    ids, zmax = sk.sample_categorical(logits, seeds, T, th, return_max=True)
+    assert zmax.dtype == torch.float32 and zmax.shape == (6,)
+    assert torch.equal(ids, sk.sample_categorical(logits, seeds, T, th))
+    x = logits.float()
+    inv_t = torch.tensor(np.float32(1.0 / T))
+    z = x * inv_t + sk.gumbel_noise(seeds, x.shape[1])
+    z_ids = z.gather(1, ids.long()[:, None])[:, 0]
+    assert torch.equal(zmax, z_ids)
+    if th is not None:
+        z = z.masked_fill(x < th[:, None], -float("inf"))
+    assert torch.equal(zmax, z.amax(-1))
+
+
+def test_return_max_masked_ids_never_win():
+    """Ids 0-31 sit just below the threshold, ids 32-63 on it: without the
+    mask about half the rows' largest z is a masked id. With it, no masked
+    id wins and z* is the z of a kept id."""
+    V, n = 64, 400
+    logits = torch.zeros(n, V)
+    logits[:, :32] = -1e-3
+    thresh = torch.zeros(n)
+    seeds = torch.arange(n, dtype=torch.int32)
+    ids, zmax = sk.sample_categorical(logits, seeds, 1.0, thresh, return_max=True)
+    z = logits + sk.gumbel_noise(seeds, V)
+    assert (z.argmax(-1) < 32).float().mean() > 0.3  # the mask matters
+    assert ids.min() >= 32
+    assert torch.equal(zmax, z.gather(1, ids.long()[:, None])[:, 0])
+    assert torch.equal(zmax, z[:, 32:].amax(-1))
+
+
+def test_return_max_ties_keep_the_smallest_id():
+    logits = torch.full((3, 8), -1.0)
+    logits[:, 2] = logits[:, 5] = float("inf")
+    ids, zmax = sk.sample_categorical(logits, torch.tensor([1, 2, 3], dtype=torch.int32),
+                                      1.0, return_max=True)
+    assert ids.tolist() == [2, 2, 2] and torch.isinf(zmax).all()

@@ -100,7 +100,7 @@ def test_quantize_rows_bit_equal(rng, dtype):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("k,n", [(256, 150), (320, 96)], ids=["ragged-n", "k320"])
-@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("rows", [1, 2, 8, 16, 17, 33, 64])
 def test_w8a8_products_bit_equal(rng, rows, k, n, dtype):
     """The port's plain w8a8 product (``w8a8_matmul`` and
     ``qmm_plain(w8a8=True)``, which is what ``qmm`` runs on a CPU tensor)

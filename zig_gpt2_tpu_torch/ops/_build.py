@@ -45,9 +45,9 @@ SIGNATURES = {
     "zg2_decode_attention_quant_deferred": [_P] * 14 + _ATTENTION,
     "zg2_decode_attention": [_P] * 8 + _ATTENTION,
     "zg2_decode_attention_quant": [_P] * 10 + _ATTENTION,
-    "zg2_sample_categorical": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "zg2_sample_categorical": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     "zg2_qmm": [_P] * 6 + [_I] * 9 + [_P],
-    "zg2_qmm_w8a8": [_P] * 6 + [_I] * 5 + [_P],
+    "zg2_qmm_w8a8": [_P] * 6 + [_I] * 8 + [_P],
     "zg2_wmm": [_P] * 4 + [_I] * 6 + [_P],
 }
 
@@ -134,7 +134,7 @@ _MIN_TICKETS = 4096
 
 def tickets(device, n: int):
     """At least ``n`` int32 counters at 0 on ``device``, for the split
-    combines of the attention and qmm kernels: the last block of each
+    combines of the attention, qmm and sampler kernels: the last block of each
     group sets its counter back to 0, so one tensor serves every launch on
     the stream. A larger request allocates a larger tensor; the older ones
     stay alive, since a captured CUDA graph may still hold their address."""

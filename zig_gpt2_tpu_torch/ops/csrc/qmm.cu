@@ -29,11 +29,11 @@
 // 24 us; a w8a8 c_fc is 10.24 MB, 3.1 us, and a w8a8 B=1 step's 289 GEMVs
 // about 1.58 GB, 0.47 ms. At 16 rows and more the products come into it:
 // one CUDA-core multiply-add per weight and row would be 16 instructions
-// per weight for the batcher; the bf16 tensor cores do them for almost
-// nothing.
+// per weight for the batcher; the bf16 and s8 tensor cores do them for
+// almost nothing (a 16-row w8a8 step's 2 x 16 x 1.58 G int8 operations
+// take 0.03 ms at 1979 TOP/s). So the bound stays the weight's bytes.
 //
-// Design of the weight-only bodies against that bound (the w8a8 body below
-// is PR 5's, unchanged):
+// Design of the weight-only bodies against that bound:
 // - One launch per call. The grid is (row tiles, column tiles of 128,
 //   K splits); the host picks the split from the shapes alone
 //   (quant/kernels.py qmm_geometry) so that the card holds a few blocks per
@@ -73,26 +73,69 @@
 //   about once and from L2 after that. bf16 products are exact in f32: only
 //   the order of the f32 sums differs from the plain version.
 //
-// The w8a8 body (PR 5): one thread per output column reading one weight
-// byte per row, the block's rows of x quantized into shared memory kChunk
-// rows at a time, int32 row accumulators (8-row tiles over gridDim.y), and
-// K splits whose int32 partials a second pass adds and scales (block
-// (0, y, 0) stores the row scales); every block first reduces its rows'
-// absmax over the whole of K, as each TPU program re-quantizes x. Its
-// redesign (__dp4a or mma.sync s8, one launch) is the next one.
+// Design of the w8a8 body (per-channel INT8 weight, x quantized per row):
+// - One launch per call. The grid is (column tiles of 128, K splits); the
+//   host picks the split from the shapes alone (quant/kernels.py
+//   w8a8_geometry). Two combines, both exact in any order (integer sums),
+//   so the result cannot depend on the arrival order:
+//   - a narrow weight with a short K (GPT-2 1.5B's attention linears: 13
+//     column tiles, K 1600 or 1664) splits into at most 8 ranges, and the
+//     splits of a column tile form one thread-block cluster: after a
+//     cluster barrier each block adds a share of the tile's outputs from
+//     every block's shared memory, in split order. No partial sums reach
+//     device memory and no block waits on a ticket (1 us less per call
+//     than the ticket at these shapes on the H100);
+//   - otherwise (the MLP's c_fc with 50 column tiles, where the cluster was
+//     2 us slower, and c_proj, whose 6400 rows want 20 splits) each block
+//     writes its int32 sums as a contiguous tile (16-byte stores at any N),
+//     takes a ticket from the column tile's self-resetting counter
+//     (zg2::last_to_arrive), and the last block to arrive adds the splits'
+//     tiles in split order (16 16-byte loads in flight per thread).
+//   Either applies float(acc) * sx[r] * scale[n]. The separate int32 reduce
+//   launch of the first w8a8 body is gone.
+// - Weight tiles reach shared memory through the weight-only body's ring
+//   (Tiles: 64 rows x 128 columns, 16-byte cp.async, 3 stages, any row
+//   alignment). Rows that start off 16 bytes (N % 16 != 0: the lm_head's
+//   50257, the tests' 150) read each 4-byte word as a funnel shift of two
+//   aligned ones; a 16-byte-aligned N takes one load per word.
+// - Products on the tensor cores at every row count:
+//   mma.sync.m16n8k32.s32.s8.s8.s32, exact. All of the call's rows (16-row
+//   tiles, 1 to 4 per block) go against one pass over each weight tile;
+//   the padding rows of the last tile hold whatever shared memory held,
+//   since the mma keeps rows apart and their sums are never read. Warp w owns the tile's columns [32 (w % 4), +32) and the tile's
+//   32-row k step w / 4; the two steps' sums are added in shared memory at
+//   the end. A B fragment register (4 k of one column) comes from four
+//   32-bit words of four weight rows by a 4 x 4 byte transpose
+//   (__byte_perm): a lane reads columns 4 g .. 4 g + 3, so n-tile c of the
+//   warp holds its columns 4 g + c. The k order within a step is permuted
+//   (frag_pos) so that those reads are free of bank conflicts, and xq is
+//   stored in that order, so an A fragment register is one 32-bit load. One
+//   row runs the same mma with 15 padding rows: it is bound by the weight's
+//   bytes either way, and one body is simpler than a __dp4a twin.
+// - x is quantized once per block (stage_xq): every block reduces its
+//   rows' absmax over the whole of K with 16-byte loads (x is at most 64 x
+//   6400 x 2 bytes and sits in L2), sx = max(absmax, 1e-12) / 127 by IEEE
+//   division, then writes xq of its own K range only into shared memory as
+//   int8, xq = clip(rint(x / sx), -127, 127) (__fdiv_rn, rintf: half to
+//   even). A block's first x loads go out before its first weight tiles'
+//   copies. (Tried and slower on the H100: thread-block clusters of 8
+//   column tiles sharing these reads through distributed shared memory, 13
+//   tiles padded to 16 putting a 16-row c_proj call in two waves; and a
+//   programmatic dependent launch: 2.76 ms per B=1 step, 2.68 without, in
+//   two runs.)
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "async_copy.cuh"
 
-namespace {
+namespace cg = cooperative_groups;
 
-constexpr int kCols = 128;  // w8a8 body: threads per block, one output column each
-constexpr int kChunk = 64;  // w8a8 body: rows per shared-memory stage
+namespace {
 
 // The weight-only bodies.
 constexpr int kThreads = 256;         // 8 warps
@@ -104,6 +147,8 @@ constexpr int kPieces = kWS / 16;     // 16-byte copies per staged row
 constexpr int kMaxGroupRows = 9;      // scale rows a tile touches: (kKT - 1) / G + 2, G >= 8
 constexpr int kXBytes = 32768;        // x in shared memory: CUDA cores, 16-row mma
 constexpr int kXBytesWide = 65536;    // 64-row mma
+constexpr int kW8XBytes = 32768;      // xq in shared memory: the w8a8 body's 16-row tile
+constexpr int kW8XBytesWide = 65536;  // ... its 32- and 64-row tiles
 constexpr int kMaxSmem = kStages * (kKT * kWS + 2 * kKT + 2 * kMaxGroupRows * kNT * 4) +
                          kXBytesWide;
 
@@ -149,6 +194,7 @@ struct QArgs {
   int* tickets;
   float* out;
   int rows, K, N, G, split_rows;
+  int cluster;  // w8a8 body: the splits of a column tile form one cluster
 };
 
 // Scale rows per set staged with a tile (0: the scales are read from L2).
@@ -630,15 +676,34 @@ __global__ void __launch_bounds__(kThreads, 2) qmm_mma_kernel(const QArgs a) {
   finish<16 * MT>(a, PER_CHANNEL, r0, c0);
 }
 
+// cluster_y > 1: blocks (x, y) with one x and cluster_y consecutive y form a
+// thread-block cluster (grid.y a multiple of it).
 template <void (*Kernel)(QArgs)>
-cudaError_t launch_kernel(dim3 grid, int smem, const QArgs& a, cudaStream_t stream) {
+cudaError_t launch_kernel(dim3 grid, int smem, const QArgs& a, cudaStream_t stream,
+                          int cluster_y = 1) {
   // Above 48 KB a block's dynamic shared memory needs the attribute: set
   // once per body, to the most any call asks for.
   static const cudaError_t allowed =
       cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (allowed != cudaSuccess) return allowed;
-  Kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  if (cluster_y == 1) {
+    Kernel<<<grid, kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster_y;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, Kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // The body for (T, rows): CUDA cores for f32 x or one row (row tile 1 or
@@ -679,128 +744,364 @@ cudaError_t dispatch(const QArgs& a, int splits, int int4, cudaStream_t stream) 
                      : launch<T, false, false>(a, splits, stream);
 }
 
-// The w8a8 body: per-channel INT8 weights, x quantized per row. RT: rows
-// per thread. part: int32 partial sums of a split launch; sx_out: the row
-// scales for its reduce pass; out: the result of a one-split launch.
-template <typename T, int RT>
-__global__ void __launch_bounds__(kCols)
-qmm_w8a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ qw,
-                const float* __restrict__ scale, int32_t* __restrict__ part,
-                float* __restrict__ sx_out, float* __restrict__ out, int rows,
-                int K, int N, int split_rows) {
-  const int n = blockIdx.x * kCols + threadIdx.x;
-  const int r0 = blockIdx.y * RT;
-  const int k_begin = blockIdx.z * split_rows;
-  const int k_end = min(K, k_begin + split_rows);
-  const bool live = n < N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// ---- The w8a8 body ----
 
-  __shared__ float red[kCols / 32][RT];
-  __shared__ float sx[RT];
-  __shared__ int xs[RT][kChunk];  // xq[r0 + r, k] for the stage's rows k
+// d += a (16x32, row) * b (32x8, col), s8 in, s32 sums (exact).
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  // Each row's scale from its absmax over the whole of K (max is exact in
-  // any order).
-#pragma unroll
-  for (int r = 0; r < RT; ++r) {
+// The k order of a 32-row k step. Fragment k f = 4 tq + i (f < 16) of the
+// B fragment's first register is weight row 2 tq + 8 i of the step, f = 16
+// + 4 tq + i its row 2 tq + 8 i + 1: the four rows that the four tq of a
+// warp read at once lie 2 rows apart, which with kWS = 144-byte rows puts
+// them in four distinct 8-bank groups. xq is stored in fragment order, so
+// an A fragment register is one 32-bit load. frag_pos maps a row r of the
+// step to its fragment k.
+__device__ __forceinline__ int frag_pos(int r) {
+  const int h = r & 1, e = r - h;
+  return 16 * h + 4 * ((e & 7) >> 1) + (e >> 3);
+}
+
+// The 4 x 4 byte transpose: w[i] holds row i's bytes for 4 columns; col[c]
+// gets column c's bytes of rows 0..3, row 0 in the low byte.
+__device__ __forceinline__ void transpose4(const uint32_t* w, uint32_t* col) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
+  col[0] = __byte_perm(t0, t1, 0x5410);
+  col[1] = __byte_perm(t0, t1, 0x7632);
+  col[2] = __byte_perm(t2, t3, 0x5410);
+  col[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// Four consecutive x elements of one row (16 bytes of f32, 8 of bf16) and
+// their conversion.
+template <typename T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using V = uint4;
+  __device__ __forceinline__ static void unpack(const V& v, float* f) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+};
+template <>
+struct Quad<__nv_bfloat16> {
+  using V = uint2;
+  __device__ __forceinline__ static void unpack(const V& v, float* f) {
+    f[0] = __uint_as_float(v.x << 16); f[1] = __uint_as_float(v.x & 0xFFFF0000u);
+    f[2] = __uint_as_float(v.y << 16); f[3] = __uint_as_float(v.y & 0xFFFF0000u);
+  }
+};
+
+// The prologue of the w8a8 body: each row's scale over the whole of K,
+// sx[r] = max(absmax, 1e-12) / 127 (IEEE division, as the plain version's),
+// then xq of the block's K range in shared memory, in fragment order per
+// 32-row step, zeros past the range: xq = clip(rint(x / sx), -127, 127).
+// For the absmax, tpr threads share a row (16 bytes per load); their maxima
+// meet by warp shuffle and in shared memory (non-negative floats order as
+// their bits). issue() starts the weight tiles' copies: it runs after the
+// block's first x loads are in flight, so that they are not queued behind
+// the weight's.
+template <typename T, typename Issue>
+__device__ __forceinline__ void stage_xq(const QArgs& a, int p_begin, int p_end, int8_t* xq,
+                                         int ld, float* sx, Issue issue) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int kPre = 4;            // loads per thread in flight before issue()
+  __shared__ int smax[64];
+  const T* x = static_cast<const T*>(a.x);
+
+  if (threadIdx.x < a.rows) smax[threadIdx.x] = 0;
+  __syncthreads();
+  {
+    int tpr = kThreads;
+    while (tpr * a.rows > kThreads) tpr >>= 1;
+    const int r = threadIdx.x / tpr, s = threadIdx.x % tpr;
+    const bool vec = ((uintptr_t)x & 15) == 0 && a.K % E == 0;
+    const int u1 = vec ? a.K / E : a.K;  // loads per row
+    const T* xr = x + (int64_t)min(r, a.rows - 1) * a.K;
     float m = 0.f;
-    if (r0 + r < rows) {
-      const T* xr = x + (int64_t)(r0 + r) * K;
-      for (int k = threadIdx.x; k < K; k += kCols) m = fmaxf(m, fabsf(to_f32(xr[k])));
-    }
+    if (vec) {
+      const uint4* xv = reinterpret_cast<const uint4*>(xr);
+      uint4 w[kPre];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) red[warp][r] = m;
-  }
-  __syncthreads();
-  if (threadIdx.x < RT) {
-    float m = red[0][threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < kCols / 32; ++w) m = fmaxf(m, red[w][threadIdx.x]);
-    sx[threadIdx.x] = fmaxf(m, 1e-12f) / 127.0f;
-  }
-  __syncthreads();
-
-  int acc[RT];
-#pragma unroll
-  for (int r = 0; r < RT; ++r) acc[r] = 0;
-
-  for (int kc = k_begin; kc < k_end; kc += kChunk) {
-    const int len = min(kChunk, k_end - kc);
-    __syncthreads();  // the previous stage's reads are done
-    for (int i = threadIdx.x; i < RT * len; i += kCols) {
-      const int r = i / len, c = i - r * len;
-      int v = 0;
-      if (r0 + r < rows) {
-        const float q = rintf(to_f32(x[(int64_t)(r0 + r) * K + kc + c]) / sx[r]);
-        v = (int)fminf(fmaxf(q, -127.f), 127.f);
+      for (int u = 0; u < kPre; ++u) {
+        const int j = s + u * tpr;
+        w[u] = r < a.rows && j < u1 ? __ldg(xv + j) : make_uint4(0, 0, 0, 0);
       }
-      xs[r][c] = v;
-    }
-    __syncthreads();
-    if (!live) continue;
-    const int8_t* wp = qw + (int64_t)kc * N + n;
+      issue();
+#pragma unroll
+      for (int u = 0; u < kPre; ++u) {
+        const T* e = reinterpret_cast<const T*>(&w[u]);
+#pragma unroll
+        for (int k = 0; k < E; ++k) m = fmaxf(m, fabsf(to_f32(e[k])));
+      }
+      if (r < a.rows) {
 #pragma unroll 8
-    for (int c = 0; c < len; ++c) {
-      const int b = wp[(int64_t)c * N];
+        for (int j = s + kPre * tpr; j < u1; j += tpr) {
+          const uint4 v = __ldg(xv + j);
+          const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] += xs[r][c] * b;
+          for (int k = 0; k < E; ++k) m = fmaxf(m, fabsf(to_f32(e[k])));
+        }
+      }
+    } else {
+      issue();
+      if (r < a.rows) {
+#pragma unroll 4
+        for (int k = s; k < u1; k += tpr) m = fmaxf(m, fabsf(to_f32(xr[k])));
+      }
     }
-  }
-  const bool split = gridDim.z > 1;
-  if (split && blockIdx.x == 0 && blockIdx.z == 0 && threadIdx.x < RT &&
-      r0 + threadIdx.x < rows)
-    sx_out[r0 + threadIdx.x] = sx[threadIdx.x];
-  if (!live) return;
-  const float s = scale[n];
 #pragma unroll
-  for (int r = 0; r < RT; ++r) {
-    if (r0 + r >= rows) continue;
-    if (split)
-      part[((int64_t)blockIdx.z * rows + r0 + r) * N + n] = acc[r];
-    else
-      out[(int64_t)(r0 + r) * N + n] = (float)acc[r] * sx[r] * s;
+    for (int o = 16; o > 0; o >>= 1)  // lanes of one row only: tpr is a power of two
+      if (o < tpr) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (r < a.rows && (s & 31) == 0) atomicMax(smax + r, __float_as_int(m));
+  }
+  __syncthreads();
+  if (threadIdx.x < a.rows)
+    sx[threadIdx.x] = __fdiv_rn(fmaxf(__int_as_float(smax[threadIdx.x]), 1e-12f), 127.0f);
+  __syncthreads();
+
+  // Quad i: row r, local k 4 j .. 4 j + 3 of the range. The padding rows
+  // of the last 16-row tile are left as they are: the mma keeps rows apart,
+  // and their sums are never read.
+  const int nq = a.split_rows / 4;
+  const bool vec4 = ((uintptr_t)x & 15) == 0 && a.K % 4 == 0;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < a.rows * nq; i += kThreads) {
+    const int r = i / nq, kl = 4 * (i - r * nq);
+    const int k = p_begin + kl;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (k < p_end) {
+      if (vec4) {
+        Quad<T>::unpack(__ldg(reinterpret_cast<const typename Quad<T>::V*>(
+                            x + (int64_t)r * a.K + k)), f);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k + e < p_end) f[e] = to_f32(x[(int64_t)r * a.K + k + e]);
+      }
+    }
+    int8_t* row = xq + r * ld + (kl & ~31);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = rintf(__fdiv_rn(f[e], sx[r]));
+      row[frag_pos((kl & 31) + e)] = (int8_t)(int)fminf(fmaxf(v, -127.f), 127.f);
+    }
   }
 }
 
-// out[r, n] = float(sum over splits) * sx[r] * scale[n]: int32 sums are
-// exact in any order.
-__global__ void qmm_w8a8_reduce_kernel(const int32_t* __restrict__ part,
-                                       const float* __restrict__ sx,
-                                       const float* __restrict__ scale,
-                                       float* __restrict__ out, int rows, int N,
-                                       int splits) {
-  const int64_t total = (int64_t)rows * N;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int s = 0;
-  for (int z = 0; z < splits; ++z) s += part[z * total + i];
-  out[i] = (float)s * sx[i / N] * scale[i % N];
+// The w8a8 body: per-channel INT8 weights, all the call's rows (MT 16-row
+// tiles, 1 <= rows <= 16 MT) in one block against one pass over a 128-
+// column weight tile; grid (column tiles, K splits). Three blocks per SM
+// up to 16 rows (the lm_head's 393 column tiles in one wave), two above.
+// ALIGNED: every weight row starts on 16 bytes (N % 16 == 0), else each
+// 4-byte word is cut from two aligned ones. part (int32, through QArgs's pointer): (splits, column
+// tiles, rows, 128) partial sums and tickets: one int32 at 0 per column
+// tile, unused when splits == 1.
+template <typename T, int MT, bool ALIGNED>
+__global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2) qmm_w8a8_kernel(const QArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float sx[16 * MT];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wc = warp & 3, kh = warp >> 2;  // the warp's 32 columns, its k step of a tile
+  const int c0 = blockIdx.x * kNT;
+  const Tiles<false> tiles(a, smem, c0, blockIdx.y);
+  // xq rows of stride ld: (ld / 4) % 32 == 4 words, so the 8 row groups of
+  // an A fragment load fall in distinct banks.
+  const int m_tiles = (a.rows + 15) / 16;
+  const int ld = a.split_rows + 16;
+  int8_t* xq = (int8_t*)(smem + kStages * tiles.bytes);
+  stage_xq<T>(a, tiles.p_begin, tiles.p_end, xq, ld, sx, [&] {
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) tiles.issue(t);
+  });
+
+  int acc[MT][4][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][c][i] = 0;
+
+  for (int t = 0; t < tiles.ntiles; ++t) {
+    tiles.issue(t + kStages - 1);
+    zg2::cp_async_wait<kStages - 1>();
+    __syncthreads();  // also orders the xq stores before the first tile's reads
+    const int p0 = tiles.p_begin + t * kKT;
+    if (32 * kh < tiles.p_end - p0) {
+      const unsigned char* w = (const unsigned char*)tiles.w(t);
+      // B fragments: bq[c][h] is fragment column g of n-tile c, which is
+      // the warp's column 4 g + c; h = 0 the step's even rows, 1 the odd.
+      uint32_t bq[4][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t wr[4], col[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 32 * kh + 2 * tq + 8 * i + h;
+          const unsigned char* row = w + r * kWS + 32 * wc + 4 * g;
+          if constexpr (ALIGNED) {
+            wr[i] = *reinterpret_cast<const uint32_t*>(row);
+          } else {
+            const int sh = tiles.shift(p0 + r);
+            const uint32_t* p = reinterpret_cast<const uint32_t*>(row + (sh & ~3));
+            wr[i] = __funnelshift_r(p[0], p[1], 8 * (sh & 3));
+          }
+        }
+        transpose4(wr, col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bq[c][h] = col[c];
+      }
+      const int k = p0 - tiles.p_begin + 32 * kh + 4 * tq;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m >= m_tiles) break;
+        const int8_t* xa = xq + (m * 16 + g) * ld + k;
+        const uint32_t af[4] = {*reinterpret_cast<const uint32_t*>(xa),
+                                *reinterpret_cast<const uint32_t*>(xa + 8 * ld),
+                                *reinterpret_cast<const uint32_t*>(xa + 16),
+                                *reinterpret_cast<const uint32_t*>(xa + 8 * ld + 16)};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mma_s8(acc[m][c], af, bq[c]);
+      }
+    }
+    __syncthreads();  // the stage is free for the copy issued next
+  }
+  zg2::cp_async_wait<0>();
+  __syncthreads();
+
+  // The two k halves' sums, added in shared memory (the stages and xq are
+  // free now): red[row][col] over the tile's 128 columns.
+  int* red = (int*)smem;
+#pragma unroll
+  for (int half = 1; half >= 0; --half) {
+    if (kh == half) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m >= m_tiles) break;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 16 * m + g + 8 * (i >> 1);
+            const int col = 32 * wc + 4 * (2 * tq + (i & 1)) + c;
+            int* at = red + row * kNT + col;
+            *at = half ? acc[m][c][i] : *at + acc[m][c][i];
+          }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int splits = gridDim.y;
+  if (splits == 1) {
+    for (int o = threadIdx.x; o < a.rows * kNT; o += kThreads) {
+      const int r = o / kNT, n = c0 + o % kNT;
+      if (n < a.N) a.out[(int64_t)r * a.N + n] = (float)red[o] * sx[r] * a.scale[n];
+    }
+    return;
+  }
+  if (a.cluster) {
+    // The column tile's splits are one thread-block cluster: block rank q
+    // adds every rank's sums for the outputs q, q + splits, ... through
+    // distributed shared memory, in rank (split) order, and applies the
+    // tail. The second barrier keeps every block's sums alive until read.
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int o = threadIdx.x + blockIdx.y * kThreads; o < a.rows * kNT;
+         o += splits * kThreads) {
+      const int r = o / kNT, n = c0 + o % kNT;
+      int v = 0;
+      for (int q = 0; q < splits; ++q) v += *cluster.map_shared_rank(red + o, q);
+      if (n < a.N) a.out[(int64_t)r * a.N + n] = (float)v * sx[r] * a.scale[n];
+    }
+    cluster.sync();
+    return;
+  }
+  // This split's sums, as the tile's int4 quads (part is tile-contiguous,
+  // so every quad is 16-byte aligned whatever N is).
+  const int Q = a.rows * kNT / 4, ntiles = (a.N + kNT - 1) / kNT;
+  int4* part = reinterpret_cast<int4*>(a.part);
+  int4* mine = part + ((int64_t)blockIdx.y * ntiles + blockIdx.x) * Q;
+  for (int q = threadIdx.x; q < Q; q += kThreads) mine[q] = reinterpret_cast<const int4*>(red)[q];
+  if (!zg2::last_to_arrive(a.tickets + blockIdx.x, splits)) return;
+  // The last block of the column tile: each thread owns up to U of the
+  // tile's quads and sums their splits in split order (integer sums: exact
+  // in any order), U * kZ 16-byte loads in flight, then applies the tail
+  // float(acc) * sx[r] * scale[n] in the plain version's order.
+  constexpr int U = 2 * MT;       // quads per thread: Q <= 16 MT * kNT / 4
+  constexpr int kZ = 16 / U;      // splits per batch
+  int4 sum[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) sum[u] = make_int4(0, 0, 0, 0);
+  for (int z0 = 0; z0 < splits; z0 += kZ) {
+    int4 v[kZ][U];
+#pragma unroll
+    for (int z = 0; z < kZ; ++z)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int q = threadIdx.x + u * kThreads;
+        v[z][u] = q < Q && z0 + z < splits
+                      ? __ldcg(part + ((int64_t)(z0 + z) * ntiles + blockIdx.x) * Q + q)
+                      : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+    for (int z = 0; z < kZ; ++z)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sum[u].x += v[z][u].x;
+        sum[u].y += v[z][u].y;
+        sum[u].z += v[z][u].z;
+        sum[u].w += v[z][u].w;
+      }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int q = threadIdx.x + u * kThreads;
+    if (q >= Q) continue;
+    const int r = 4 * q / kNT, c = 4 * q % kNT;
+    const int s4[4] = {sum[u].x, sum[u].y, sum[u].z, sum[u].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = c0 + c + e;
+      if (n < a.N) a.out[(int64_t)r * a.N + n] = (float)s4[e] * sx[r] * a.scale[n];
+    }
+  }
+}
+
+// Rows per w8a8 block: 16 up to 16 rows, 32 up to 32, else 64.
+__host__ __device__ __forceinline__ int w8a8_m_tiles(int rows) {
+  return rows <= 16 ? 1 : rows <= 32 ? 2 : 4;
+}
+
+template <typename T, int MT>
+cudaError_t launch_w8a8(const QArgs& a, int splits, bool aligned, cudaStream_t stream) {
+  const int x_bytes = 16 * MT * (a.split_rows + 16);
+  if (x_bytes > (MT == 1 ? kW8XBytes : kW8XBytesWide)) return cudaErrorInvalidValue;
+  int smem = kStages * stage_bytes(false, a.K, a.K) + x_bytes;
+  if (smem < 16 * MT * kNT * 4) smem = 16 * MT * kNT * 4;  // the halves' reduction
+  const dim3 grid((a.N + kNT - 1) / kNT, splits);
+  const int cluster = a.cluster ? splits : 1;
+  if (aligned)
+    return launch_kernel<qmm_w8a8_kernel<T, MT, true>>(grid, smem, a, stream, cluster);
+  return launch_kernel<qmm_w8a8_kernel<T, MT, false>>(grid, smem, a, stream, cluster);
 }
 
 template <typename T>
-cudaError_t launch_w8a8(const void* x, const void* qw, const void* scale, void* part,
-                        void* sx, void* out, int rows, int K, int N, int splits,
-                        cudaStream_t stream) {
-  const int split_rows = (K + splits - 1) / splits;
-  const int rt = rows == 1 ? 1 : 8;
-  const dim3 grid((N + kCols - 1) / kCols, (rows + rt - 1) / rt, splits);
-  if (rt == 1)
-    qmm_w8a8_kernel<T, 1><<<grid, kCols, 0, stream>>>(
-        (const T*)x, (const int8_t*)qw, (const float*)scale, (int32_t*)part,
-        (float*)sx, (float*)out, rows, K, N, split_rows);
-  else
-    qmm_w8a8_kernel<T, 8><<<grid, kCols, 0, stream>>>(
-        (const T*)x, (const int8_t*)qw, (const float*)scale, (int32_t*)part,
-        (float*)sx, (float*)out, rows, K, N, split_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const int64_t total = (int64_t)rows * N;
-  qmm_w8a8_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      (const int32_t*)part, (const float*)sx, (const float*)scale, (float*)out, rows,
-      N, splits);
-  return cudaGetLastError();
+cudaError_t dispatch_w8a8(const QArgs& a, int splits, bool aligned, cudaStream_t stream) {
+  switch (w8a8_m_tiles(a.rows)) {
+    case 1: return launch_w8a8<T, 1>(a, splits, aligned, stream);
+    case 2: return launch_w8a8<T, 2>(a, splits, aligned, stream);
+    default: return launch_w8a8<T, 4>(a, splits, aligned, stream);
+  }
 }
 
 }  // namespace
@@ -832,18 +1133,28 @@ extern "C" int zg2_qmm(const void* x, const void* qw, const void* scale, void* p
 }
 
 // The w8a8 body: x (rows, K) f32 (dtype 0) or bf16 (1), 1 <= rows <= 64;
-// qw (K, N) int8; scale (1, N) f32. part: (splits, rows, N) int32 and sx:
-// (rows,) f32 scratch, unused when splits == 1. Returns a cudaError_t.
-extern "C" int zg2_qmm_w8a8(const void* x, const void* qw, const void* scale,
-                            void* part, void* sx, void* out, int rows, int K, int N,
-                            int splits, int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (rows < 1 || rows > 64 || K < 1 || N < 1 || splits < 1)
+// qw (K, N) int8; scale (1, N) f32. splits x split_rows: the K split
+// (split_rows a multiple of 64, the splits covering K with none empty);
+// m_tiles: the body's 16-row tiles, which must be w8a8_m_tiles(rows);
+// cluster: 1 to combine the splits (2 to 8 of them) of a column tile in one
+// thread-block cluster, 0 for the ticket. part: (splits, column tiles of
+// 128, rows, 128) int32 scratch and tickets: one int32 at 0 per column
+// tile, unused when splits == 1 or with a cluster. Returns a cudaError_t.
+extern "C" int zg2_qmm_w8a8(const void* x, const void* qw, const void* scale, void* part,
+                            void* tickets, void* out, int rows, int K, int N, int splits,
+                            int split_rows, int m_tiles, int cluster, int dtype,
+                            void* stream) {
+  if (rows < 1 || rows > 64 || K < 1 || N < 1 || splits < 1 || split_rows < kKT ||
+      split_rows % kKT || m_tiles != w8a8_m_tiles(rows) ||
+      (int64_t)splits * split_rows < K || (int64_t)(splits - 1) * split_rows >= K ||
+      (cluster && (splits < 2 || splits > 8)) ||
+      (splits > 1 && !cluster && (!part || !tickets)))
     return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_w8a8<float>(x, qw, scale, part, sx, out, rows, K, N, splits, st);
-  if (dtype == 1)
-    return launch_w8a8<__nv_bfloat16>(x, qw, scale, part, sx, out, rows, K, N, splits,
-                                      st);
+  const QArgs a{x, (const int8_t*)qw, (const float*)scale, (float*)part, (int*)tickets,
+                (float*)out, rows, K, N, K, split_rows, cluster != 0};
+  const bool aligned = N % 16 == 0 && ((uintptr_t)qw & 15) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return dispatch_w8a8<float>(a, splits, aligned, st);
+  if (dtype == 1) return dispatch_w8a8<__nv_bfloat16>(a, splits, aligned, st);
   return cudaErrorInvalidValue;
 }

@@ -110,8 +110,8 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
     scale: (K/G, N) float32, G = K for per-channel. All contiguous, on one
     device. ``w8a8`` takes the s8 x s8 body for a per-channel INT8 weight
     (rows <= W8A8_MAX_ROWS) and is ignored for any other weight. Returns
-    (rows, N) float32. One launch per call (the weight-only body's K split
-    and its combine are in the kernel, ``qmm_geometry``). Launches count in
+    (rows, N) float32. One launch per call (the K split and its combine are
+    in the kernel: ``qmm_geometry``, ``w8a8_geometry``). Launches count in
     ``qmm.launches``, w8a8 launches in ``qmm.w8a8_launches``."""
     if x.device.type == "cpu":
         return qmm_plain(x, qw, scale, int4=int4, w8a8=w8a8)
@@ -142,17 +142,17 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if w8a8:
-        splits = _k_splits(rows, n, kp)
-        # A split launch keeps the int32 partial sums and the row scales
-        # for its reduce pass, which applies them; one split needs neither.
-        partial, sx = out, out
-        if splits > 1:
-            partial = torch.empty((splits, rows, n), dtype=torch.int32, device=x.device)
-            sx = torch.empty((rows,), dtype=torch.float32, device=x.device)
+        geo = w8a8_geometry(rows, k, n)
+        scratch = (None, None)
+        if geo.splits > 1 and not geo.cluster:  # held until the launch is enqueued
+            scratch = (torch.empty((geo.splits, geo.tiles, rows, _QMM_COLS), dtype=torch.int32,
+                                   device=x.device),
+                       _build.tickets(x.device, geo.tiles))
+        partial, tickets = (None if t is None else t.data_ptr() for t in scratch)
         err = _build.library().zg2_qmm_w8a8(
-            x.data_ptr(), qw.data_ptr(), scale.data_ptr(), partial.data_ptr(),
-            sx.data_ptr(), out.data_ptr(), rows, k, n, splits, _DTYPE_CODES[x.dtype],
-            stream)
+            x.data_ptr(), qw.data_ptr(), scale.data_ptr(), partial, tickets, out.data_ptr(),
+            rows, k, n, geo.splits, geo.split_rows, geo.m_tiles, int(geo.cluster),
+            _DTYPE_CODES[x.dtype], stream)
         _build.check(err, "qmm (w8a8)")
         qmm.w8a8_launches += 1
         return out
@@ -219,18 +219,17 @@ def wmm(x, w):
 
 wmm.launches = 0
 
-# Launch geometry of csrc/wmm.cu and of qmm's w8a8 body: one thread per
-# output column, _QMM_COLS columns per block, row tiles of 8 (1 for a
-# single row).
+# Launch geometry of csrc/wmm.cu: one thread per output column, _QMM_COLS
+# columns per block, row tiles of 8 (1 for a single row).
 _QMM_COLS = 128
 _TARGET_BLOCKS = 132 * 8  # about eight blocks on each of the H100's 132 SMs
 _MIN_SPLIT_ROWS = 32      # packed weight rows per K split, at least
 
 
 def _k_splits(rows: int, n: int, kp: int) -> int:
-    """How many K ranges the w8a8 body or wmm splits the weight into (each
-    block sums one range; a second pass adds the ranges in order, so the
-    result does not depend on the launch). Enough blocks to fill the card,
+    """How many K ranges wmm splits the weight into (each block sums one
+    range; a second pass adds the ranges in order, so the result does not
+    depend on the launch). Enough blocks to fill the card,
     and no range shorter than _MIN_SPLIT_ROWS packed rows."""
     tiles = -(-n // _QMM_COLS) * (1 if rows == 1 else -(-rows // 8))
     want = -(-_TARGET_BLOCKS // tiles)
@@ -289,3 +288,65 @@ def qmm_geometry(rows: int, k: int, n: int, int4: bool, dtype) -> QmmGeometry:
     split_rows = -(-split_rows // _QMM_TILE_ROWS) * _QMM_TILE_ROWS
     split_rows = min(split_rows, cap)
     return QmmGeometry(row_tile, tiles, -(-p // split_rows), split_rows)
+
+
+# Launch geometry of qmm's w8a8 body (csrc/qmm.cu qmm_w8a8_kernel): all the
+# call's rows in 16-row tiles per block, _QMM_COLS columns, K split into
+# ranges of split_rows weight rows (whole _QMM_TILE_ROWS-row tiles) added
+# by the last block of each column tile from int32 partials laid out
+# (splits, tiles, rows, _QMM_COLS). xq of a range is staged in shared
+# memory as int8, rows 16 bytes longer than the range. A narrow weight
+# (fewer than _W8A8_CLUSTER_TILES column tiles) with a short K (at most
+# _W8A8_CLUSTER_SPLITS ranges of _W8A8_CLUSTER_ROWS rows) takes that many
+# splits and adds them in a thread-block cluster instead: the attention
+# linears of GPT-2 1.5B (13 tiles, K 1600 or 1664: 7 splits).
+_W8A8_CLUSTER_TILES = 32
+_W8A8_CLUSTER_SPLITS = 8     # the portable cluster size
+_W8A8_CLUSTER_ROWS = 256
+_W8A8_SLOTS = 2 * 132        # two resident blocks on each of the H100's 132 SMs
+_W8A8_X_BYTES = 32768        # xq of a block's range: one 16-row tile
+_W8A8_X_BYTES_WIDE = 65536   # ... two or four
+
+
+@dataclasses.dataclass(frozen=True)
+class W8a8Geometry:
+    """One w8a8 launch: ``m_tiles`` 16-row tiles (every row of the call in
+    each block), ``tiles`` column tiles, and the K split: ``splits`` ranges
+    of ``split_rows`` weight rows, added in a thread-block cluster of the
+    column tile's splits when ``cluster``, else by the last block to take
+    the column tile's ticket."""
+    m_tiles: int
+    tiles: int
+    splits: int
+    split_rows: int
+    cluster: bool
+
+
+def w8a8_geometry(rows: int, k: int, n: int) -> W8a8Geometry:
+    """The w8a8 launch for x (rows, K) and a (K, N) INT8 weight, from these
+    shapes alone. The K split aims at _W8A8_SLOTS blocks, in ranges that
+    are whole tiles; with more than one row it keeps the int32 partial sums
+    (4 bytes per row, column and split) below the weight's bytes; and a
+    range's xq must fit the body's shared memory. A narrow weight with a
+    short K splits into at most _W8A8_CLUSTER_SPLITS ranges instead, added
+    in a cluster (no partial sums in device memory, no ticket)."""
+    if not 1 <= rows <= W8A8_MAX_ROWS or min(k, n) < 1:
+        raise ValueError(f"w8a8_geometry: rows in 1..{W8A8_MAX_ROWS}, K and N positive, "
+                         f"got {rows, k, n}")
+    m_tiles = 1 if rows <= 16 else 2 if rows <= 32 else 4
+    budget = _W8A8_X_BYTES if m_tiles == 1 else _W8A8_X_BYTES_WIDE
+    cap = (budget // (16 * m_tiles) - 16) // _QMM_TILE_ROWS * _QMM_TILE_ROWS
+    tiles = -(-n // _QMM_COLS)
+    want = -(-_W8A8_SLOTS // tiles)
+    if rows > 1:
+        want = min(want, max(1, k // (4 * rows)))
+    split_rows = -(-k // want)
+    split_rows = -(-split_rows // _QMM_TILE_ROWS) * _QMM_TILE_ROWS
+    split_rows = min(split_rows, cap)
+    if tiles < _W8A8_CLUSTER_TILES and k <= _W8A8_CLUSTER_SPLITS * _W8A8_CLUSTER_ROWS:
+        split_rows = -(-k // _W8A8_CLUSTER_SPLITS)
+        split_rows = -(-split_rows // _QMM_TILE_ROWS) * _QMM_TILE_ROWS
+    splits = -(-k // split_rows)
+    cluster = splits > 1 and tiles < _W8A8_CLUSTER_TILES and (
+        k <= _W8A8_CLUSTER_SPLITS * _W8A8_CLUSTER_ROWS)
+    return W8a8Geometry(m_tiles, tiles, splits, split_rows, cluster)

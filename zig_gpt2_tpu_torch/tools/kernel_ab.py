@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of the decode-attention kernels and of the dequant GEMV
-``qmm`` of one source tree, on inputs that are the same for every tree, so
-that two trees compare.
+"""Device time of the decode-attention kernels, of the dequant GEMV ``qmm``
+(weight-only and w8a8 bodies) and of the Gumbel-max sampler of one source
+tree, on inputs that are the same for every tree, so that two trees
+compare.
 
     python3 zig_gpt2_tpu_torch/tools/kernel_ab.py [--root DIR] [--label NAME]
 
@@ -9,8 +10,8 @@ that two trees compare.
 the one holding this script); an older checkout works as long as its
 wrappers take ``start=``. The kernels are built from that tree's sources.
 To compare two trees on one card, run them in one session in the order
-A, B, B, A. Prints the tree's attention and qmm kernels' register counts
-(from its ``ptxas -v`` log), then one JSON line per kernel: the device time per
+A, B, B, A. Prints the tree's kernels' register counts (from its ``ptxas
+-v`` log), then one JSON line per kernel: the device time per
 call by CUDA-graph replay (``--repeats`` readings of ``10 L`` calls
 rotating over the L layers), the error against the plain version and a
 checksum of the inputs. The inputs are drawn on the card from fixed seeds:
@@ -25,8 +26,12 @@ prefix rows of lane 0 (the engine's shape). ``qmm`` at GPT-2 1.5B's
 INT4 block linears (1600x1600 G=32, 1600x6400 G=32, 6400x1600 G=128,
 rotating over 48 layers) and its INT8 per-channel lm_head (1600x50257),
 bf16 x of 1 and 16 rows (the engine's and the batcher's), with a line per
-shape and the sum over one decode step's 289 calls (``--kernels`` picks
-``attention``, ``qmm`` or both).
+shape and the sum over one decode step's 289 calls. ``w8a8``: the same for
+qmm's w8a8 body at the phantom-padded 1.5B shapes (1600x1664 Q/K/V,
+1664x1600, 1600x6400, 6400x1600, rotating over 48 layers of random INT8
+weights, and the 1600x50257 lm_head). ``sampler``: the Gumbel-max sampler
+at B=1 and B=16 over V=50257 f32 logits, T=0.8 (``--kernels`` picks any of
+``attention``, ``qmm``, ``w8a8``, ``sampler``).
 """
 
 from __future__ import annotations
@@ -154,8 +159,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(here), help="checkout to time")
     ap.add_argument("--label", default=None, help="name printed with each line")
     ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--kernels", default="attention,qmm",
-                    help="comma-separated: attention, qmm")
+    ap.add_argument("--kernels", default="attention,qmm,w8a8,sampler",
+                    help="comma-separated: attention, qmm, w8a8, sampler")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     label = args.label or root.name
@@ -172,10 +177,9 @@ def main(argv=None) -> int:
         print(f"kernel_ab: imported {att.__file__}, not from {root}", file=sys.stderr)
         return 1
     _, secs, log = _build.build()
-    print(f"{label}: build {secs:.1f} s; attention and qmm kernels' registers:")
+    print(f"{label}: build {secs:.1f} s; kernels' registers:")
     for name, used in register_report(log):
-        if "decode_attention" in name or ("qmm" in name and "w8a8" not in name):
-            print(f"  {label}: {name}: {used}")
+        print(f"  {label}: {name}: {used}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
@@ -184,6 +188,10 @@ def main(argv=None) -> int:
         time_attention(att, label, card, args.repeats, torch)
     if "qmm" in kinds:
         time_qmm(label, card, args.repeats, torch)
+    if "w8a8" in kinds:
+        time_w8a8(label, card, args.repeats, torch)
+    if "sampler" in kinds:
+        time_sampler(label, card, args.repeats, torch)
     return 0
 
 
@@ -265,6 +273,69 @@ def time_qmm(label, card, repeats, torch):
     for rows, us in step.items():
         print(json.dumps({"tree": label, "kernel": "qmm per 1.5B decode step (289 calls)",
                           "rows": rows, "ms": us / 1e3, "card": card}))
+
+
+
+# (label, K, N, calls per decode step) of the w8a8 body at GPT-2 1.5B with
+# the phantom head padded in.
+W8A8_SHAPES = (("attn.wq/wk/wv 1600x1664", 1600, 1664, 3 * 48),
+               ("attn.c_proj 1664x1600", 1664, 1600, 48),
+               ("mlp.c_fc 1600x6400", 1600, 6400, 48),
+               ("mlp.c_proj 6400x1600", 6400, 1600, 48),
+               ("lm_head 1600x50257", 1600, 50257, 1))
+
+
+def time_w8a8(label, card, repeats, torch):
+    """qmm's w8a8 body per call at each shape of ``W8A8_SHAPES`` and per
+    decode step, bf16 x of 1 and 16 rows. Block linears rotate over 48
+    layers of random INT8 weights and per-channel scales, so that the
+    weights come from HBM; the lm_head is one 80 MB weight. The error is
+    against the plain version (0 when bit-equal)."""
+    from zig_gpt2_tpu_torch.quant import kernels as qk
+
+    step = {}
+    for name, k, n, calls in W8A8_SHAPES:
+        L = 48 if calls > 1 else 1
+        g = torch.Generator(device="cuda").manual_seed(k + n + 1)
+        qw = torch.randint(-127, 128, (L, k, n), device="cuda", generator=g, dtype=torch.int8)
+        scale = torch.rand(L, 1, n, device="cuda", generator=g) * 0.01 + 1e-3
+        for rows in (1, 16):
+            x = (torch.randn(rows, k, device="cuda", generator=g) * 3).to(torch.bfloat16)
+            err = (qk.qmm(x, qw[0], scale[0], w8a8=True)
+                   - qk.qmm_plain(x, qw[0], scale[0], w8a8=True)).abs().max().item()
+            times = [time_us(lambda i: qk.qmm(x, qw[i % L], scale[i % L], w8a8=True),
+                             max(8 * L, 64), torch) for _ in range(repeats)]
+            us = statistics.median(times)
+            step[rows] = step.get(rows, 0.0) + calls * us
+            print(json.dumps({"tree": label, "kernel": f"qmm w8a8 {name}", "rows": rows,
+                              "us": times, "us_median": us, "max_abs_err_vs_plain": err,
+                              "input_checksum": checksum([qw[0], scale[0], x], torch),
+                              "card": card}))
+        del qw, scale
+    for rows, us in step.items():
+        print(json.dumps({"tree": label, "kernel": "qmm w8a8 per 1.5B decode step (289 calls)",
+                          "rows": rows, "ms": us / 1e3, "card": card}))
+
+
+def time_sampler(label, card, repeats, torch):
+    """The sampler per call at B=1 and B=16, V=50257 f32 logits, T=0.8,
+    without a threshold; the ids are held to the plain version's."""
+    from zig_gpt2_tpu_torch.ops import sampling_kernel as sk
+
+    V, T = 50257, 0.8
+    for B in (1, 16):
+        g = torch.Generator(device="cuda").manual_seed(B)
+        logits = torch.randn(B, V, device="cuda", generator=g)
+        seeds = torch.randint(0, 2**31 - 1, (B,), device="cuda", dtype=torch.int32,
+                              generator=g)
+        same = bool(torch.equal(sk.sample_categorical(logits, seeds, T),
+                                sk.sample_categorical_plain(logits, seeds, T)))
+        times = [time_us(lambda i: sk.sample_categorical(logits, seeds, T), 400, torch)
+                 for _ in range(repeats)]
+        print(json.dumps({"tree": label, "kernel": "sample_categorical", "B": B, "V": V,
+                          "us": times, "us_median": statistics.median(times),
+                          "ids_equal_plain": same,
+                          "input_checksum": checksum([logits, seeds], torch), "card": card}))
 
 
 if __name__ == "__main__":
