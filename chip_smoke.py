@@ -38,8 +38,9 @@ prints no result line:
                on the CPU.
 8. trace     - ``torch.profiler`` over 32 decode steps of the 124M path
                (fp32, T=0.8, one host sync per token as the engine runs
-               them): the device's busy and idle share of the traced
-               window, kernels launched per step, the top kernels.
+               them; two padding steps, a marker kernel per step): the
+               device's busy and idle share of the traced steps, kernels
+               launched per step, the top kernels.
 9. serve-batcher-124M - the same 124M model on
                ``ContinuousBatcher(batch_size=8, max_seq=256)``, ring cache:
                16 greedy requests of mixed prompt lengths and budgets. The
@@ -129,13 +130,23 @@ prints no result line:
                per step.
 21. wmm      - the float GEMV kernel against its plain version at 124M
                shapes (768x768 for each of Q/K/V and c_proj, 768x3072,
-               3072x768), rows 1, 8 and 256, f32 and bf16 weights and
-               activations.
+               3072x768; layers 0 and 11) and at weights whose rows start
+               off 16 bytes (N 150, 770), whose K (100) is not a multiple
+               of the 32-row tile, or whose K (8192) takes the ticket
+               combine above 16 bf16 rows: rows 1, 2, 7, 8, 15, 16, 17, 63,
+               64, 65, 255 and 256, f32 and bf16 weights and activations,
+               one launch per call, two calls bit-identical.
 22. serve-wmm-124M - phase 7's model and requests with ``ZG2_WMM=1`` on
                ``InferenceEngine`` (wmm launches 72 per decode step, none per
                prefill; teacher-forced logits vs the CPU; greedy tokens equal
                to the engine's without wmm up to a near-tie), then phase 9's
-               batcher (B=8), packed layout.
+               batcher (B=8), packed layout; a trace of 32 decode steps with
+               ``ZG2_WMM=1`` and then ``=0`` (device busy, kernels and wmm
+               kernels per step: no marked step above 72 wmm kernels, the
+               median exactly 72, no reduce kernel); then the B=8 batcher on
+               a bf16 copy of the weights with ``ZG2_WMM=1`` (wmm's
+               tensor-core body): ring and linear caches identical, near-tie
+               check against a bf16 engine without wmm.
 23. times    - each kernel's device time per call at the main paths'
                shapes (CUDA-graph replay of many calls), its bound, its
                plain version's time and one PyTorch library call computing
@@ -143,7 +154,9 @@ prints no result line:
                attention at B=1 and the ring at B=16 (with the w8a8
                engine's packed bf16 cache at 1.5B shapes), the sampler at
                B=1 and B=16, qmm and the w8a8 body at 1 and 16 rows per 1.5B
-               linear and per step, and wmm.
+               linear and per step, and wmm at rows 1 and 8, f32 and bf16,
+               per 124M shape and per 72-call step in served order, every
+               call on another layer's weight (from device memory, not L2).
 
 Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-22
 the packed one, which the card picks by itself at head_dim 64.
@@ -962,29 +975,42 @@ def serve_w8a8_1p5b(pkg, torch, encoder, config, params, card: str, check_layers
     return counts, engine, ids, floor
 
 
+WMM_ROWS = (1, 2, 7, 8, 15, 16, 17, 63, 64, 65, 255, 256)
+
+
 def check_wmm(qk, params, torch) -> None:
-    """Phase 21: the float GEMV against its plain version at 124M shapes."""
+    """Phase 21: the float GEMV against its plain version at the 124M
+    linears (layers 0 and last) and at weights whose rows start off 16
+    bytes (N = 150, 770) or whose K is not a multiple of the kernel's
+    32-row tile (K = 100), or so long (K = 8192) that more than 16 rows of
+    bf16 x add their splits by ticket: every row count of WMM_ROWS (each
+    body, partly padded tiles), f32 and bf16 weights and activations,
+    within QMM_TOL, one launch per call, and a second call bit-identical."""
     g = torch.Generator(device="cuda").manual_seed(21)
     atol, rtol = QMM_TOL
     last = params["blocks"]["attn"]["wq"]["w"].shape[0] - 1
-    for layer in (0, last):
-        for mod, name in BLOCK_LINEARS:
-            w32 = params["blocks"][mod][name]["w"][layer]
-            errs = []
-            for wdtype in (torch.float32, torch.bfloat16):
-                w = w32.to(wdtype)
-                for rows in (1, 8, 256):
-                    for xdtype in (torch.float32, torch.bfloat16):
-                        x = torch.randn(rows, w.shape[0], device="cuda", generator=g).to(xdtype)
-                        before = qk.wmm.launches
-                        got = qk.wmm(x, w)
-                        if qk.wmm.launches != before + 1:
-                            raise AssertionError(f"wmm {mod}.{name}: not one launch")
-                        errs.append(check_close(f"wmm {mod}.{name}[{layer}] rows={rows} "
-                                                f"x {xdtype} w {wdtype}", got,
-                                                qk.wmm_plain(x, w), atol, rtol, torch))
-            log(f"wmm {mod}.{name}[{layer}] K={w32.shape[0]} N={w32.shape[1]}: rows 1/8/256 x "
-                f"f32/bf16 x and w, max_abs_err={max(errs):.3e} (atol {atol}, rtol {rtol})")
+    cases = [(f"{mod}.{name}[{layer}]", params["blocks"][mod][name]["w"][layer])
+             for layer in (0, last) for mod, name in BLOCK_LINEARS]
+    cases += [(f"random {k}x{n}", torch.randn(k, n, device="cuda", generator=g) * 0.05)
+              for k, n in ((768, 150), (3072, 770), (100, 768), (8192, 770))]
+    for label, w32 in cases:
+        errs = []
+        for wdtype in (torch.float32, torch.bfloat16):
+            w = w32.to(wdtype)
+            for rows in WMM_ROWS:
+                for xdtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn(rows, w.shape[0], device="cuda", generator=g).to(xdtype)
+                    before = qk.wmm.launches
+                    got = qk.wmm(x, w)
+                    if qk.wmm.launches != before + 1:
+                        raise AssertionError(f"wmm {label}: not one launch")
+                    errs.append(check_close(f"wmm {label} rows={rows} x {xdtype} w {wdtype}",
+                                            got, qk.wmm_plain(x, w), atol, rtol, torch))
+                    if not torch.equal(qk.wmm(x, w), got):
+                        raise AssertionError(f"wmm {label} rows={rows} x {xdtype} w {wdtype}: "
+                                             "two calls differ")
+        log(f"wmm {label} K={w32.shape[0]} N={w32.shape[1]}: rows {WMM_ROWS} x f32/bf16 x and "
+            f"w, max_abs_err={max(errs):.3e} (atol {atol}, rtol {rtol}), two calls bit-identical")
 
 
 def batch_requests(seed: int, n: int, vocab: int, prompt_lens, budgets):
@@ -1092,6 +1118,66 @@ def serve_batcher_124m(pkg, batcher_mod, torch, engine, card: str,
     log(f"{label} metrics {json.dumps(b.metrics.as_dict(8))} "
         f"(fp32, B=8, ring, {layout_name(b.config)}, greedy, {card})")
     near_tie_check(label, gpt2, engine, requests[:2], served[:2], E2E_ATOL, torch)
+    return counts
+
+
+def serve_batcher_wmm_bf16(pkg, batcher_mod, torch, engine, card: str) -> dict:
+    """Phase 22's bf16 batcher: the engine's 124M weights cast to bf16 on
+    ``ContinuousBatcher(batch_size=8, max_seq=256)`` with ``ZG2_WMM=1``, so
+    that the decode linears take wmm's tensor-core body (8 bf16 rows in one
+    padded 16-row tile). 16 greedy requests on a ring cache equal those on a
+    linear one (``ZG2_RING=0``), and two of them the tokens of a bf16 engine
+    with ``ZG2_WMM=0`` up to a near-tie within max(1e-3, 3 x the bf16
+    floor): the largest gap between that engine's teacher-forced logits and
+    the same weights' in f32, on the card. Returns the launch counts."""
+    from zig_gpt2_tpu_torch.runtime.engine import _bucket
+
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, _ = pkg
+    label = "serve-batcher-wmm-bf16-124M"
+    bf16 = weights.tree_map(lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t,
+                            engine.params)
+    ref = engine_mod.InferenceEngine(engine.config, bf16, device="cuda")
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    kw = dict(batch_size=8, max_seq=256, sampling=greedy, device="cuda")
+    requests = batch_requests(22, 16, ref.config.vocab_size, (4, 100), (16, 64))
+    os.environ["ZG2_WMM"] = "1"
+    try:
+        b = batcher_mod.ContinuousBatcher(ref.config, ref.params, **kw)
+        serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], f"{label} warm-up")
+        b.metrics = batcher_mod.BatcherMetrics()
+        reset_counts(att, sk, qk)
+        served = serve_batch(b, requests, label)
+        counts = read_counts(att, sk, qk, torch)
+        steps, L = b.metrics.steps, ref.config.n_layers
+        key = "attention_packed_ring" if b.config.kv_packed else "attention_ring"
+        expect_counts(label, counts, {key: L * steps, "wmm": 6 * L * steps})
+        log(f"{label} metrics {json.dumps(b.metrics.as_dict(8))} (bf16, B=8, ring, "
+            f"{layout_name(b.config)}, greedy, wmm, {card})")
+        os.environ["ZG2_RING"] = "0"
+        try:
+            linear = batcher_mod.ContinuousBatcher(ref.config, ref.params, **kw)
+        finally:
+            del os.environ["ZG2_RING"]
+        linear_served = serve_batch(linear, requests, f"{label} linear")
+    finally:
+        os.environ["ZG2_WMM"] = "0"
+    same = sum(a == c for a, c in zip(served, linear_served))
+    log(f"{label} ring vs linear cache: {same} of {len(served)} greedy requests identical")
+    if same != len(served):
+        raise AssertionError("the bf16 wmm ring batcher's greedy tokens differ from the "
+                             "linear one's")
+    ids, budget = requests[0]
+    tokens = ref.generate(ids, budget, greedy)
+    bucket = _bucket(len(ids), ref.prompt_buckets)
+    got = teacher_forced(gpt2, ref.params, ref.config, ids, tokens[:-1], "cuda", torch,
+                         bucket=bucket)
+    f32 = weights.tree_map(lambda t: t.float() if t.is_floating_point() else t, ref.params)
+    want = teacher_forced(gpt2, f32, ref.config, ids, tokens[:-1], "cuda", torch, bucket=bucket)
+    floor = (got - want).abs().max().item()
+    log(f"{label} bf16 floor: the bf16 engine's teacher-forced logits and the same weights' "
+        f"in f32 differ by max_abs_err={floor:.3e} over {got.shape[0]} positions")
+    near_tie_check(f"{label} against the bf16 engine with ZG2_WMM=0", gpt2, ref, requests[:2],
+                   served[:2], max(E2E_ATOL, 3 * floor), torch)
     return counts
 
 
@@ -1291,15 +1377,22 @@ def layout_ab(batcher_mod, config_mod, torch, config, params, packed_batcher, ca
         f"(1.5B INT4 + INT8 KV ring, B=16, 32 steps each, {card})")
 
 
-def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str) -> None:
+def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str,
+                 wmm_per_step=None) -> dict:
     """Trace 32 decode steps after a prefill, as the engine's per-token
-    loop runs them (decode, sample, one host sync)."""
+    loop runs them (decode, sample, one host sync), in one profiler window:
+    two steps pad its start (the window can lose the first kernels launched
+    into it) and a marker kernel opens each traced step, as in
+    ``trace_batcher``. With ``wmm_per_step`` the wmm kernels of every marked
+    step are held to it: none above, and the median step exactly it (one
+    kernel per call), with no reduce kernel. Returns the trace's row."""
+    import statistics
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    steps = 32
+    steps, pad = 32, 2
     n = len(ids)
     tokens = torch.zeros((1, 32), dtype=torch.int32, device=engine.device)
     tokens[0, :n] = torch.tensor(ids, dtype=torch.int32)
@@ -1309,34 +1402,59 @@ def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str) -> 
     generator = torch.Generator(device=engine.device).manual_seed(3)
     token = sampling.sample(logits, generator, 0.8)
     torch.cuda.synchronize()
+    wall_us = 0.0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
+        for i in range(pad + steps):
+            if i >= pad:
+                torch.cuda._sleep(1000)  # the step's marker
+            t0 = time.perf_counter()
             cache, logits = gpt2.decode_step(engine.params, cache, token, engine.config)
             token = sampling.sample(logits, generator, 0.8)
             int(token[0])
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+            if i >= pad:
+                wall_us += (time.perf_counter() - t0) * 1e6
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: (e.id, e.time_range.start))  # launch order
+    by_step = []
+    for e in events:
+        if "spin_kernel" in e.name:
+            by_step.append([])
+        elif by_step:
+            by_step[-1].append((e.name, e.time_range.end - e.time_range.start))
+    kernels = [k for step in by_step for k in step]
+    wmm_by_step = [sum("wmm_" in name for name, _ in step) for step in by_step]
     row = {**label, "batch": 1, "temperature": 0.8, "traced_decode_steps": steps,
            "traced_wall_ms": wall_us / 1e3, "card": card}
     if kernels:
-        busy = sum(us for _, us in kernels)
+        m = len(by_step)
+        busy = sum(us for _, us in kernels) / m
+        wall = wall_us / steps
         by_name = defaultdict(float)
         for name, us in kernels:
             by_name[name[:80]] += us
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        row.update({"device_busy_ms_per_step": busy / 1e3 / steps,
-                    "device_busy_share": busy / wall_us,
-                    "device_idle_share": 1.0 - busy / wall_us,
-                    "kernels_per_decode_step": len(kernels) / steps,
-                    "w8a8_kernels_per_step": sum("qmm_w8a8" in n for n, _ in kernels) / steps,
-                    "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top}})
-        if any("reduce" in name for name, _ in kernels if "qmm" in name):
-            raise AssertionError("a qmm reduce pass is in the decode trace")
+        row.update({"steps_in_trace": m,
+                    "device_busy_ms_per_step": busy / 1e3,
+                    "device_busy_share": busy / wall,
+                    "device_idle_share": 1.0 - busy / wall,
+                    "kernels_per_decode_step": len(kernels) / m,
+                    "kernels_by_step": sorted({len(step) for step in by_step}),
+                    "w8a8_kernels_per_step": sum("qmm_w8a8" in k for k, _ in kernels) / m,
+                    "wmm_kernels_per_step": sum(wmm_by_step) / m,
+                    "wmm_kernels_by_step": sorted(set(wmm_by_step)),
+                    "wmm_kernel_ms_per_step": sum(us for k, us in kernels if "wmm_" in k) / 1e3 / m,
+                    "top_kernels_ms_per_step": {k: v / 1e3 / m for k, v in top}})
+        if any("reduce" in name for name, _ in kernels if "qmm" in name or "wmm" in name):
+            raise AssertionError("a qmm or wmm reduce pass is in the decode trace")
     else:
         row["device_busy_share"] = "not measured (no device events in the trace)"
     log(f"trace {json.dumps(row)}")
+    if wmm_per_step is not None and (
+            not wmm_by_step or max(wmm_by_step) > wmm_per_step
+            or statistics.median(wmm_by_step) != wmm_per_step):
+        raise AssertionError(f"wmm kernels per traced step {wmm_by_step}, expected "
+                             f"{wmm_per_step} (one per call)")
+    return row
 
 
 def time_sampler(sk, torch, counts, card: str):
@@ -1647,49 +1765,66 @@ def time_w8a8(qk, quantize, params, torch, counts, card: str):
 
 def time_wmm(qk, params, torch, counts, card: str):
     """wmm at rows 1 and 8, f32 and bf16 (weights and x alike, as served),
-    per 124M linear shape, rotating over the 12 layers. The yardstick is
-    torch.matmul on the same weights (cuBLAS; f32 without TF32)."""
+    per 124M linear shape, each call on another layer's weight of that shape
+    (48 for 768x768, 12 for c_fc and for MLP c_proj: 113 MB per shape in
+    f32, 57 MB in bf16), and per decode step: the 72 calls in served order
+    (wq, wk, wv, attn c_proj, c_fc, MLP c_proj per layer; 340 MB in f32),
+    timed as one sequence. The weights come from device memory, not from
+    the 50 MB L2. The yardstick is torch.matmul on the same inputs (cuBLAS;
+    f32 without TF32). The JSON entry is the f32 B=1 step's."""
     g = torch.Generator(device="cuda").manual_seed(24)
     blocks = params["blocks"]
     L = blocks["attn"]["wq"]["w"].shape[0]
-    shapes = [("attn.wq/wk/wv/c_proj", blocks["attn"]["wq"]["w"], 4 * L),
-              ("mlp.c_fc", blocks["mlp"]["c_fc"]["w"], L),
-              ("mlp.c_proj", blocks["mlp"]["c_proj"]["w"], L)]
-    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    attn = [blocks["attn"][name]["w"][layer] for layer in range(L)
+            for name in ("wq", "wk", "wv", "c_proj")]
+    shapes = {"attn.wq/wk/wv/c_proj": attn,
+              "mlp.c_fc": [blocks["mlp"]["c_fc"]["w"][layer] for layer in range(L)],
+              "mlp.c_proj": [blocks["mlp"]["c_proj"]["w"][layer] for layer in range(L)]}
+    fns = {"ms": qk.wmm, "plain_ms": qk.wmm_plain, "library_ms": torch.matmul}
+    steps = {}
     errs = []
     for dtype in (torch.float32, torch.bfloat16):
         peak = PEAK_OPS_PER_S if dtype == torch.float32 else PEAK_BF16_OPS_PER_S
-        for label, stack, calls in shapes:
-            ws = [stack[i].to(dtype) for i in range(L)]
-            k, n = ws[0].shape
-            for rows in (1, 8):
-                x = torch.randn(rows, k, device="cuda", generator=g).to(dtype)
-                errs.append(max_err(qk.wmm(x, ws[0]), qk.wmm_plain(x, ws[0])))
-                ms = time_ms(lambda i: qk.wmm(x, ws[i % L]), 8 * L)
-                plain_ms = time_ms(lambda i: qk.wmm_plain(x, ws[i % L]), 8 * L)
-                lib_ms = time_ms(lambda i: torch.matmul(x, ws[i % L]), 8 * L)
-                size = ws[0].element_size()
-                nbytes = k * n * size + rows * k * size + rows * n * 4
-                nops = 2 * rows * k * n
-                bms, by = bound_ms(nbytes, nops, peak)
-                log(f"time wmm {label} K={k} N={n} rows={rows} {dtype}: kernel "
-                    f"{ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain "
-                    f"{plain_ms * 1e3:.2f} us, torch.matmul {lib_ms * 1e3:.2f} us, "
+        ws = {label: [w.to(dtype) for w in stack] for label, stack in shapes.items()}
+        size = 4 if dtype == torch.float32 else 2
+        for rows in (1, 8):
+            xs = {k: torch.randn(rows, k, device="cuda", generator=g).to(dtype)
+                  for k in (768, 3072)}
+            for label, stack in ws.items():
+                k, n = stack[0].shape
+                x = xs[k]
+                errs.append(max_err(qk.wmm(x, stack[0]), qk.wmm_plain(x, stack[0])))
+                t = {key: time_ms(lambda i: fn(x, stack[i % len(stack)]), max(2 * len(stack), 96))
+                     for key, fn in fns.items()}
+                bms, by = bound_ms(k * n * size + rows * k * size + rows * n * 4,
+                                   2 * rows * k * n, peak)
+                log(f"time wmm {label} K={k} N={n} rows={rows} {dtype} "
+                    f"({qk.wmm_geometry(rows, k, n, dtype, dtype)}): kernel "
+                    f"{t['ms'] * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain "
+                    f"{t['plain_ms'] * 1e3:.2f} us, torch.matmul {t['library_ms'] * 1e3:.2f} us, "
                     f"max_abs_err={errs[-1]:.3e} ({card})")
-                if rows == 1 and dtype == torch.float32:
-                    step["ms"] += calls * ms
-                    step["plain_ms"] += calls * plain_ms
-                    step["library_ms"] += calls * lib_ms
-                    step["bytes"] += calls * nbytes
-                    step["ops"] += calls * nops
-    bms, by = bound_ms(step["bytes"], step["ops"])
-    log(f"time wmm per decode step (72 calls, B=1, f32): kernel {step['ms']:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, torch.matmul "
-        f"{step['library_ms']:.4f} ms ({card})")
+            seq = []  # one decode step's calls in served order
+            for layer in range(L):
+                seq += [(xs[768], w) for w in ws["attn.wq/wk/wv/c_proj"][4 * layer:4 * layer + 4]]
+                seq += [(xs[768], ws["mlp.c_fc"][layer]), (xs[3072], ws["mlp.c_proj"][layer])]
+            step = {key: time_ms(lambda i: fn(*seq[i % len(seq)]), 4 * len(seq)) * len(seq)
+                    for key, fn in fns.items()}
+            nbytes = sum(w.numel() * size + x.numel() * size + rows * w.shape[1] * 4
+                         for x, w in seq)
+            step["bound_ms"], step["bound_by"] = bound_ms(
+                nbytes, sum(2 * x.numel() * w.shape[1] for x, w in seq), peak)
+            steps[(dtype, rows)] = step
+            log(f"time wmm per decode step ({len(seq)} calls in served order, rows={rows}, "
+                f"{dtype}): kernel {step['ms']:.4f} ms, bound {step['bound_ms']:.4f} ms "
+                f"({step['bound_by']}), plain {step['plain_ms']:.4f} ms, torch.matmul "
+                f"{step['library_ms']:.4f} ms ({card})")
+        del ws
+    step = steps[(torch.float32, 1)]
     return [{"name": "wmm", "route": "cuda", "source": "zig_gpt2_tpu_torch/ops/csrc/wmm.cu",
              "replaces": "zig_gpt2_tpu/quant/kernels.py:162", "launches": counts["wmm"],
              "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
-             "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]}]
+             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+             "library_ms": step["library_ms"]}]
 
 
 def main() -> int:
@@ -1822,6 +1957,7 @@ def main() -> int:
         phase("serve-wmm-124M: GPT-2 124M with ZG2_WMM=1 on InferenceEngine and "
               "ContinuousBatcher(batch_size=8), packed KV")
         os.environ["ZG2_WMM"] = "1"
+        label = {"model": "124M", "weights": "float32", "kv_cache": "float32, packed"}
         try:
             counts_m124, engine, ids = serve(pkg, torch, encoder, card, "serve-wmm-124M",
                                              params_124m)
@@ -1829,15 +1965,24 @@ def main() -> int:
             wmm_tokens = engine.generate(ids, 32, greedy)
             counts_mb124 = serve_batcher_124m(pkg, batcher_mod, torch, engine, card,
                                               "serve-batcher-wmm-124M")
+            traces = {"ZG2_WMM=1": trace_decode(gpt2, sampling, engine, ids, torch, label, card,
+                                                wmm_per_step=6 * engine.config.n_layers)}
         finally:
             os.environ["ZG2_WMM"] = "0"
+        traces["ZG2_WMM=0"] = trace_decode(gpt2, sampling, engine, ids, torch, label, card,
+                                           wmm_per_step=0)
+        keys = ("device_busy_ms_per_step", "kernels_per_decode_step", "wmm_kernels_per_step",
+                "wmm_kernel_ms_per_step", "device_idle_share", "traced_wall_ms")
+        log(f"trace-wmm {json.dumps({k: {n: r.get(k) for n, r in traces.items()} for k in keys})} "
+            f"(124M fp32, B=1, 32 steps each, {card})")
         near_tie_check("serve-wmm-124M against the engine with ZG2_WMM=0", gpt2, engine,
                        [(ids, 32)], [wmm_tokens], E2E_ATOL, torch)
+        counts_mbf16 = serve_batcher_wmm_bf16(pkg, batcher_mod, torch, engine, card)
         del engine
         phase("times")
         paths = (counts_124m, counts_b124, counts_1p5b, counts_b1p5b, counts_p124,
                  counts_pb124, counts_p1p5b, counts_pb1p5b, counts_w1p5b, counts_wb1p5b,
-                 counts_m124, counts_mb124)
+                 counts_m124, counts_mb124, counts_mbf16)
         counts = {k: sum(c[k] for c in paths) for k in counts_124m}
         log(f"launches on the main paths (the serve and serve-batcher phases, unpacked and "
             f"packed, INT4, w8a8 and wmm): {counts}")

@@ -16,7 +16,8 @@ order; a bf16 x times a bf16 or int8 weight is exact in f32); the w8a8 body
 of qmm bit for bit (int32 sums are exact, and kernel and plain version
 quantize x and take the f32 tail in one order), and ``w8a8_matmul`` through
 ``torch._int_mm`` equal to its f64 product; wmm atol/rtol 1e-4 (f32 sums of
-up to 3072 products in another order than the plain version's matmul);
+up to 8192 products in another order than the plain version's matmul), two
+calls bit-identical (the splits are added in split order);
 sampler ids identical, its return_max z* within 2 ulp of the plain
 version's (equal bits expected).
 """
@@ -227,14 +228,23 @@ def test_qmm_w8a8_wrapper_validates(dev):
     assert (qk.qmm.launches, qk.qmm.w8a8_launches) == (before[0] + 1, before[1])
 
 
-@pytest.mark.parametrize("xdtype,wdtype", [(torch.float32, torch.float32),
-                                           (torch.bfloat16, torch.bfloat16),
-                                           (torch.bfloat16, torch.float32),
-                                           (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("k,n", [(768, 2304), (3072, 768), (128, 150)])
-@pytest.mark.parametrize("rows", [1, 8, 256])
+WMM_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+WMM_ROWS = [1, 2, 7, 8, 15, 16, 17, 63, 64, 65, 255, 256]
+
+
+@pytest.mark.parametrize("xdtype,wdtype", WMM_DTYPES)
+@pytest.mark.parametrize("n", [768, 3072, 150, 770])
+@pytest.mark.parametrize("k", [768, 3072, 100])
+@pytest.mark.parametrize("rows", WMM_ROWS)
 def test_wmm_kernel_matches_plain(dev, rows, k, n, xdtype, wdtype):
-    g = torch.Generator(device=dev).manual_seed(rows + n)
+    """Every body (CUDA cores at one row and for f32 x, in row tiles of 4;
+    tensor cores for 2+ bf16 rows, 16- and 64-row tiles, partly padded),
+    every combine (one split, a cluster, the ticket), rows of f32 and bf16
+    weights that start off 16 bytes (N = 150, 770) and a K that is not a
+    multiple of the 32-row tile: one launch per call, within 1e-4 of the
+    plain version, and two calls bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(rows * 7 + k + n)
     w = (torch.randn(k, n, device=dev, generator=g) * 0.05).to(wdtype)
     x = torch.randn(rows, k, device=dev, generator=g).to(xdtype)
     before = qk.wmm.launches
@@ -242,6 +252,64 @@ def test_wmm_kernel_matches_plain(dev, rows, k, n, xdtype, wdtype):
     assert qk.wmm.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (rows, n)
     torch.testing.assert_close(got, qk.wmm_plain(x, w), atol=1e-4, rtol=1e-4)
+    assert torch.equal(qk.wmm(x, w), got)
+
+
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [768, 770])
+@pytest.mark.parametrize("rows", [17, 64, 65, 256])
+def test_wmm_ticket_combine_matches_plain(dev, rows, n, wdtype):
+    """A K beyond one cluster's 16 ranges of the 64-row tensor-core body's
+    x budget (8192 rows: 18 ranges of 480) takes the ticket: the last block
+    of each output tile adds the partial sums in split order. One launch,
+    within 1e-4 of the plain version, two calls bit-identical."""
+    k = 8192
+    geo = qk.wmm_geometry(rows, k, n, torch.bfloat16, wdtype)
+    assert geo.splits > 16 and not geo.cluster
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    w = (torch.randn(k, n, device=dev, generator=g) * 0.05).to(wdtype)
+    x = torch.randn(rows, k, device=dev, generator=g).to(torch.bfloat16)
+    before = qk.wmm.launches
+    got = qk.wmm(x, w)
+    assert qk.wmm.launches == before + 1
+    torch.testing.assert_close(got, qk.wmm_plain(x, w), atol=1e-4, rtol=1e-4)
+    assert torch.equal(qk.wmm(x, w), got)
+
+
+@pytest.mark.parametrize("xdtype,wdtype", WMM_DTYPES)
+def test_wmm_is_one_kernel_per_call(dev, xdtype, wdtype):
+    """Counted on the device by torch.profiler, not by the wrapper: a call
+    at the GPT-2 124M shapes, 1, 8 and 256 rows, is one kernel of wmm.cu and
+    nothing else. Each call sits behind a marker kernel (torch.cuda._sleep),
+    and two unmarked calls pad the window's start, which can lose the first
+    kernels launched into it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    calls = [(torch.randn(rows, k, device=dev, generator=g).to(xdtype),
+              (torch.randn(k, n, device=dev, generator=g) * 0.05).to(wdtype))
+             for rows in (1, 8, 256) for k, n in ((768, 768), (768, 3072), (3072, 768))]
+    for x, w in calls:  # built, tickets allocated
+        qk.wmm(x, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, w in calls[:2]:
+            qk.wmm(x, w)
+        for x, w in calls:
+            torch.cuda._sleep(1000)
+            qk.wmm(x, w)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: (e.id, e.time_range.start))
+    segments = []
+    for e in events:
+        if "spin_kernel" in e.name:
+            segments.append([])
+        elif segments:
+            segments[-1].append(e.name)
+    assert len(segments) >= len(calls) - 2
+    assert all(len(names) == 1 and "wmm_" in names[0] for names in segments), segments
 
 
 def test_wmm_wrapper_validates(dev):

@@ -1,6 +1,6 @@
 """The host-side launch geometry of the split-S attention kernel, of the
-one-launch qmm (weight-only and w8a8 bodies) and of the vocab-split sampler,
-on the CPU: plain Python that decides how the kernels in
+one-launch qmm (weight-only and w8a8 bodies), of the one-launch float GEMV
+wmm and of the vocab-split sampler, on the CPU: plain Python that decides how the kernels in
 ``zig_gpt2_tpu_torch/ops/csrc`` cut their work. Shapes only (never
 ``length``), exact cover of the rows, the limits the kernels check, and the
 block counts the kernels' source notes give for the GPT-2 serving shapes.
@@ -294,3 +294,184 @@ def test_w8a8_constants_match_the_kernel():
     assert "(cluster && (splits < 2 || splits > 8))" in src
     assert "cudaLaunchAttributeClusterDimension" in src
     assert "qmm_w8a8_reduce_kernel" not in src  # the w8a8 body is one launch too
+
+
+# --- the float GEMV wmm: one launch, K split added in a cluster or by ticket ---
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+WMM_ROWS = (1, 2, 7, 8, 15, 16, 17, 63, 64, 65, 255, 256)
+WMM_SHAPES = [(rows, k, n, xd, wd) for rows in WMM_ROWS
+              for k, n in ((100, 150), (768, 768), (768, 3072), (3072, 768), (3072, 770),
+                           (1600, 4800), (6400, 1600), (64, 8))
+              for xd in (_F32, _BF16) for wd in (_F32, _BF16)]
+
+
+def _wmm_smem(geo, wdtype) -> int:
+    """Dynamic shared memory of a wmm block, as csrc/wmm.cu's launch()
+    computes it: the tensor cores' ring (32 staged rows of 128 columns plus
+    16 bytes, as many stages as fit 104448 bytes) and x, or the tile's sums
+    if larger; the CUDA cores' x, per-warp sums and tile."""
+    size = 4 if wdtype == _F32 else 2
+    if geo.row_tile >= 16:
+        stage = 32 * (geo.col_tile * size + 16)
+        stages = min(-(-geo.split_rows // 32), 104448 // stage)
+        x_bytes = geo.row_tile * (geo.split_rows + 8) * 2
+        return max(stages * stage + x_bytes, geo.row_tile * geo.col_tile * 4)
+    return geo.row_tile * geo.split_rows * 4 + 9 * geo.row_tile * geo.col_tile * 4
+
+
+def _wmm_cap(geo) -> int:
+    """The longest range whose x fits the body's shared memory, in whole
+    32-row tiles."""
+    if geo.row_tile >= 16:
+        budget = qk._WMM_X_BYTES_WIDE if geo.row_tile == 64 else qk._WMM_X_BYTES
+        return (budget // (2 * geo.row_tile) - 8) // 32 * 32
+    return qk._WMM_X_BYTES // (4 * geo.row_tile) // 32 * 32
+
+
+def test_wmm_geometry_takes_shapes_only():
+    assert list(inspect.signature(qk.wmm_geometry).parameters) == ["rows", "k", "n", "xdtype",
+                                                                  "wdtype"]
+
+
+@pytest.mark.parametrize("rows,k,n,xdtype,wdtype", WMM_SHAPES[::5])
+def test_wmm_geometry_covers_k_once(rows, k, n, xdtype, wdtype):
+    geo = qk.wmm_geometry(rows, k, n, xdtype, wdtype)
+    assert geo.splits >= 1 and geo.split_rows % qk._WMM_TILE_ROWS == 0
+    assert (geo.splits - 1) * geo.split_rows < k <= geo.splits * geo.split_rows
+    covered = [i for s in range(geo.splits)
+               for i in range(s * geo.split_rows, min((s + 1) * geo.split_rows, k))]
+    assert covered == list(range(k))  # every weight row once, in order, no split empty
+    assert geo.splits <= 65535 and -(-n // geo.col_tile) <= 65535  # gridDim.y, gridDim.z
+
+
+@pytest.mark.parametrize("rows,k,n,xdtype,wdtype", WMM_SHAPES[2::5])
+def test_wmm_geometry_fits_the_body(rows, k, n, xdtype, wdtype):
+    """The body follows rows and x's dtype, and its column tile the body; a
+    split's x fits the body's budget and the whole block the card's 227 KB;
+    a cluster holds 2 to 16 splits."""
+    geo = qk.wmm_geometry(rows, k, n, xdtype, wdtype)
+    if xdtype == _BF16 and rows > 1:
+        assert geo.row_tile == (16 if rows <= 16 else 64)  # the tensor cores
+        assert geo.col_tile == qk._WMM_MMA_COLS == 128
+        x_bytes = geo.row_tile * (geo.split_rows + 8) * 2
+        budget = qk._WMM_X_BYTES_WIDE if geo.row_tile == 64 else qk._WMM_X_BYTES
+    else:
+        assert geo.row_tile == (1 if rows == 1 else 4)  # the CUDA cores
+        assert geo.col_tile == qk._WMM_SIMT_COLS == 64
+        x_bytes = geo.row_tile * geo.split_rows * 4
+        budget = qk._WMM_X_BYTES
+    assert x_bytes <= budget and geo.split_rows <= _wmm_cap(geo)
+    assert _wmm_smem(geo, wdtype) <= 232448
+    assert geo.cluster == (1 < geo.splits <= qk._WMM_CLUSTER_SPLITS == 16)
+
+
+@pytest.mark.parametrize("rows,k,n,xdtype,wdtype", WMM_SHAPES[4::9])
+def test_wmm_geometry_aims_at_its_block_count(rows, k, n, xdtype, wdtype):
+    """A split holds the rows that give the body's block count, or the
+    body's least weight per block if that is more (at most K), rounded up to
+    whole tiles; or, where that would take more splits than one cluster
+    holds, the fewest rows that make one cluster; the x budget caps it, and
+    only the cap leaves more than one cluster's splits (the ticket)."""
+    geo = qk.wmm_geometry(rows, k, n, xdtype, wdtype)
+    mma = geo.row_tile >= 16
+    blocks = qk._WMM_BLOCKS_MMA if mma else qk._WMM_BLOCKS_SIMT
+    want = -(-blocks // (-(-rows // geo.row_tile) * -(-n // geo.col_tile)))
+    min_bytes = qk._WMM_MIN_BYTES_MMA if mma else qk._WMM_MIN_BYTES_SIMT
+    least = min_bytes // (geo.col_tile * (4 if wdtype == _F32 else 2))
+    cap = _wmm_cap(geo)
+    rows_for = min(max(-(-k // want), least), k)
+    split_rows = -(-rows_for // 32) * 32
+    if -(-k // split_rows) > qk._WMM_CLUSTER_SPLITS:  # the fewest rows for one cluster
+        split_rows = max(split_rows, -(-k // (32 * qk._WMM_CLUSTER_SPLITS)) * 32)
+    assert geo.split_rows == min(split_rows, cap)
+    assert geo.splits <= qk._WMM_CLUSTER_SPLITS or geo.split_rows == cap
+
+
+def test_wmm_geometry_is_a_function_of_the_shapes():
+    for shape in WMM_SHAPES:
+        assert qk.wmm_geometry(*shape) == qk.wmm_geometry(*shape)
+    for bad in ((0, 64, 8), (257, 64, 8), (1, 0, 8), (1, 64, 0)):
+        with pytest.raises(ValueError):
+            qk.wmm_geometry(*bad, _F32, _F32)
+
+
+# GPT-2 124M's decode linears (Q/K/V and attn c_proj 768x768, c_fc 768x3072,
+# MLP c_proj 3072x768) at the served row counts, x and w of one dtype:
+# (k, n, rows, dtype, row_tile, col_tile, splits, split_rows, blocks,
+# cluster). The row counts 1 and 8 were timed in a sweep of geometries on the
+# H100 (PERF.md, PR 8).
+WMM_SERVING = [
+    (768, 768, 1, _F32, 1, 64, 8, 96, 96, True),
+    (768, 3072, 1, _F32, 1, 64, 2, 384, 96, True),
+    (3072, 768, 1, _F32, 1, 64, 8, 384, 96, True),
+    (768, 768, 8, _F32, 4, 64, 4, 192, 96, True),       # the f32 batcher's B=8: two row tiles
+    (768, 3072, 8, _F32, 4, 64, 1, 768, 96, False),     # one split: no combine
+    (3072, 768, 8, _F32, 4, 64, 4, 768, 96, True),
+    (768, 768, 16, _F32, 4, 64, 2, 384, 96, True),
+    (768, 3072, 16, _F32, 4, 64, 1, 768, 192, False),
+    (3072, 768, 16, _F32, 4, 64, 2, 1536, 96, True),
+    (768, 768, 64, _F32, 4, 64, 1, 768, 192, False),
+    (768, 3072, 64, _F32, 4, 64, 1, 768, 768, False),
+    (3072, 768, 64, _F32, 4, 64, 2, 2048, 384, True),   # the x budget caps the range
+    (768, 768, 256, _F32, 4, 64, 1, 768, 768, False),
+    (768, 3072, 256, _F32, 4, 64, 1, 768, 3072, False),
+    (3072, 768, 256, _F32, 4, 64, 2, 2048, 1536, True),
+    (768, 768, 1, _BF16, 1, 64, 4, 192, 48, True),      # 24 KB of weight per block, at least
+    (768, 3072, 1, _BF16, 1, 64, 2, 384, 96, True),
+    (3072, 768, 1, _BF16, 1, 64, 8, 384, 96, True),
+    (768, 768, 8, _BF16, 16, 128, 12, 64, 72, True),    # the bf16 batcher's B=8: one padded tile
+    (768, 3072, 8, _BF16, 16, 128, 8, 96, 192, True),
+    (3072, 768, 8, _BF16, 16, 128, 16, 192, 96, True),  # one 16-block cluster
+    (768, 768, 16, _BF16, 16, 128, 12, 64, 72, True),
+    (768, 3072, 16, _BF16, 16, 128, 8, 96, 192, True),
+    (3072, 768, 16, _BF16, 16, 128, 16, 192, 96, True),
+    (768, 768, 64, _BF16, 64, 128, 12, 64, 72, True),   # every row against one weight pass
+    (768, 3072, 64, _BF16, 64, 128, 8, 96, 192, True),
+    (3072, 768, 64, _BF16, 64, 128, 16, 192, 96, True),
+    (768, 768, 256, _BF16, 64, 128, 8, 96, 192, True),  # four row blocks per weight tile
+    (768, 3072, 256, _BF16, 64, 128, 2, 384, 192, True),
+    (3072, 768, 256, _BF16, 64, 128, 8, 384, 192, True),
+]
+
+
+@pytest.mark.parametrize("k,n,rows,dtype,row_tile,col_tile,splits,split_rows,blocks,cluster",
+                         WMM_SERVING)
+def test_wmm_geometry_on_the_serving_shapes(k, n, rows, dtype, row_tile, col_tile, splits,
+                                            split_rows, blocks, cluster):
+    geo = qk.wmm_geometry(rows, k, n, dtype, dtype)
+    assert (geo.row_tile, geo.col_tile, geo.splits, geo.split_rows, geo.cluster) == (
+        row_tile, col_tile, splits, split_rows, cluster)
+    assert -(-rows // geo.row_tile) * -(-n // geo.col_tile) * geo.splits == blocks
+
+
+def test_wmm_geometry_takes_the_ticket_beyond_one_cluster():
+    """A K longer than 16 ranges of the x budget (64 bf16 rows: 480 rows
+    per range) splits into more ranges than one cluster holds, and the last
+    block of each output tile adds them."""
+    geo = qk.wmm_geometry(64, 8192, 768, _BF16, _BF16)
+    assert (geo.splits, geo.split_rows, geo.cluster) == (18, 480, False)
+    assert qk.wmm_geometry(1, 8192, 768, _F32, _F32).cluster  # one row: a long range fits
+
+
+def test_wmm_constants_match_the_kernel():
+    src = (CSRC / "wmm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kSimtCols") == qk._WMM_SIMT_COLS
+    assert const("kMmaCols") == qk._WMM_MMA_COLS
+    assert const("kKT") == qk._WMM_TILE_ROWS
+    assert const("kRingBytes") == 104448  # _wmm_smem above
+    assert const("kXBytes") == qk._WMM_X_BYTES
+    assert const("kXBytesWide") == qk._WMM_X_BYTES_WIDE
+    assert const("kMaxCluster") == qk._WMM_CLUSTER_SPLITS
+    assert "if (bf16_x && rows > 1) return rows <= 16 ? 16 : 64;" in src  # row_tile
+    assert "(cluster && (splits < 2 || splits > kMaxCluster))" in src
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "const dim3 grid((a.rows + rt - 1) / rt, splits, (a.N + nt - 1) / nt);" in src
+    # One launch per call: no second pass, and the host's split helper is gone.
+    assert "wmm_reduce_kernel" not in src
+    assert not hasattr(qk, "_k_splits")

@@ -48,7 +48,7 @@ SIGNATURES = {
     "zg2_sample_categorical": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     "zg2_qmm": [_P] * 6 + [_I] * 9 + [_P],
     "zg2_qmm_w8a8": [_P] * 6 + [_I] * 8 + [_P],
-    "zg2_wmm": [_P] * 4 + [_I] * 6 + [_P],
+    "zg2_wmm": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 

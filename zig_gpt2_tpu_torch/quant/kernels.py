@@ -186,7 +186,8 @@ def wmm(x, w):
 
     x: (rows, K) float32 or bfloat16, 1 <= rows <= GEMV_MAX_ROWS; w: (K, N)
     float32 or bfloat16. Both contiguous, on one device. Returns (rows, N)
-    float32. Launches count in ``wmm.launches``."""
+    float32. One launch per call (the K split and its combine are in the
+    kernel: ``wmm_geometry``). Launches count in ``wmm.launches``."""
     if x.device.type == "cpu":
         return wmm_plain(x, w)
     if x.device.type != "cuda":
@@ -204,14 +205,19 @@ def wmm(x, w):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
     n = w.shape[1]
-    splits = _k_splits(rows, n, k)
+    geo = wmm_geometry(rows, k, n, x.dtype, w.dtype)
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, rows, n), dtype=torch.float32, device=x.device)
-               if splits > 1 else out)
+    scratch = (None, None)
+    if geo.splits > 1 and not geo.cluster:  # held until the launch is enqueued
+        tiles = -(-rows // geo.row_tile) * -(-n // geo.col_tile)
+        scratch = (torch.empty((tiles, geo.splits, geo.row_tile * geo.col_tile),
+                               dtype=torch.float32, device=x.device),
+                   _build.tickets(x.device, tiles))
+    partial, tickets = (None if t is None else t.data_ptr() for t in scratch)
     err = _build.library().zg2_wmm(
-        x.data_ptr(), w.data_ptr(), partial.data_ptr(), out.data_ptr(), rows, k, n,
-        splits, _DTYPE_CODES[x.dtype], _DTYPE_CODES[w.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), w.data_ptr(), partial, tickets, out.data_ptr(), rows, k, n,
+        geo.splits, geo.split_rows, geo.row_tile, int(geo.cluster), _DTYPE_CODES[x.dtype],
+        _DTYPE_CODES[w.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "wmm")
     wmm.launches += 1
     return out
@@ -219,27 +225,83 @@ def wmm(x, w):
 
 wmm.launches = 0
 
-# Launch geometry of csrc/wmm.cu: one thread per output column, _QMM_COLS
-# columns per block, row tiles of 8 (1 for a single row).
-_QMM_COLS = 128
-_TARGET_BLOCKS = 132 * 8  # about eight blocks on each of the H100's 132 SMs
-_MIN_SPLIT_ROWS = 32      # packed weight rows per K split, at least
+# Launch geometry of csrc/wmm.cu: a row tile of x and a column tile per
+# block (64 columns on the CUDA cores, 128 on the tensor cores); K split into
+# ranges of split_rows weight rows (whole _WMM_TILE_ROWS-row tiles), added in
+# split order in a thread-block cluster of the output tile's splits (up to
+# _WMM_CLUSTER_SPLITS) or by the last block to take the tile's ticket. The
+# block counts and the least weight per block are the best of a sweep of
+# geometries at GPT-2 124M's shapes on the H100 (tools/wmm_sweep.py;
+# PERF.md, PR 8).
+_WMM_TILE_ROWS = 32
+_WMM_SIMT_COLS = 64
+_WMM_MMA_COLS = 128
+_WMM_BLOCKS_SIMT = 96        # blocks to aim at: CUDA cores (fewer, longer ranges)
+_WMM_BLOCKS_MMA = 192        # ... tensor cores (about 1.5 blocks per SM)
+_WMM_MIN_BYTES_SIMT = 24576  # weight bytes per block, at least: CUDA cores
+_WMM_MIN_BYTES_MMA = 16384   # ... tensor cores
+_WMM_X_BYTES = 32768        # x of a block's range in shared memory
+_WMM_X_BYTES_WIDE = 65536   # ... for the 64-row tensor-core body
+_WMM_CLUSTER_SPLITS = 16    # the kernel's largest (non-portable) cluster
 
 
-def _k_splits(rows: int, n: int, kp: int) -> int:
-    """How many K ranges wmm splits the weight into (each block sums one
-    range; a second pass adds the ranges in order, so the result does not
-    depend on the launch). Enough blocks to fill the card,
-    and no range shorter than _MIN_SPLIT_ROWS packed rows."""
-    tiles = -(-n // _QMM_COLS) * (1 if rows == 1 else -(-rows // 8))
-    want = -(-_TARGET_BLOCKS // tiles)
-    return max(1, min(want, kp // _MIN_SPLIT_ROWS))
+@dataclasses.dataclass(frozen=True)
+class WmmGeometry:
+    """One wmm launch: ``row_tile`` rows of x per block (1 or 4 on the CUDA
+    cores, 16 or 64 on the tensor cores), ``col_tile`` columns per block (64
+    or 128, the body's), and the K split: ``splits`` ranges of
+    ``split_rows`` weight rows, added in a thread-block cluster of the output
+    tile's splits when ``cluster``, else by the last block to take the
+    tile's ticket."""
+    row_tile: int
+    col_tile: int
+    splits: int
+    split_rows: int
+    cluster: bool
+
+
+def wmm_geometry(rows: int, k: int, n: int, xdtype, wdtype) -> WmmGeometry:
+    """The wmm launch for x (rows, K) of ``xdtype`` and a (K, N) weight of
+    ``wdtype``, from these shapes alone. Two or more bf16 rows take the
+    tensor cores (16-row tiles up to 16 rows, else 64), one row or f32 x the
+    CUDA cores (1 row, else tiles of 4). The K split aims at the body's
+    block count (_WMM_BLOCKS_SIMT, _WMM_BLOCKS_MMA) with at least the
+    body's least weight each (_WMM_MIN_BYTES_SIMT, _WMM_MIN_BYTES_MMA), in
+    whole tiles, a range's x within the body's shared memory; it takes the
+    fewest splits that make one cluster when that aim would need more."""
+    if not 1 <= rows <= GEMV_MAX_ROWS or min(k, n) < 1:
+        raise ValueError(f"wmm_geometry: rows in 1..{GEMV_MAX_ROWS}, K and N positive, "
+                         f"got {rows, k, n}")
+    mma = xdtype == torch.bfloat16 and rows > 1
+    if mma:
+        row_tile, col_tile = (16 if rows <= 16 else 64), _WMM_MMA_COLS
+        budget = _WMM_X_BYTES_WIDE if row_tile == 64 else _WMM_X_BYTES
+        cap = budget // (2 * row_tile) - 8  # bf16 x, rows padded by 8 elements
+    else:
+        row_tile, col_tile = (1 if rows == 1 else 4), _WMM_SIMT_COLS
+        cap = _WMM_X_BYTES // (4 * row_tile)  # f32 x
+    t = _WMM_TILE_ROWS
+
+    def tiles_of(r):
+        return min(-(-r // t) * t, cap // t * t)
+
+    blocks, min_bytes = ((_WMM_BLOCKS_MMA, _WMM_MIN_BYTES_MMA) if mma else
+                         (_WMM_BLOCKS_SIMT, _WMM_MIN_BYTES_SIMT))
+    want = -(-blocks // (-(-rows // row_tile) * -(-n // col_tile)))
+    least = min_bytes // (col_tile * (4 if wdtype == torch.float32 else 2))
+    split_rows = tiles_of(min(max(-(-k // want), least), k))
+    if -(-k // split_rows) > _WMM_CLUSTER_SPLITS:
+        split_rows = max(split_rows, tiles_of(-(-k // _WMM_CLUSTER_SPLITS)))
+    splits = -(-k // split_rows)
+    return WmmGeometry(row_tile, col_tile, splits, split_rows,
+                       1 < splits <= _WMM_CLUSTER_SPLITS)
 
 
 # Launch geometry of qmm's weight-only bodies (csrc/qmm.cu): blocks of
 # _QMM_COLS columns and a row tile of x; K split into ranges of split_rows
 # packed rows (a multiple of the kernel's _QMM_TILE_ROWS-row tiles), merged
 # in split order by the last block of each output tile.
+_QMM_COLS = 128
 _QMM_TILE_ROWS = 64
 _QMM_SLOTS = 2 * 132        # two resident blocks on each of the H100's 132 SMs
 _QMM_X_BYTES = 32768        # x of a block's range in shared memory

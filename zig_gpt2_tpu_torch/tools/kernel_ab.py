@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the decode-attention kernels, of the dequant GEMV ``qmm``
-(weight-only and w8a8 bodies) and of the Gumbel-max sampler of one source
-tree, on inputs that are the same for every tree, so that two trees
+(weight-only and w8a8 bodies), of the float GEMV ``wmm`` and of the
+Gumbel-max sampler of one source tree, on inputs that are the same for every tree, so that two trees
 compare.
 
     python3 zig_gpt2_tpu_torch/tools/kernel_ab.py [--root DIR] [--label NAME]
@@ -29,9 +29,16 @@ bf16 x of 1 and 16 rows (the engine's and the batcher's), with a line per
 shape and the sum over one decode step's 289 calls. ``w8a8``: the same for
 qmm's w8a8 body at the phantom-padded 1.5B shapes (1600x1664 Q/K/V,
 1664x1600, 1600x6400, 6400x1600, rotating over 48 layers of random INT8
-weights, and the 1600x50257 lm_head). ``sampler``: the Gumbel-max sampler
-at B=1 and B=16 over V=50257 f32 logits, T=0.8 (``--kernels`` picks any of
-``attention``, ``qmm``, ``w8a8``, ``sampler``).
+weights, and the 1600x50257 lm_head). ``wmm``: the float GEMV at GPT-2
+124M's decode linears (768x768 Q/K/V and attn c_proj, 768x3072 c_fc,
+3072x768 MLP c_proj), rows 1 and 8, x and w both f32 or both bf16, every
+call on another of the step's weights (48 for 768x768, 12 for each MLP
+shape: 340 MB in f32, so they come from device memory and not from the 50
+MB L2), per shape and per decode step (the 72 calls in served order), with
+``torch.matmul`` on the same inputs beside each. ``sampler``: the
+Gumbel-max sampler at B=1 and B=16 over V=50257 f32 logits, T=0.8
+(``--kernels`` picks any of ``attention``, ``qmm``, ``w8a8``, ``wmm``,
+``sampler``).
 """
 
 from __future__ import annotations
@@ -159,8 +166,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(here), help="checkout to time")
     ap.add_argument("--label", default=None, help="name printed with each line")
     ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--kernels", default="attention,qmm,w8a8,sampler",
-                    help="comma-separated: attention, qmm, w8a8, sampler")
+    ap.add_argument("--kernels", default="attention,qmm,w8a8,wmm,sampler",
+                    help="comma-separated: attention, qmm, w8a8, wmm, sampler")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     label = args.label or root.name
@@ -190,6 +197,8 @@ def main(argv=None) -> int:
         time_qmm(label, card, args.repeats, torch)
     if "w8a8" in kinds:
         time_w8a8(label, card, args.repeats, torch)
+    if "wmm" in kinds:
+        time_wmm(label, card, args.repeats, torch)
     if "sampler" in kinds:
         time_sampler(label, card, args.repeats, torch)
     return 0
@@ -315,6 +324,56 @@ def time_w8a8(label, card, repeats, torch):
     for rows, us in step.items():
         print(json.dumps({"tree": label, "kernel": "qmm w8a8 per 1.5B decode step (289 calls)",
                           "rows": rows, "ms": us / 1e3, "card": card}))
+
+
+# (label, K, N, calls per decode step) at GPT-2 124M; a layer's calls in
+# served order are wq, wk, wv, attn c_proj, c_fc, MLP c_proj.
+WMM_SHAPES = (("attn 768x768", 768, 768, 4 * 12),
+              ("mlp.c_fc 768x3072", 768, 3072, 12),
+              ("mlp.c_proj 3072x768", 3072, 768, 12))
+
+
+def time_wmm(label, card, repeats, torch):
+    """wmm per call at each shape of ``WMM_SHAPES`` and per decode step (the
+    72 calls in served order), rows 1 and 8, f32 and bf16 (x and w alike, as
+    served), each call on another of the step's random weights, so that
+    they come from device memory. ``torch.matmul`` (cuBLAS; f32 without
+    TF32) on the same inputs is printed beside each as ``library``."""
+    from zig_gpt2_tpu_torch.quant import kernels as qk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(124)
+    base = {name: torch.randn(calls, k, n, device="cuda", generator=g) * 0.05
+            for name, k, n, calls in WMM_SHAPES}
+    attn, fc, proj = (name for name, *_ in WMM_SHAPES)
+    for dtype in (torch.float32, torch.bfloat16):
+        ws = {name: t.to(dtype) for name, t in base.items()}
+        for rows in (1, 8):
+            xs = {k: torch.randn(rows, k, device="cuda", generator=g).to(dtype)
+                  for k in (768, 3072)}
+            step = []  # one decode step's calls in served order
+            for layer in range(12):
+                step += [(xs[768], ws[attn][4 * layer + j]) for j in range(4)]
+                step += [(xs[768], ws[fc][layer]), (xs[3072], ws[proj][layer])]
+            cases = [(name, [(xs[k], w) for w in ws[name]]) for name, k, _, _ in WMM_SHAPES]
+            cases.append(("per 124M decode step (72 calls)", step))
+            for name, ops in cases:
+                x, w = ops[0]
+                err = (qk.wmm(x, w) - qk.wmm_plain(x, w)).abs().max().item()
+                calls = max(len(ops), 96) if len(ops) < 72 else 4 * len(ops)
+                for kernel, fn in (("wmm", qk.wmm), ("library", torch.matmul)):
+                    times = [time_us(lambda i: fn(*ops[i % len(ops)]), calls, torch)
+                             for _ in range(repeats)]
+                    us = statistics.median(times)
+                    if len(ops) == 72:
+                        times, us = [t * 72 for t in times], us * 72
+                    print(json.dumps({"tree": label, "kernel": f"{kernel} {name}",
+                                      "rows": rows, "dtype": str(dtype).split(".")[-1],
+                                      "us": times, "us_median": us,
+                                      "max_abs_err_vs_plain": err,
+                                      "input_checksum": checksum([x, w], torch),
+                                      "card": card}))
+        del ws
 
 
 def time_sampler(label, card, repeats, torch):
