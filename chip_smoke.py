@@ -147,19 +147,66 @@ prints no result line:
                a bf16 copy of the weights with ``ZG2_WMM=1`` (wmm's
                tensor-core body): ring and linear caches identical, near-tie
                check against a bf16 engine without wmm.
-23. times    - each kernel's device time per call at the main paths'
+23. extend   - ``gpt2.extend`` of a T=5 window (2 lanes, 5 and 3 valid
+               rows) against 5 sequential decode steps on the card: 124M
+               fp32 unpacked and packed within 1e-3 (no kernel launched);
+               1.5B INT4 + INT8 KV packed: 289 qmm launches and nothing else,
+               then f32 float leaves over the first 12 layers, the card's
+               extend within max(1e-3, 3 x the CPU f32-vs-f64 floor) of the
+               CPU's and within max(1e-3, 3 x floor, 3 x the CPU's own
+               extend-vs-decode gap) of the card's decode steps (the INT8
+               extend rounds q and p * v_scale to bf16, the JAX op's
+               arithmetic; the decode kernel does not).
+24. serve-prefix-1.5B - phase 17's engine with a 256-token prefix
+               registered: three prompts of it plus 8-24 tokens, 32 greedy
+               tokens each (289 qmm per hit's extend and per decode step),
+               equal to the engine without the prefix up to a near-tie;
+               prefill_ms with and without the hit, prefix_tokens_reused.
+25. serve-batcher-prefix-1.5B - the B=16 ring batcher (INT4 + INT8 KV,
+               packed) with a 64-token prefix registered: 32 greedy requests,
+               half of them sharing the prefix, the write pointer wrapping;
+               launch counts per step, prefill and prefix extend; equal to
+               the batcher without the prefix up to a near-tie;
+               prefix_hits and prefill_tokens_saved.
+26. speculative-1.5B - ``SpeculativeEngine``, target 1.5B INT4 + INT8 KV
+               (unpacked), draft 124M fp32, k=4, greedy: three prompts x 32
+               tokens equal to the unpacked target engine's up to a near-tie
+               (launches: 289 qmm per round and prefill, 36 draft attention
+               per round, no sampler), ms per committed token against the
+               engine's; ``torch.profiler`` over 4 marked rounds (289 qmm,
+               36 attention, 0 sampler kernels); self-draft at 124M at >= 0.9
+               x (k + 1) tokens per round; prompt lookup on a seeded looping
+               1.5B stream (else 124M; fails if neither loops) above 1 token
+               per round.
+27. serve-batcher-spec-1.5B - ``ContinuousBatcher(speculative="ngram",
+               batch_size=16, spec_k=3, spec_min_tpr=0)``, INT4 + INT8 KV: 16
+               greedy requests (half a repeated 3-token pattern), every
+               round one (16, 4) verify extend (289 qmm at 64 rows), equal to
+               the plain unpacked batcher up to a near-tie, tokens per round;
+               then the default spec_min_tpr, whether the auto-off fired.
+28. times    - each kernel's device time per call at the main paths'
                shapes (CUDA-graph replay of many calls), its bound, its
                plain version's time and one PyTorch library call computing
                the same function (timed only, never used by the port):
                attention at B=1 and the ring at B=16 (with the w8a8
                engine's packed bf16 cache at 1.5B shapes), the sampler at
-               B=1 and B=16, qmm and the w8a8 body at 1 and 16 rows per 1.5B
-               linear and per step, and wmm at rows 1 and 8, f32 and bf16,
-               per 124M shape and per 72-call step in served order, every
-               call on another layer's weight (from device memory, not L2).
+               B=1 and B=16, qmm at 1, 5, 16 and 64 rows and the w8a8 body
+               at 1, 16 and 64 rows per 1.5B linear and per 289 calls (a
+               decode step or an extend window), and wmm at rows 1, 2 and
+               8, f32 and bf16, per 124M shape and per 72-call step in
+               served order, every call on another layer's weight (from
+               device memory, not L2).
 
-Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-22
-the packed one, which the card picks by itself at head_dim 64.
+Phases 24-27 compare two bf16 paths' greedy tokens (with and without a
+prefix, speculative and plain): equal up to the first divergence, and
+there a near-tie within max(1e-3, 3 x the INT8 floor, 3 x the bf16 floor:
+the served engine's teacher-forced logits against the same weights' with
+f32 float leaves, as phase 22 holds its bf16 batcher).
+
+Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-25
+the packed one, which the card picks by itself at head_dim 64; the
+speculative target's cache and the speculative batcher's stay unpacked,
+as the JAX package keeps them.
 fp32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 The line before the last is a JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -699,16 +746,19 @@ def teacher_forced(gpt2, params, config, ids, tokens, device, torch, kv_quant=No
     return torch.stack(rows).float().cpu()[:, :config.vocab_size]
 
 
-def compare_logits(label: str, gpu, cpu, torch, atol: float = E2E_ATOL) -> None:
+def compare_logits(label: str, gpu, cpu, torch, atol: float = E2E_ATOL,
+                   what: str = "teacher-forced fp32 logits, card vs CPU") -> None:
+    """``gpu`` within atol + E2E_RTOL * |cpu| of ``cpu`` (positions, vocab),
+    finite, and the same argmax wherever cpu's top two are not a near-tie."""
     err = (gpu - cpu).abs()
     top2 = cpu.topk(2, -1).values
     near_tie = (top2[:, 0] - top2[:, 1]) < 2 * (atol + E2E_RTOL * top2[:, 0].abs())
     flips = (cpu.argmax(-1) != gpu.argmax(-1)) & ~near_tie
-    log(f"{label} teacher-forced fp32 logits, card vs CPU over {gpu.shape[0]} positions: "
+    log(f"{label} {what} over {gpu.shape[0]} positions: "
         f"max_abs_err={err.max().item():.3e} (atol {atol:.3e}, rtol {E2E_RTOL}), "
         f"argmax flips outside near-ties={int(flips.sum())}")
     if (err > atol + E2E_RTOL * cpu.abs()).any() or flips.any():
-        raise AssertionError(f"{label}: card logits disagree with the CPU run")
+        raise AssertionError(f"{label}: {what}: the logits disagree")
     if not torch.isfinite(gpu).all():
         raise AssertionError(f"{label}: non-finite logits")
 
@@ -1038,7 +1088,7 @@ def serve_batch(batcher, requests, label: str):
 
 
 def near_tie_check(label: str, gpt2, engine, requests, served, tol: float, torch,
-                   shapes=None, lanes: int = 1) -> None:
+                   shapes=None, lanes: int = 1, wants=None) -> None:
     """Each request's batcher tokens equal the engine's greedy tokens up to
     the first divergence, if any; there the engine's logits for its token
     and for the batcher's differ by at most ``tol`` (a near-tie that the
@@ -1050,13 +1100,14 @@ def near_tie_check(label: str, gpt2, engine, requests, served, tol: float, torch
     a decode batch of ``lanes``, must pick every one of them as its argmax
     (the batcher computed the model's greedy tokens, bit for bit, at its
     shapes). A divergence from the engine wider than ``tol`` then passes
-    as the roundoff of the two paths' shapes."""
+    as the roundoff of the two paths' shapes. ``wants``: the engine's
+    greedy tokens per request, when already generated."""
     import numpy as np
 
     from zig_gpt2_tpu_torch.config import SamplingConfig
     from zig_gpt2_tpu_torch.runtime.engine import _bucket
 
-    for (ids, budget), got in zip(requests, served):
+    for i, ((ids, budget), got) in enumerate(zip(requests, served)):
         replay = None
         if shapes is not None:
             group, bucket = shapes[tuple(ids)]
@@ -1071,7 +1122,8 @@ def near_tie_check(label: str, gpt2, engine, requests, served, tol: float, torch
                 raise AssertionError(f"{label}: the batcher's tokens are not the model's greedy "
                                      f"tokens at its own shapes (first at "
                                      f"{next(i for i, (a, b) in enumerate(zip(picked, got)) if a != b)})")
-        want = engine.generate(ids, budget, SamplingConfig(temperature=0.0))
+        want = (wants[i] if wants is not None else
+                engine.generate(ids, budget, SamplingConfig(temperature=0.0)))
         n = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
         if n is None:
             log(f"{label} near-tie check: prompt of {len(ids)}, {budget} tokens: identical "
@@ -1205,26 +1257,17 @@ def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, ca
                 else batch_requests(51, 32, config.vocab_size, (8, 120), (32, 96)))
     half = len(requests) // 2 if sampled_half else 0
 
-    prefills = []  # (k, T) of each admission's prefill, for the qmm count
-    admitted = []  # (tokens, lengths) of each, read back after the run
-    plain_prefill = gpt2.prefill
-
-    def recording_prefill(params, cache, tokens, lengths, config):
-        prefills.append(tuple(tokens.shape))
-        admitted.append((tokens, lengths))
-        return plain_prefill(params, cache, tokens, lengths, config)
-
-    gpt2.prefill = recording_prefill
-    try:
+    # Each admission's prefill (tokens, lengths): its (k, T) for the qmm
+    # count, its prompts' shapes for the replay.
+    with recording(gpt2, {"prefill": [], "extend": []}) as calls:
         reset_counts(att, sk, qk)
         if half:
             serve_batch(b, requests[:half], f"{label} sampled half")
-        sampled_steps, sampled_prefills = b.metrics.steps, len(prefills)
+        sampled_steps, sampled_prefills = b.metrics.steps, len(calls["prefill"])
         b.sampling = greedy
         served = serve_batch(b, requests[half:], f"{label} greedy half" if half else label)
         counts = read_counts(att, sk, qk, torch)
-    finally:
-        gpt2.prefill = plain_prefill
+    admitted, prefills = calls["prefill"], window_shapes(calls["prefill"])
     steps = b.metrics.steps
     key = "attention_int8_packed_ring" if b.config.kv_packed else "attention_int8_ring"
     expect_counts(label, counts, {key: config.n_layers * steps,
@@ -1457,6 +1500,527 @@ def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str,
     return row
 
 
+# --- the extend path: gpt2.extend, prefix caching, speculative decoding -------
+
+EXTEND_T = 5
+QMM_PER_PASS_1P5B = 6 * 48 + 1  # the block linears and the lm_head of one 1.5B pass
+
+
+def extend_and_decode(gpt2, params, config, kv_quant, device: str, torch, counted=None):
+    """A prefill of two prompts (24 and 17 tokens, padded to 32), then
+    ``gpt2.extend`` of a T=5 window with 5 and 3 valid rows, and 5
+    sequential ``decode_step``s over the same window from a copy of the
+    prefilled cache. Returns (extend logits, decode logits) at the valid
+    rows, (8, vocab) f32 on the CPU, the extend's host time in ms and, with
+    ``counted`` (read_counts' arguments), the extend's launch counts."""
+    g = torch.Generator().manual_seed(29)
+    B, T, bucket, vocab = 2, EXTEND_T, 32, config.vocab_size
+    lens = torch.tensor([24, 17], dtype=torch.int32, device=device)
+    valid = torch.tensor([T, 3], dtype=torch.int32, device=device)
+    prompt = torch.randint(0, vocab, (B, bucket), generator=g, dtype=torch.int32).to(device)
+    window = torch.randint(0, vocab, (B, T), generator=g, dtype=torch.int32).to(device)
+    cache = gpt2.init_kv_cache(config, B, bucket + 2 * T, dtype=params["wte"].dtype,
+                               device=device, quant=kv_quant)
+    cache, _ = gpt2.prefill(params, cache, prompt, lens, config)
+    seq = {name: t.clone() for name, t in cache.items()}
+    if counted:
+        reset_counts(*counted[:3])
+    t0 = time.perf_counter()
+    cache, ext = gpt2.extend(params, cache, window, valid, config)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ext_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(*counted) if counted else None
+    rows = []
+    for t in range(T):
+        seq, logits = gpt2.decode_step(params, seq, window[:, t], config)
+        rows.append(logits)
+    if cache["length"].tolist() != (lens + valid).tolist():
+        raise AssertionError(f"extend's lengths {cache['length'].tolist()}")
+    dec = torch.stack(rows, 1)
+
+    def valid_rows(x):
+        return torch.cat([x[b, :int(valid[b])] for b in range(B)]).float().cpu()[:, :vocab]
+
+    return valid_rows(ext), valid_rows(dec), ext_ms, counts
+
+
+def run_extend_phase(pkg, torch, config_124m, params_124m, config_1p5b, params_1p5b,
+                     card: str, check_layers: int = 12) -> dict:
+    """Phase extend. 124M fp32, unpacked and packed: extend on the card
+    against 5 decode steps on the card within the E2E gate (1e-3); the
+    extend launches no kernel (float linears, plain attention).
+
+    1.5B INT4 + INT8 KV, packed (the phantom head padded in), served in
+    bf16: the extend launches qmm once per linear (289) and nothing else.
+    Then, as phase 11 does, the same weights with f32 float leaves over the
+    first ``check_layers`` layers, on the card and on the CPU (weights
+    dequantized to f32; and in f64 for the floor): the card's extend within
+    max(1e-3, 3 x floor) of the CPU's, and within max(1e-3, 3 x floor, 3 x
+    the CPU's own extend-vs-decode gap) of the card's decode steps. (The
+    INT8 extend rounds q and p * v_scale to bf16, the JAX op's arithmetic;
+    the decode kernel does not, so the two differ by more than roundoff.)
+    Returns the launch counts of the three extends of the served weights."""
+    _, gpt2, _, att, sk, qk, weights, quantize = pkg
+    counted = (att, sk, qk, torch)
+    total = {}
+    for packed in (False, True):
+        cfg = dataclasses.replace(config_124m, kv_packed=packed)
+        label = f"extend-124M fp32 {layout_name(cfg)}"
+        ext, dec, ms, counts = extend_and_decode(gpt2, params_124m, cfg, None, "cuda", torch,
+                                                 counted)
+        compare_logits(label, ext, dec, torch,
+                       what=f"extend (T={EXTEND_T}, valid 5 and 3) vs {EXTEND_T} decode steps "
+                            f"on the card")
+        log(f"{label}: extend {ms:.2f} ms host clock ({card})")
+        expect_counts(label, counts, {})
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    params, cfg = gpt2.pad_phantom_head(params_1p5b,
+                                        dataclasses.replace(config_1p5b, kv_packed=True))
+    label = "extend-1.5B INT4 + INT8 KV, packed KV"
+    ext, dec, ms, counts = extend_and_decode(gpt2, params, cfg, "int8", "cuda", torch, counted)
+    log(f"{label}, bf16 activations, {cfg.n_layers} layers: extend {ms:.2f} ms host clock; "
+        f"extend vs {EXTEND_T} decode steps max_abs_err {(ext - dec).abs().max().item():.3e} "
+        f"(logged: bf16 activations round the two arithmetics apart) ({card})")
+    expect_counts(label, counts, {"qmm": QMM_PER_PASS_1P5B})
+    total = {k: total[k] + v for k, v in counts.items()}
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=check_layers)
+    f32 = weights.tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    f32 = dict(f32, blocks=weights.tree_map(lambda t: t[:check_layers], f32["blocks"]))
+    ext_gpu, dec_gpu, _, _ = extend_and_decode(gpt2, f32, cfg, "int8", "cuda", torch)
+    cpu_w = dequantized(quantize, weights.tree_map(lambda t: t.cpu(), f32))
+    ext_cpu, dec_cpu, _, _ = extend_and_decode(gpt2, cpu_w, cfg, "int8", "cpu", torch)
+    cpu_w = weights.tree_map(lambda t: t.double() if t.is_floating_point() else t, cpu_w)
+    ext_f64, _, _, _ = extend_and_decode(gpt2, cpu_w, cfg, "int8", "cpu", torch)
+    del cpu_w
+    floor = (ext_f64 - ext_cpu).abs().max().item()
+    gap = (ext_cpu - dec_cpu).abs().max().item()
+    log(f"{label}, f32 activations, the first {check_layers} of 48 layers: CPU extend f64 vs "
+        f"f32 (floor) {floor:.3e}; CPU extend vs CPU decode steps (the bf16-rounding gap) "
+        f"{gap:.3e}; card and CPU runs {time.perf_counter() - t0:.1f} s")
+    compare_logits(label, ext_gpu, ext_cpu, torch, atol=max(E2E_ATOL, 3 * floor),
+                   what="extend, card vs CPU")
+    compare_logits(label, ext_gpu, dec_gpu, torch, atol=max(E2E_ATOL, 3 * floor, 3 * gap),
+                   what=f"extend vs {EXTEND_T} decode steps on the card")
+    return total
+
+
+def near_tie_pair(label: str, gpt2, engine, requests, a_served, b_served, tol: float,
+                  torch) -> None:
+    """Two greedy paths' tokens per request: equal up to the first
+    divergence, if any, and there a near-tie: the engine's teacher-forced
+    logits (at its own prompt bucket) for the two tokens within ``tol``."""
+    from zig_gpt2_tpu_torch.runtime.engine import _bucket
+
+    same = 0
+    for (ids, _), a, b in zip(requests, a_served, b_served):
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if n is None and len(a) == len(b):
+            same += 1
+            continue
+        if n is None:
+            raise AssertionError(f"{label}: a request ended at another length")
+        logits = teacher_forced(gpt2, engine.params, engine.config, ids, a[:n], "cuda", torch,
+                                kv_quant=engine.kv_quant,
+                                bucket=_bucket(len(ids), engine.prompt_buckets))[-1]
+        gap = abs(float(logits[a[n]] - logits[b[n]]))
+        log(f"{label} near-tie check: prompt of {len(ids)}: first divergence at token {n}, "
+            f"logit gap {gap:.3e} (tolerance {tol:.3e})")
+        if gap > tol:
+            raise AssertionError(f"{label}: the two paths part at token {n}, not at a "
+                                 f"near-tie (gap {gap:.3e})")
+    log(f"{label}: {same} of {len(requests)} requests identical, the others part at a "
+        f"near-tie")
+
+
+def bf16_floor(gpt2, weights, engine, ids, tokens, torch, label: str) -> float:
+    """The served bf16 path's own roundoff at 1.5B: the engine's
+    teacher-forced logits (bf16 weights and activations, its cache) against
+    the same weights' with f32 float leaves, on the card (as phase 22
+    measures the bf16 wmm batcher's). Two bf16 paths that part at a
+    near-tie are held to max(1e-3, 3 x this, 3 x the INT8 floor)."""
+    from zig_gpt2_tpu_torch.runtime.engine import _bucket
+
+    bucket = _bucket(len(ids), engine.prompt_buckets)
+    got = teacher_forced(gpt2, engine.params, engine.config, ids, tokens, "cuda", torch,
+                         kv_quant=engine.kv_quant, bucket=bucket)
+    f32 = weights.tree_map(lambda t: t.float() if t.is_floating_point() else t, engine.params)
+    want = teacher_forced(gpt2, f32, engine.config, ids, tokens, "cuda", torch,
+                          kv_quant=engine.kv_quant, bucket=bucket)
+    floor = (got - want).abs().max().item()
+    log(f"{label} bf16 floor: the engine's teacher-forced logits and the same weights' in f32 "
+        f"differ by max_abs_err={floor:.3e} over {got.shape[0]} positions")
+    return floor
+
+
+def serve_prefix_1p5b(pkg, torch, encoder, config, params, floor: float, card: str):
+    """Phase serve-prefix-1.5B: the INT4 + INT8 KV engine (packed, the
+    card's default) with a 256-token prefix registered; three prompts of it
+    plus 8, 16 and 24 tokens, 32 greedy tokens each, against the same
+    engine without the prefix up to a near-tie. Every hit is one (1, 32)
+    extend (289 qmm); decode as in phase 17. Returns the launch counts and
+    the engine without the prefix."""
+    import numpy as np
+
+    config_mod, gpt2, engine_mod, att, sk, qk, _, _ = pkg
+    label = "serve-prefix-1.5B"
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    rng = np.random.default_rng(61)
+    prefix = rng.integers(0, config.vocab_size, 256).tolist()
+    prompts = [prefix + rng.integers(0, config.vocab_size, n).tolist() for n in (8, 16, 24)]
+    kw = dict(kv_quant="int8", device="cuda")
+    plain = engine_mod.InferenceEngine(config, params, encoder, **kw)
+    cached = engine_mod.InferenceEngine(config, params, encoder, **kw)
+    t0 = time.perf_counter()
+    cached.register_prefix(prefix)
+    torch.cuda.synchronize()
+    log(f"{label}: register_prefix of {len(prefix)} tokens {1e3 * (time.perf_counter() - t0):.1f}"
+        f" ms ({layout_name(cached.config)})")
+    for eng in (cached, plain):  # warm-up: the hit's and the miss's shapes
+        eng.generate(prompts[0], 2, greedy)
+    reset_counts(att, sk, qk)
+    hits = []
+    for p in prompts:
+        m = engine_mod.GenerationMetrics()
+        hits.append((cached.generate(p, 32, greedy, metrics=m), m))
+    counts = read_counts(att, sk, qk, torch)
+    steps = sum(m.generated_tokens for _, m in hits)
+    key = "attention_int8_packed" if cached.config.kv_packed else "attention_int8"
+    expect_counts(label, counts, {"qmm": QMM_PER_PASS_1P5B * (steps + len(prompts)),
+                                  key: config.n_layers * steps})
+    misses = []
+    for p in prompts:
+        m = engine_mod.GenerationMetrics()
+        misses.append((plain.generate(p, 32, greedy, metrics=m), m))
+    for p, (_, mh), (_, mm) in zip(prompts, hits, misses):
+        log(f"{label} prompt of {len(p)}: prefill_ms with the hit {mh.prefill_ms:.3f}, without "
+            f"{mm.prefill_ms:.3f}; prefix_tokens_reused {mh.prefix_tokens_reused}; "
+            f"ms_per_token_p50 {mh.ms_per_token_percentile(50):.3f} / "
+            f"{mm.ms_per_token_percentile(50):.3f} (INT4 + INT8 KV, B=1, {card})")
+        if mh.prefix_tokens_reused != len(prefix) or mm.prefix_tokens_reused:
+            raise AssertionError(f"{label}: the prompt of {len(p)} was not served from the prefix")
+    floor_bf16 = bf16_floor(gpt2, pkg[6], plain, prompts[0], misses[0][0], torch, label)
+    near_tie_check(label, gpt2, plain, [(p, 32) for p in prompts], [t for t, _ in hits],
+                   max(E2E_ATOL, 3 * floor, 3 * floor_bf16), torch,
+                   wants=[t for t, _ in misses])
+    return counts, plain
+
+
+@contextlib.contextmanager
+def recording(gpt2, calls: dict):
+    """gpt2.prefill and gpt2.extend record each call's (tokens, lengths or
+    valid) into calls["prefill"] and calls["extend"] while the context is
+    open."""
+    plain_prefill, plain_extend = gpt2.prefill, gpt2.extend
+
+    def prefill(params, cache, tokens, lengths, config):
+        calls["prefill"].append((tokens, lengths))
+        return plain_prefill(params, cache, tokens, lengths, config)
+
+    def extend(params, cache, tokens, valid, config):
+        calls["extend"].append((tokens, valid))
+        return plain_extend(params, cache, tokens, valid, config)
+
+    gpt2.prefill, gpt2.extend = prefill, extend
+    try:
+        yield calls
+    finally:
+        gpt2.prefill, gpt2.extend = plain_prefill, plain_extend
+
+
+def window_shapes(calls) -> list:
+    """The (k, T) window shape of each recorded call."""
+    return [tuple(tokens.shape) for tokens, _ in calls]
+
+
+def window_qmm(config, calls: dict) -> int:
+    """qmm launches of the recorded admissions: a prefill's block linears
+    within the row cap and its lm_head (``gemv_counts``), an extend's 289
+    (its lm_head runs on every window row) within the cap, else none."""
+    return (gemv_counts(config, 0, window_shapes(calls["prefill"]))["qmm"]
+            + sum(QMM_PER_PASS_1P5B for k, t in window_shapes(calls["extend"]) if k * t <= 256))
+
+
+def serve_batcher_prefix_1p5b(pkg, batcher_mod, torch, config, params, engine, floor: float,
+                              card: str) -> dict:
+    """Phase serve-batcher-prefix-1.5B: the ring batcher, B=16, INT4 + INT8
+    KV, packed, with a 64-token prefix registered: 32 greedy requests, the
+    even ones the prefix plus 8-32 tokens, the odd ones 8-96 fresh tokens,
+    budgets 88-136 (the write pointer wraps); against the same batcher
+    without the prefix, up to a near-tie. Returns the launch counts."""
+    import numpy as np
+
+    config_mod, gpt2, _, att, sk, qk, _, _ = pkg
+    label = "serve-batcher-prefix-1.5B"
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    rng = np.random.default_rng(62)
+    vocab = config.vocab_size
+    prefix = rng.integers(0, vocab, 64).tolist()
+    requests = []
+    for i in range(32):
+        ids = (prefix + rng.integers(0, vocab, int(rng.integers(8, 33))).tolist() if i % 2 == 0
+               else rng.integers(0, vocab, int(rng.integers(8, 97))).tolist())
+        requests.append((ids, int(rng.integers(88, 137))))
+    kw = dict(batch_size=16, max_seq=240, decode_chunk=1, kv_quant="int8", sampling=greedy,
+              device="cuda")
+    served, counts = {}, None
+    for name, prefixes in (("prefix", [prefix]), ("plain", [])):
+        b = batcher_mod.ContinuousBatcher(config, params, **kw)
+        serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], f"{label} warm-up")
+        for pre in prefixes:
+            b.register_prefix(pre)
+        b.metrics = batcher_mod.BatcherMetrics()
+        reset_counts(att, sk, qk)
+        with recording(gpt2, {"prefill": [], "extend": []}) as calls:
+            served[name] = serve_batch(b, requests, f"{label} {name}")
+        run_counts = read_counts(att, sk, qk, torch)
+        steps, rows = b.metrics.steps, b.cache["k"].shape[-2]
+        key = "attention_int8_packed_ring" if b.config.kv_packed else "attention_int8_ring"
+        expect_counts(f"{label} {name}", run_counts,
+                      {key: config.n_layers * steps,
+                       "qmm": QMM_PER_PASS_1P5B * steps + window_qmm(config, calls)})
+        log(f"{label} {name}: {steps} decode steps, prefills "
+            f"{sorted(set(window_shapes(calls['prefill'])))}, prefix extends "
+            f"{sorted(set(window_shapes(calls['extend'])))}, ring rows {rows}, wptr now "
+            f"{int(b.cache['wptr'])}; metrics {json.dumps(b.metrics.as_dict(16))} (INT4 + INT8 "
+            f"KV, {layout_name(b.config)}, B=16, ring, greedy, {card})")
+        if steps + 2 < rows:  # the warm-up took 2 steps
+            raise AssertionError(f"{label} {name}: the write pointer did not wrap")
+        if name == "prefix":
+            counts = run_counts
+            d = b.metrics.as_dict(16)
+            if d.get("prefix_hits") != 16 or d.get("prefill_tokens_saved", 0) < 16 * 63:
+                raise AssertionError(f"{label}: prefix hits {d.get('prefix_hits')}, expected 16")
+    ids, _ = requests[0]
+    floor_bf16 = bf16_floor(gpt2, pkg[6], engine, ids, served["plain"][0][:32], torch, label)
+    near_tie_pair(label, gpt2, engine, requests, served["prefix"], served["plain"],
+                  max(E2E_ATOL, 3 * floor, 3 * floor_bf16), torch)
+    return counts
+
+
+def looping_prompt(engine, vocab: int, greedy, seeds=range(8)):
+    """A prompt of 3 seeded tokens repeated 5 times whose greedy stream of 24
+    tokens ends in a loop of period 3 or less (as the JAX package's batcher
+    test searches), with the stream; or None."""
+    import numpy as np
+
+    for seed in seeds:
+        prompt = np.random.default_rng(seed).integers(0, vocab, 3).tolist() * 5
+        stream = engine.generate(prompt, 24, greedy)
+        if stream[-3:] == stream[-6:-3] == stream[-9:-6]:
+            return prompt, stream
+    return None
+
+
+def trace_spec_rounds(spec, ids, torch, card: str, label: str) -> dict:
+    """``torch.profiler`` over greedy speculative rounds of ``spec`` after a
+    prefill: two untraced-padding rounds, then 4 rounds each opened by a
+    marker kernel (``trace_batcher``'s scheme). Per marked round: the
+    target's verify launches one qmm per linear (289; none above, at least
+    one round exactly), the draft's k - 1 decode steps 12 x (k - 1)
+    attention kernels, and no round a sampler kernel. Returns the row."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zig_gpt2_tpu_torch.config import SamplingConfig
+
+    greedy = SamplingConfig(temperature=0.0)
+    n = len(ids)
+    tokens = torch.zeros((1, 32), dtype=torch.int32, device="cuda")
+    tokens[0, :n] = torch.tensor(ids, dtype=torch.int32)
+    state = spec._prefill_and_sample(tokens, torch.tensor([n], dtype=torch.int32, device="cuda"),
+                                     greedy)
+    torch.cuda.synchronize()
+    pad, rounds, wall_us = 2, 4, 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(pad + rounds):
+            if i >= pad:
+                torch.cuda._sleep(1000)  # the round's marker
+            t0 = time.perf_counter()
+            _, count = spec._round(state, greedy)
+            int(count[0])  # the round's host read, as generate_iter makes it
+            if i >= pad:
+                wall_us += (time.perf_counter() - t0) * 1e6
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: (e.id, e.time_range.start))
+    by_round = []
+    for e in events:
+        if "spin_kernel" in e.name:
+            by_round.append([])
+        elif by_round:
+            by_round[-1].append((e.name, e.time_range.end - e.time_range.start))
+
+    def per_round(key):
+        return [sum(key in name for name, _ in r) for r in by_round]
+
+    qmm = [q - w for q, w in zip(per_round("qmm_"), per_round("qmm_w8a8"))]
+    attn, sampler = per_round("decode_attention_kernel"), per_round("sample_categorical_kernel")
+    k = spec.k
+    row = {"target": "1558M INT4 + INT8 KV, unpacked", "draft": "124M fp32", "k": k,
+           "traced_rounds": rounds, "rounds_in_trace": len(by_round),
+           "qmm_kernels_by_round": qmm, "attention_kernels_by_round": attn,
+           "sampler_kernels_by_round": sampler, "traced_wall_ms": wall_us / 1e3, "card": card}
+    if by_round:
+        busy = sum(us for r in by_round for _, us in r) / len(by_round)
+        row.update({"device_busy_ms_per_round": busy / 1e3,
+                    "device_idle_share": 1.0 - busy / (wall_us / rounds),
+                    "kernels_per_round": sum(len(r) for r in by_round) / len(by_round)})
+    log(f"{label} {json.dumps(row)}")
+    if (not by_round or max(qmm) > QMM_PER_PASS_1P5B or QMM_PER_PASS_1P5B not in qmm
+            or max(attn) > 12 * (k - 1) or 12 * (k - 1) not in attn or any(sampler)):
+        raise AssertionError(f"{label}: per round qmm {qmm}, attention {attn}, sampler "
+                             f"{sampler}; expected {QMM_PER_PASS_1P5B}, {12 * (k - 1)}, 0")
+    return row
+
+
+def speculative_1p5b(pkg, torch, encoder, config_1p5b, params_1p5b, config_124m, params_124m,
+                     floor: float, card: str):
+    """Phase speculative-1.5B. Returns the launch counts of the draft-model
+    run and the unpacked 1.5B engine (the target's layout)."""
+    import numpy as np
+
+    from zig_gpt2_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, _ = pkg
+    label, k = "speculative-1.5B", 4
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    with kv_layout("0"):  # the target's layout: extend-only caches stay unpacked
+        ref = engine_mod.InferenceEngine(config_1p5b, params_1p5b, encoder, kv_quant="int8",
+                                         device="cuda")
+    spec = SpeculativeEngine(config_1p5b, params_1p5b, config_124m, params_124m, k=k,
+                             kv_quant="int8", device="cuda")
+    prompts = [encoder.encode(prompt) for _, prompt, _ in REQUESTS]
+    spec.generate(prompts[0], 6, greedy)  # warm-up
+    ref.generate(prompts[0], 6, greedy)
+    reset_counts(att, sk, qk)
+    runs, rounds = [], 0
+    for ids in prompts:
+        m = engine_mod.GenerationMetrics()
+        runs.append((spec.generate(ids, 32, greedy, metrics=m), m))
+        rounds += spec.last_rounds
+    counts = read_counts(att, sk, qk, torch)
+    expect_counts(label, counts, {"qmm": QMM_PER_PASS_1P5B * (rounds + len(prompts)),
+                                  "attention": config_124m.n_layers * (k - 1) * rounds})
+    wants = []
+    for ids, (toks, m) in zip(prompts, runs):
+        mr = engine_mod.GenerationMetrics()
+        wants.append(ref.generate(ids, 32, greedy, metrics=mr))
+        log(f"{label} prompt of {len(ids)}: {m.generated_tokens} tokens, ms per committed token "
+            f"{m.ms_per_token:.3f} (speculative, draft 124M fp32, k={k}) against "
+            f"{mr.ms_per_token:.3f} (the plain engine), prefill_ms {m.prefill_ms:.3f} / "
+            f"{mr.prefill_ms:.3f} (INT4 + INT8 KV, unpacked, B=1, {card})")
+    log(f"{label}: {rounds} rounds for {sum(m.generated_tokens - 1 for _, m in runs)} tokens "
+        f"after the first")
+    tol = max(E2E_ATOL, 3 * floor,
+              3 * bf16_floor(gpt2, weights, ref, prompts[0], wants[0], torch, label))
+    near_tie_check(label, gpt2, ref, [(ids, 32) for ids in prompts], [t for t, _ in runs], tol,
+                   torch, wants=wants)
+    trace_spec_rounds(spec, prompts[0], torch, card, "trace-speculative-1.5B")
+    del spec
+
+    # Self-draft at 124M: every proposal accepted up to near-ties.
+    self_draft = SpeculativeEngine(config_124m, params_124m, config_124m, params_124m, k=k,
+                                   device="cuda")
+    n_steps = 100
+    ids = prompts[0]
+    out = self_draft.generate_scan(np.asarray([ids], np.int32), [len(ids)], n_steps, greedy)
+    tpr = n_steps / self_draft.last_rounds
+    log(f"{label} self-draft 124M fp32, k={k}: {self_draft.last_rounds} rounds for {n_steps} "
+        f"tokens, {tpr:.3f} tokens per round (ceiling {k + 1}, gate {0.9 * (k + 1)})")
+    if tpr < 0.9 * (k + 1) or out.shape != (1, n_steps):
+        raise AssertionError(f"{label}: the self-draft committed {tpr:.3f} tokens per round")
+
+    # Prompt lookup on a looping greedy stream: 1.5B, else 124M.
+    found = looping_prompt(ref, config_1p5b.vocab_size, greedy)
+    model = "1.5B INT4 + INT8 KV"
+    if found is not None:
+        ng = SpeculativeEngine(config_1p5b, params_1p5b, k=k, kv_quant="int8", device="cuda")
+        ng_ref = ref
+    else:
+        log(f"{label}: no seeded 1.5B prompt loops; searching at 124M")
+        ng_ref = engine_mod.InferenceEngine(config_124m, params_124m, encoder, device="cuda")
+        found = looping_prompt(ng_ref, config_124m.vocab_size, greedy)
+        if found is None:
+            raise AssertionError(f"{label}: neither 1.5B nor 124M gives a looping greedy stream "
+                                 "from the seeded prompts: the n-gram gate would be vacuous")
+        ng = SpeculativeEngine(config_124m, params_124m, k=k, device="cuda")
+        model = "124M fp32"
+    prompt, stream = found
+    toks = ng.generate(prompt, 24, greedy)
+    tpr = (len(toks) - 1) / ng.last_rounds
+    if ng_ref is not ref:  # 124M fp32: the float E2E gate
+        tol = E2E_ATOL
+    log(f"{label} n-gram on a looping {model} stream (prompt {prompt[:3]} x 5): {ng.last_rounds} "
+        f"rounds for {len(toks) - 1} tokens after the first, {tpr:.3f} tokens per round")
+    near_tie_check(f"{label} n-gram", gpt2, ng_ref, [(prompt, 24)], [toks], tol, torch,
+                   wants=[stream])
+    if tpr <= 1.0:
+        raise AssertionError(f"{label}: prompt lookup accepted nothing on a looping stream")
+    return counts, ref
+
+
+def serve_batcher_spec_1p5b(pkg, batcher_mod, torch, config, params, engine, floor: float,
+                            card: str) -> dict:
+    """Phase serve-batcher-spec-1.5B: ``speculative="ngram"``, B=16,
+    spec_k=3 (64 verify rows, the w8a8 cap), spec_min_tpr=0, INT4 + INT8 KV
+    (linear, unpacked): 16 greedy requests, half of them a 3-token pattern
+    repeated (where lookup accepts), against the plain unpacked batcher up
+    to a near-tie; then the default spec_min_tpr, reporting whether the
+    auto-off fired. Returns the launch counts of the first run."""
+    import numpy as np
+
+    config_mod, gpt2, _, att, sk, qk, _, _ = pkg
+    label = "serve-batcher-spec-1.5B"
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    rng = np.random.default_rng(63)
+    vocab = config.vocab_size
+    requests = []
+    for i in range(16):
+        ids = (rng.integers(0, vocab, 3).tolist() * 6 if i % 2 == 0
+               else rng.integers(0, vocab, int(rng.integers(8, 121))).tolist())
+        requests.append((ids, int(rng.integers(32, 65))))
+    kw = dict(batch_size=16, max_seq=256, kv_quant="int8", sampling=greedy, device="cuda")
+    spec_kw = dict(speculative="ngram", spec_k=3)
+    b = batcher_mod.ContinuousBatcher(config, params, spec_min_tpr=0.0, **spec_kw, **kw)
+    serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], f"{label} warm-up")
+    b.metrics = batcher_mod.BatcherMetrics()
+    reset_counts(att, sk, qk)
+    with recording(gpt2, {"prefill": [], "extend": []}) as calls:
+        served = serve_batch(b, requests, label)
+    counts = read_counts(att, sk, qk, torch)
+    rounds = b.metrics.spec_rounds
+    if window_shapes(calls["extend"]) != [(16, 4)] * rounds:
+        raise AssertionError(f"{label}: verify windows "
+                             f"{sorted(set(window_shapes(calls['extend'])))}, expected {rounds} "
+                             f"of (16, 4)")
+    expect_counts(label, counts, {"qmm": window_qmm(config, calls)})
+    log(f"{label}: tokens_per_round {b.metrics.tokens_per_round:.4f}, metrics "
+        f"{json.dumps(b.metrics.as_dict(16))} (INT4 + INT8 KV, linear unpacked, B=16, spec_k=3, "
+        f"greedy, {card})")
+    with kv_layout("0"):
+        plain = batcher_mod.ContinuousBatcher(config, params, **kw)
+    serve_batch(plain, [([1, 2, 3], 4), ([4, 5], 4)], f"{label} plain warm-up")
+    plain.metrics = batcher_mod.BatcherMetrics()
+    plain_served = serve_batch(plain, requests, f"{label} plain")
+    log(f"{label} plain batcher metrics {json.dumps(plain.metrics.as_dict(16))} (INT4 + INT8 KV, "
+        f"ring unpacked, B=16, greedy, {card})")
+    ids, _ = requests[1]
+    tol = max(E2E_ATOL, 3 * floor,
+              3 * bf16_floor(gpt2, pkg[6], engine, ids, plain_served[1][:32], torch, label))
+    near_tie_pair(label, gpt2, engine, requests, served, plain_served, tol, torch)
+    auto = batcher_mod.ContinuousBatcher(config, params, **spec_kw, **kw)
+    auto_served = serve_batch(auto, requests, f"{label} default spec_min_tpr")
+    off = auto.metrics.spec_auto_off_step
+    log(f"{label} with the default spec_min_tpr: auto-off "
+        f"{'did not fire' if off is None else f'fired at step {off}'}; "
+        f"metrics {json.dumps(auto.metrics.as_dict(16))} ({card})")
+    near_tie_pair(f"{label} default spec_min_tpr", gpt2, engine, requests, auto_served,
+                  plain_served, tol, torch)
+    return counts
+
+
 def time_sampler(sk, torch, counts, card: str):
     """The sampler at B=1 (the engines) and B=16 (the sampled batchers) over
     the 50257-id vocab, f32 logits, plain temperature. The JSON entry is
@@ -1638,11 +2202,12 @@ def qmm_work(qw, scale, int4: bool, rows: int, x_bytes: int):
 
 
 def time_qmm(qk, quantize, params, torch, counts, card: str):
-    """qmm at B=1 (rows 1) and at the batcher's 16 rows, bf16 activations as
-    served, per linear shape, rotating over the 48 layers so that the
-    weights come from HBM (the lm_head alone is 80 MB). The yardstick is
-    torch.matmul on the same weights dequantized ahead of time to bf16: it
-    reads 4x the INT4 bytes. The JSON entry is the B=1 step."""
+    """qmm at B=1 (rows 1), at the batcher's 16 rows and at the extend
+    path's 5 (the smoke test's T=5 window at B=1) and 64 (B=16 verify
+    windows of 4), bf16 activations as served, per linear shape, rotating
+    over the 48 layers so that the weights come from HBM (the lm_head alone
+    is 80 MB). The yardstick is torch.matmul on the same weights dequantized
+    ahead of time to bf16: it reads 4x the INT4 bytes. The JSON entry is the B=1 step."""
     g = torch.Generator(device="cuda").manual_seed(8)
     L = params["blocks"]["attn"]["wq"]["scale"].shape[0]
     shapes = [("attn.wq/wk/wv/c_proj", [linears(params, i)[0][1:] for i in range(L)]),
@@ -1650,7 +2215,7 @@ def time_qmm(qk, quantize, params, torch, counts, card: str):
               ("mlp.c_proj", [linears(params, i)[5][1:] for i in range(L)]),
               ("lm_head", [linears(params, None)[0][1:]])]
     steps = {rows: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-             for rows in (1, 16)}
+             for rows in (1, 5, 16, 64)}
     errs = []
     for label, layers in shapes:
         qw, scale, int4 = layers[0]
@@ -1685,7 +2250,8 @@ def time_qmm(qk, quantize, params, torch, counts, card: str):
         bms, by = bound_ms(step["bytes"], step["ops"],
                            PEAK_OPS_PER_S if rows == 1 else PEAK_BF16_OPS_PER_S)
         step["bound_ms"], step["bound_by"] = bms, by
-        log(f"time qmm per decode step (289 calls, rows={rows}, bf16): kernel "
+        what = "decode step" if rows in (1, 16) else "extend window"
+        log(f"time qmm per {what} (289 calls, rows={rows}, bf16): kernel "
             f"{step['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
             f"torch.matmul on pre-dequantized bf16 weights {step['library_ms']:.4f} ms "
             f"({card})")
@@ -1698,7 +2264,8 @@ def time_qmm(qk, quantize, params, torch, counts, card: str):
 
 
 def time_w8a8(qk, quantize, params, torch, counts, card: str):
-    """The w8a8 body at rows 1 and 16, bf16 activations as served, per
+    """The w8a8 body at rows 1, 16 and 64 (a B=16 verify window of 4, the
+    body's cap), bf16 activations as served, per
     linear shape of the phantom-padded 1.5B tree and per 289-call decode
     step, rotating over the 48 layers so that the weights come from HBM.
     The yardstick is torch.matmul on the same weights dequantized ahead of
@@ -1713,7 +2280,7 @@ def time_w8a8(qk, quantize, params, torch, counts, card: str):
               ("mlp.c_proj", [linears(params, i)[5][1:3] for i in range(L)], L),
               ("lm_head", [linears(params, None)[0][1:3]], 1)]
     steps = {rows: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-             for rows in (1, 16)}
+             for rows in (1, 16, 64)}
     errs = []
     for label, layers, calls in shapes:
         qw, scale = layers[0]
@@ -1751,7 +2318,8 @@ def time_w8a8(qk, quantize, params, torch, counts, card: str):
     for rows, step in steps.items():
         bms, by = bound_ms(step["bytes"], step["ops"], PEAK_INT8_OPS_PER_S)
         step["bound_ms"], step["bound_by"] = bms, by
-        log(f"time qmm w8a8 per decode step (289 calls, rows={rows}, bf16): kernel "
+        what = "decode step" if rows < 64 else "extend window"
+        log(f"time qmm w8a8 per {what} (289 calls, rows={rows}, bf16): kernel "
             f"{step['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
             f"torch.matmul on pre-dequantized bf16 weights {step['library_ms']:.4f} ms ({card})")
     step = steps[1]
@@ -1764,10 +2332,11 @@ def time_w8a8(qk, quantize, params, torch, counts, card: str):
 
 
 def time_wmm(qk, params, torch, counts, card: str):
-    """wmm at rows 1 and 8, f32 and bf16 (weights and x alike, as served),
-    per 124M linear shape, each call on another layer's weight of that shape
-    (48 for 768x768, 12 for c_fc and for MLP c_proj: 113 MB per shape in
-    f32, 57 MB in bf16), and per decode step: the 72 calls in served order
+    """wmm at rows 1, 2 (the draft's catch-up window) and 8, f32 and bf16
+    (weights and x alike, as served), per 124M linear shape, each call on
+    another layer's weight of that shape (48 for 768x768, 12 for c_fc and
+    for MLP c_proj: 113 MB per shape in f32, 57 MB in bf16), and per decode
+    step: the 72 calls in served order
     (wq, wk, wv, attn c_proj, c_fc, MLP c_proj per layer; 340 MB in f32),
     timed as one sequence. The weights come from device memory, not from
     the 50 MB L2. The yardstick is torch.matmul on the same inputs (cuBLAS;
@@ -1787,7 +2356,7 @@ def time_wmm(qk, params, torch, counts, card: str):
         peak = PEAK_OPS_PER_S if dtype == torch.float32 else PEAK_BF16_OPS_PER_S
         ws = {label: [w.to(dtype) for w in stack] for label, stack in shapes.items()}
         size = 4 if dtype == torch.float32 else 2
-        for rows in (1, 8):
+        for rows in (1, 2, 8):
             xs = {k: torch.randn(rows, k, device="cuda", generator=g).to(dtype)
                   for k in (768, 3072)}
             for label, stack in ws.items():
@@ -1885,6 +2454,7 @@ def main() -> int:
         encoder = tok.Encoder(vocab, merges)
         phase("serve: GPT-2 124M full width on InferenceEngine(device='cuda')")
         counts_124m, engine, ids = serve(pkg, torch, encoder, card)
+        config_124m = engine.config  # unpacked: ZG2_KV_PACKED=0 here
         phase("trace: torch.profiler over 32 decode steps of the 124M path")
         trace_decode(gpt2, sampling, engine, ids, torch,
                      {"model": "124M", "weights": "float32", "kv_cache": "float32"}, card)
@@ -1899,6 +2469,7 @@ def main() -> int:
               "InferenceEngine(kv_quant='int8', device='cuda')")
         counts_1p5b, engine, ids, floor = serve_1p5b(pkg, torch, encoder, config_1p5b,
                                                      params_1p5b, card, check_layers=12)
+        floor_unpacked = floor
         phase("trace-1.5B: torch.profiler over 32 decode steps of the 1.5B path")
         trace_decode(gpt2, sampling, engine, ids, torch,
                      {"model": "1558M", "weights": "INT4 (lm_head INT8), bf16 activations",
@@ -1979,13 +2550,37 @@ def main() -> int:
                        [(ids, 32)], [wmm_tokens], E2E_ATOL, torch)
         counts_mbf16 = serve_batcher_wmm_bf16(pkg, batcher_mod, torch, engine, card)
         del engine
+        phase("extend: gpt2.extend vs sequential decode steps, 124M fp32 unpacked and packed, "
+              "1.5B INT4 + INT8 KV packed")
+        counts_x = run_extend_phase(pkg, torch, config_124m, params_124m, config_1p5b,
+                                    params_1p5b, card)
+        phase("serve-prefix-1.5B: InferenceEngine (INT4 + INT8 KV, packed) with a 256-token "
+              "prefix registered")
+        counts_x1p5b, engine = serve_prefix_1p5b(pkg, torch, encoder, config_1p5b, params_1p5b,
+                                                 floor, card)
+        phase("serve-batcher-prefix-1.5B: ContinuousBatcher(batch_size=16, kv_quant='int8'), "
+              "ring cache, packed KV, a prefix registered")
+        counts_xb1p5b = serve_batcher_prefix_1p5b(pkg, batcher_mod, torch, config_1p5b,
+                                                  params_1p5b, engine, floor, card)
+        del engine
+        phase("speculative-1.5B: SpeculativeEngine, target 1.5B INT4 + INT8 KV, draft 124M "
+              "fp32, k=4, greedy; self-draft and n-gram")
+        spec_floor = max(floor, floor_unpacked)  # the target's cache is unpacked
+        counts_s1p5b, engine = speculative_1p5b(pkg, torch, encoder, config_1p5b, params_1p5b,
+                                                config_124m, params_124m, spec_floor, card)
+        phase("serve-batcher-spec-1.5B: ContinuousBatcher(speculative='ngram', batch_size=16, "
+              "spec_k=3, kv_quant='int8')")
+        counts_sb1p5b = serve_batcher_spec_1p5b(pkg, batcher_mod, torch, config_1p5b,
+                                                params_1p5b, engine, spec_floor, card)
+        del engine
         phase("times")
         paths = (counts_124m, counts_b124, counts_1p5b, counts_b1p5b, counts_p124,
                  counts_pb124, counts_p1p5b, counts_pb1p5b, counts_w1p5b, counts_wb1p5b,
-                 counts_m124, counts_mb124, counts_mbf16)
+                 counts_m124, counts_mb124, counts_mbf16, counts_x, counts_x1p5b,
+                 counts_xb1p5b, counts_s1p5b, counts_sb1p5b)
         counts = {k: sum(c[k] for c in paths) for k in counts_124m}
         log(f"launches on the main paths (the serve and serve-batcher phases, unpacked and "
-            f"packed, INT4, w8a8 and wmm): {counts}")
+            f"packed, INT4, w8a8 and wmm, and the extend path's phases): {counts}")
         entries = time_attention_kernels(att, ops, torch, counts, card)
         entries += time_sampler(sk, torch, counts, card)
         entries += time_qmm(qk, quantize, params_1p5b, torch, counts, card)

@@ -170,13 +170,13 @@ def test_seeded_sampling_reproducible(params, rng):
 
 def test_refuses_unported_options_and_missing_card(params):
     _, tp = params
-    with pytest.raises(NotImplementedError, match="extend/speculation slice"):
-        ContinuousBatcher(TCFG, tp, device="cpu", speculative="ngram")
+    with pytest.raises(ValueError, match="prompt lookup only"):
+        ContinuousBatcher(TCFG, tp, device="cpu", speculative="draft")
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         ContinuousBatcher(TCFG, tp, device="cpu", mesh="1x2")
     b = ContinuousBatcher(TCFG, tp, max_seq=32, prompt_buckets=(8,), device="cpu")
-    with pytest.raises(NotImplementedError):
-        b.register_prefix([1, 2])
+    with pytest.raises(ValueError, match="largest prompt bucket"):
+        b.register_prefix(list(range(9)))
     with pytest.raises(ValueError, match="largest prompt bucket"):
         b.submit(list(range(9)))
     with pytest.raises(ValueError, match="max_seq"):

@@ -22,6 +22,8 @@ sampler ids identical, its return_max z* within 2 ulp of the plain
 version's (equal bits expected).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -886,3 +888,142 @@ def test_qmm_splits_on_the_serving_shapes(dev):
             assert qk.qmm.launches == before + 1
             torch.testing.assert_close(got, qk.qmm_plain(x, p["qw4"], p["scale"], int4=True),
                                        atol=2e-5, rtol=2e-5)
+
+
+# --- the extend path: gpt2.extend, prefix caching, speculative decoding --------
+
+VERIFY_ROWS = [2, 4, 5, 64]  # a draft catch-up, B x (k + 1) windows, the w8a8 cap
+
+
+@pytest.mark.parametrize("rows", VERIFY_ROWS)
+@pytest.mark.parametrize("k,n", [(1600, 1600), (1600, 6400), (6400, 1600), (1600, 50257)])
+def test_gemv_kernels_at_the_verify_window_rows(dev, rows, k, n):
+    """qmm INT4 (the 1.5B block linears) and INT8 per channel, its w8a8 body
+    and wmm, f32 and bf16 x, at the row counts the extend path gives them:
+    one launch each, within their tolerances (w8a8 bit for bit)."""
+    g = torch.Generator(device=dev).manual_seed(rows + k + n)
+    w = torch.randn(k, n, device=dev, generator=g) * 0.05
+    p4 = quant.quantize_linear({"w": w}, "int4") if n != 50257 else None
+    p8 = quant.quantize_linear({"w": w}, "int8")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(rows, k, device=dev, generator=g).to(dtype)
+        for qw, scale, int4 in ([(p4["qw4"], p4["scale"], True)] if p4 else []) + [
+                (p8["qw"], p8["scale"], False)]:
+            before = qk.qmm.launches
+            got = qk.qmm(x, qw, scale, int4=int4)
+            assert qk.qmm.launches == before + 1
+            torch.testing.assert_close(got, qk.qmm_plain(x, qw, scale, int4=int4), atol=2e-5,
+                                       rtol=2e-5)
+        before = qk.qmm.w8a8_launches
+        got = qk.qmm(x, p8["qw"], p8["scale"], w8a8=True)
+        assert qk.qmm.w8a8_launches == before + 1
+        assert torch.equal(got, qk.qmm_plain(x, p8["qw"], p8["scale"], w8a8=True))
+        if n != 50257:
+            wd = w.to(dtype)
+            before = qk.wmm.launches
+            got = qk.wmm(x, wd)
+            assert qk.wmm.launches == before + 1
+            torch.testing.assert_close(got, qk.wmm_plain(x, wd), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("weights", ["float", "int4"])
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["float", "int8"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_extend_cuda_matches_cpu(dev, packed, kv_quant, weights):
+    """gpt2.extend of a (2, 5) window with 5 and 3 valid rows after a
+    prefill, on the card and on the CPU (three heads of 64, the phantom
+    head padded in when packed): logits at the valid rows within 1e-4
+    (float cache) or the bf16 tolerance of the INT8 op (rtol 2e-2, atol
+    5e-3), the same lengths, and qmm launched once per linear at 10 rows."""
+    cfg = dataclasses.replace(PACKED_CFG, kv_packed=packed)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(3))
+    if weights == "int4":
+        params = quant.quantize_params(params, "int4")
+    if packed:
+        params, cfg = gpt2.pad_phantom_head(params, cfg)
+    g = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), generator=g, dtype=torch.int32)
+    window = torch.randint(0, cfg.vocab_size, (2, 5), generator=g, dtype=torch.int32)
+    lens, valid = torch.tensor([8, 3], dtype=torch.int32), torch.tensor([5, 3], dtype=torch.int32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        p = {k: v for k, v in _to(params, device).items()}
+        cache = gpt2.init_kv_cache(cfg, 2, 24, device=device, quant=kv_quant)
+        cache, _ = gpt2.prefill(p, cache, prompt.to(device), lens.to(device), cfg)
+        before = qk.qmm.launches
+        cache, logits = gpt2.extend(p, cache, window.to(device), valid.to(device), cfg)
+        if device == "cuda" and weights == "int4":
+            assert qk.qmm.launches - before == 6 * cfg.n_layers + 1
+        out[device] = (logits.float().cpu(), cache["length"].cpu())
+    assert torch.equal(out["cuda"][1], lens + valid)
+    atol, rtol = (5e-3, 2e-2) if kv_quant else (1e-4, 1e-4)
+    for b in range(2):
+        torch.testing.assert_close(out["cuda"][0][b, :valid[b]], out["cpu"][0][b, :valid[b]],
+                                   atol=atol, rtol=rtol)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def test_prefix_hit_cuda_greedy_matches_miss(dev):
+    """On the card, the engine and the ring batcher with a registered
+    prefix give the greedy tokens they give without it (float cache),
+    and the first token after each hit comes from the sampler path."""
+    params = gpt2.init_params(PACKED_CFG, torch.Generator().manual_seed(3))
+    params = {**params, "wte": params["wte"] * 3}
+    prefix = [5, 17, 3, 99, 42, 7, 8, 1]
+    prompts = [prefix + [11, 12], prefix[:6] + [4], prefix, [33, 2, 9]]
+    kw = dict(max_seq=48, prompt_buckets=(16,), device="cuda")
+    plain, cached = InferenceEngine(PACKED_CFG, params, **kw), InferenceEngine(
+        PACKED_CFG, params, **kw)
+    cached.register_prefix(prefix)
+    greedy = SamplingConfig(temperature=0.0)
+    for p in prompts:
+        assert cached.generate(p, 12, greedy) == plain.generate(p, 12, greedy), p
+    out = []
+    for pre in ((), (prefix,)):
+        b = ContinuousBatcher(PACKED_CFG, params, batch_size=2, max_seq=48, prompt_buckets=(16,),
+                              sampling=greedy, device="cuda")
+        for x in pre:
+            b.register_prefix(x)
+        rids = [b.submit(p, 10) for p in prompts]
+        by_rid = {r.rid: r.generated for r in b.run()}
+        out.append([by_rid[r] for r in rids])
+    assert out[0] == out[1] and b.metrics.prefix_hits == 3
+
+
+@pytest.mark.parametrize("draft", ["model", "ngram"])
+def test_speculative_cuda_greedy_matches_engine(dev, draft):
+    """SpeculativeEngine on the card (a 1-layer draft, or prompt lookup; k
+    3) and the batcher's prompt-lookup serving give the plain engine's and
+    batcher's greedy tokens on the card; no sampler launch in a greedy
+    round."""
+    from zig_gpt2_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    cfg = tconfig.GPT2_NANO
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(7))
+    params = {k: (v * 3 if k == "wte" else v) for k, v in params.items()}
+    dcfg = tconfig.GPTConfig(vocab_size=cfg.vocab_size, context_size=cfg.context_size,
+                             n_layers=1, n_heads=2, n_embed=64)
+    dparams = gpt2.init_params(dcfg, torch.Generator().manual_seed(8)) if draft == "model" else None
+    greedy = SamplingConfig(temperature=0.0)
+    eng = InferenceEngine(cfg, params, max_seq=64, prompt_buckets=(16,), device="cuda")
+    spec = SpeculativeEngine(cfg, params, dcfg if dparams else None, dparams, k=3, max_seq=64,
+                             prompt_buckets=(16,), device="cuda")
+    for p in ([1, 2, 3, 4], [9, 8, 7, 9, 8, 7, 9, 8]):
+        before = sk.sample_categorical.launches
+        assert spec.generate(p, 20, greedy) == eng.generate(p, 20, greedy), p
+        assert spec.last_rounds <= 20
+    if draft == "ngram":
+        prompts = [[1, 2, 3], [9, 8, 7, 9, 8, 7], [4], [11, 12, 13, 14]]
+        out = []
+        for kw in ({}, dict(speculative="ngram", spec_k=3, spec_min_tpr=0.0)):
+            b = ContinuousBatcher(cfg, params, batch_size=2, max_seq=48, prompt_buckets=(8,),
+                                  sampling=greedy, device="cuda", **kw)
+            before = sk.sample_categorical.launches
+            rids = [b.submit(p, 10) for p in prompts]
+            by_rid = {r.rid: r.generated for r in b.run()}
+            out.append([by_rid[r] for r in rids])
+            assert sk.sample_categorical.launches == before  # greedy: argmax, no sampler
+        assert out[0] == out[1]

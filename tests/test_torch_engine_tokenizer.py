@@ -3,6 +3,7 @@ the JAX package where it has a counterpart, and the rule that the port
 imports nothing of JAX or the JAX package."""
 
 import io
+import json
 import re
 from pathlib import Path
 
@@ -118,8 +119,8 @@ def test_engine_refuses_unported_options(nano_params):
         InferenceEngine(TCFG, tp, kv_quant="int4", device="cpu")
     with pytest.raises(TypeError):
         InferenceEngine(TCFG, tp, mesh="1x2", device="cpu")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(TCFG, tp, device="cpu").register_prefix([1, 2])
+    with pytest.raises(ValueError, match="single-sequence"):
+        InferenceEngine(TCFG, tp, batch_size=2, device="cpu").register_prefix([1, 2])
 
 
 def test_cuda_default_raises_without_card(nano_params):
@@ -184,11 +185,21 @@ def test_cli_demo_cpu(capsys):
     assert '"generated_tokens": 6' in err and '"device": "cpu"' in err
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "1x2"], ["--batch-file", "x", "--prefix", "sys"],
-                                  ["--draft-model", "ngram"]])
-def test_cli_refuses_later_slices(flag):
-    with pytest.raises(SystemExit, match="not in the PyTorch port yet"):
-        tcli.main(["--demo", "--device", "cpu", *flag, "hi"])
+@pytest.mark.parametrize("flag", [["--demo", "--mesh", "1x2"], ["--weights", "w.npz"],
+                                  ["--weights", "raw", "--draft-model", "nano",
+                                   "--draft-weights", "d.npz"]],
+                         ids=["mesh", "npz-weights", "npz-draft-weights"])
+def test_cli_refuses_later_slices(flag, tmp_path, nano_params):
+    """Tensor-parallel serving and .npz checkpoints (the target's or the
+    draft's) are refused with the slice that brings them; the others run
+    on a nano model saved as a raw checkpoint with its encoder.json."""
+    vocab, _ = train_bpe(CORPUS, vocab_size=300)
+    (tmp_path / "encoder.json").write_text(json.dumps(vocab))
+    tio.save_gpt2_raw(nano_params[1], tmp_path / "raw", TCFG)
+    flag = [str(tmp_path / f) if f in ("raw", "w.npz", "d.npz") else f for f in flag]
+    with pytest.raises(SystemExit, match="not in the PyTorch port yet|later slice of the port"):
+        tcli.main(["--model", "nano", "--encoder-dir", str(tmp_path), "--device", "cpu",
+                   *flag, "hi"])
 
 
 def test_cli_demo_quantized_cpu(capsys):

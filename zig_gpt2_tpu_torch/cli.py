@@ -6,7 +6,10 @@ GPT-2 on one device, float or INT8/INT4 weights, or w8a8 (per-channel INT8
 weights and per-row INT8 activations) (``--quant``), float or INT8 KV cache
 (``--kv-quant``): one prompt streamed to stdout, or a file of
 prompts served through the continuous batcher (``--batch-file``, one JSON
-line ``{"prompt", "completion"}`` per finished request).
+line ``{"prompt", "completion"}`` per finished request), with a shared
+prefix's KV rows kept (``--prefix``). ``--draft-model`` decodes one prompt
+speculatively (a draft config name, or ``ngram`` for prompt lookup,
+which also composes with ``--batch-file``).
 
 Examples::
 
@@ -15,6 +18,11 @@ Examples::
     python -m zig_gpt2_tpu_torch.cli --model 1558M --quant w8a8 --kv-quant --demo "the quick"
     python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo \\
         --batch-file prompts.txt --batch-slots 16 --max-tokens 64 --metrics
+    python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo \
+        --batch-file prompts.txt --prefix "the quick brown fox"
+    python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo \
+        --draft-model demo --spec-k 4 --temp 0 "the quick"
+    python -m zig_gpt2_tpu_torch.cli --demo --draft-model ngram --batch-file prompts.txt
     python -m zig_gpt2_tpu_torch.cli --model 124M --weights models/124M/raw \\
         --encoder-dir models/124M "Hello, my name is"
 """
@@ -31,8 +39,6 @@ from pathlib import Path
 # of the port that brings each.
 _LATER = {
     "mesh": "tensor-parallel serving comes with the multi-GPU slice",
-    "prefix": "prefix caching comes with the extend/speculation slice",
-    "draft_model": "speculative decoding comes with the extend/speculation slice",
 }
 
 
@@ -69,11 +75,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "continuous-batching scheduler instead of a single prompt")
     p.add_argument("--batch-slots", type=int, default=8,
                    help="decode slots for --batch-file serving")
+    p.add_argument("--prefix", default=None, metavar="TEXT",
+                   help="--batch-file: register TEXT as a shared prompt prefix (a system "
+                        "prompt): prompts starting with it admit from its stored KV rows and "
+                        "compute only their suffix")
     p.add_argument("--decode-chunk", type=int, default=None,
-                   help="decode steps per host sync (default 1)")
+                   help="decode steps per host sync (default 1); with --draft-model ngram "
+                        "and --batch-file, speculative rounds per host sync")
+    p.add_argument("--draft-model", default=None, metavar="NAME",
+                   help="speculative decoding: the draft's config name (e.g. 124M; with "
+                        "--demo any name but ngram is a small random draft), or 'ngram' for "
+                        "prompt lookup over the token history. The draft proposes --spec-k "
+                        "tokens per round and the --model target verifies them in one pass. "
+                        "Single-prompt, except that ngram composes with --batch-file")
+    p.add_argument("--draft-weights", default=None,
+                   help="the draft's raw checkpoint directory")
+    p.add_argument("--draft-quant", default=None, choices=["int8", "int4"],
+                   help="quantize the draft's weights")
+    p.add_argument("--draft-kv-quant", action="store_true", help="INT8 KV cache for the draft")
+    p.add_argument("--spec-k", type=int, default=4, help="draft tokens per speculative round")
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--prefix", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--draft-model", default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -175,14 +196,30 @@ def main(argv=None) -> None:
 
     kv_quant = "int8" if args.kv_quant else None
     device_name = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    # --draft-model ngram composes with --batch-file: prompt lookup inside
+    # the continuous batcher (one verify extend per round).
+    spec_serve = args.draft_model == "ngram" and args.batch_file is not None
+    if args.draft_model is not None and not spec_serve:
+        if args.batch_file is not None:
+            sys.exit("error: --draft-model is single-prompt (only 'ngram' composes with "
+                     "--batch-file)")
+        _speculate(args, config, params, encoder, sampling, stop_tokens, kv_quant, dtype,
+                   device_name)
+        return
     if args.batch_file is not None:
         from zig_gpt2_tpu_torch.runtime.batcher import ContinuousBatcher
 
         prompts = [line for line in Path(args.batch_file).read_text().splitlines() if line]
+        spec_kw = {}
+        if spec_serve:  # --decode-chunk N: N speculative rounds per host sync
+            spec_kw = dict(speculative="ngram", spec_k=args.spec_k,
+                           spec_chunk=args.decode_chunk or 1)
         batcher = ContinuousBatcher(config, params, batch_size=args.batch_slots,
-                                    max_seq=args.max_seq, sampling=sampling,
-                                    kv_quant=kv_quant, decode_chunk=args.decode_chunk or 1,
-                                    device=args.device)
+                                    max_seq=args.max_seq, sampling=sampling, kv_quant=kv_quant,
+                                    decode_chunk=1 if spec_serve else (args.decode_chunk or 1),
+                                    device=args.device, **spec_kw)
+        if args.prefix:
+            batcher.register_prefix(encoder.encode(args.prefix))
         rid_to_prompt = {batcher.submit(encoder.encode(p), args.max_tokens, stop_tokens): p
                          for p in prompts}
         for req in batcher.run():
@@ -212,6 +249,66 @@ def main(argv=None) -> None:
             "ms_per_token": round(metrics.ms_per_token, 3),
             "ms_per_token_p50": round(metrics.ms_per_token_percentile(50), 3),
             "ms_per_token_p99": round(metrics.ms_per_token_percentile(99), 3),
+            "tokens_per_sec": round(metrics.tokens_per_sec, 2),
+        }), file=sys.stderr)
+
+
+def _speculate(args, config, params, encoder, sampling, stop_tokens, kv_quant, dtype,
+               device_name) -> None:
+    """--draft-model on one prompt: a SpeculativeEngine with the draft
+    named (``ngram``: prompt lookup; with --demo any other name is a small
+    random draft on the demo tokenizer), streamed to stdout."""
+    import torch
+
+    from zig_gpt2_tpu_torch.config import GPTConfig, get_config
+    from zig_gpt2_tpu_torch.models import gpt2
+    from zig_gpt2_tpu_torch.runtime.engine import GenerationMetrics
+    from zig_gpt2_tpu_torch.runtime.speculative import SpeculativeEngine
+
+    draft_config = draft_params = None
+    if args.draft_model == "ngram":
+        pass
+    elif args.demo:  # the target's vocab rows, so that both laws share V
+        draft_config = GPTConfig(vocab_size=config.vocab_size,
+                                 padded_vocab_size=config.padded_vocab_size,
+                                 context_size=config.context_size, n_layers=1, n_heads=2,
+                                 n_embed=64)
+        gen = torch.Generator(device=args.device).manual_seed(args.seed + 1)
+        draft_params = gpt2.init_params(draft_config, gen, dtype)
+    else:
+        draft_config = get_config(args.draft_model)
+        if args.draft_weights is None:
+            sys.exit("error: --draft-weights required with --draft-model (or use --demo)")
+        if str(args.draft_weights).endswith(".npz"):
+            sys.exit("error: .npz draft checkpoints come with the port's .npz reader, a later "
+                     "slice of the port; pass a raw checkpoint directory")
+        from zig_gpt2_tpu_torch.utils import io as zio
+
+        draft_params = zio.load_gpt2_raw(args.draft_weights, draft_config, dtype=dtype,
+                                         device=args.device)
+    if args.draft_quant and draft_params is not None and "lm_head" not in draft_params:
+        from zig_gpt2_tpu_torch.quant.quantize import quantize_params
+
+        draft_params = quantize_params(draft_params, mode=args.draft_quant)
+    spec = SpeculativeEngine(config, params, draft_config, draft_params, k=args.spec_k,
+                             max_seq=args.max_seq, kv_quant=kv_quant,
+                             draft_kv_quant="int8" if args.draft_kv_quant else None,
+                             device=args.device)
+    metrics = GenerationMetrics()
+    print(args.prompt, end="", flush=True)
+    spec.generate_text(args.prompt, encoder, args.max_tokens, sampling, stream_to=sys.stdout,
+                       metrics=metrics, stop_tokens=stop_tokens)
+    print()
+    if args.metrics:
+        print(json.dumps({
+            "device": device_name,
+            "draft": args.draft_model,
+            "spec_k": args.spec_k,
+            "rounds": spec.last_rounds,
+            "prompt_tokens": metrics.prompt_tokens,
+            "generated_tokens": metrics.generated_tokens,
+            "prefill_ms": round(metrics.prefill_ms, 3),
+            "ms_per_token": round(metrics.ms_per_token, 3),
             "tokens_per_sec": round(metrics.tokens_per_sec, 2),
         }), file=sys.stderr)
 

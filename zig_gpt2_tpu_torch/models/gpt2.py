@@ -45,6 +45,15 @@ INT8/INT4 weights, float or INT8 KV cache:
   ``_qmm_cap`` rows) through the float GEMV kernel ``wmm``, as the JAX
   package's ``_gemv_dispatch`` does; prefill and the tied lm_head stay
   ``torch.matmul``. Off by default, as in the JAX package.
+- ``extend`` runs a (B, T) token window at each lane's ``length`` and
+  returns logits at every window position (the speculative verify and
+  draft catch-up, and the suffix of a prefix-cache hit): the window's K/V
+  are appended first (packed, then quantized, for a packed INT8 cache),
+  then attended in plain torch ops over unpacked views of the cache
+  (``ops.extend_attention[_quant]``; the JAX package runs no kernel there
+  either). Its linears take the decode routing at B * T rows: ``qmm`` up
+  to ``_qmm_cap`` rows, ``wmm`` under ``ZG2_WMM=1``, the plain product
+  above.
 - The lm_head is tied to wte unless ``params["lm_head"]`` exists (the
   quantized tree unties it), and runs only on the positions that need
   logits; padded vocab rows are masked.
@@ -62,7 +71,8 @@ from zig_gpt2_tpu_torch.config import GPTConfig
 from zig_gpt2_tpu_torch.ops import layers as ops
 from zig_gpt2_tpu_torch.ops.attention import (decode_attention_deferred,
                                               decode_attention_quant_deferred,
-                                              pack_heads_rows, pack_heads_seq)
+                                              pack_heads_rows, pack_heads_seq,
+                                              unpack_heads_seq, unpack_pair_scales_seq)
 from zig_gpt2_tpu_torch.quant import kernels
 from zig_gpt2_tpu_torch.quant.quantize import is_quantized, pad_linear, quantized_linear
 
@@ -434,4 +444,86 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
         cache["wptr"] = (wpos + 1) % rows
     else:
         cache["length"] = pos + 1
+    return cache, _lm_head(params, x, config)
+
+
+def _put_window(stack: torch.Tensor, win: torch.Tensor, idx: int, rows: torch.Tensor) -> None:
+    """Write a (B, T, H[, D]) window into the stacked (L, B, H, S[, D]) cache
+    (or (L, B, H, S) scale plane) at (idx, b, :, rows[b, t]), in place, with
+    one indexed write (H and D are Hp and 2D in the packed layout)."""
+    lanes = torch.arange(win.shape[0], device=stack.device)[:, None]
+    stack[idx][lanes, :, rows] = win.to(stack.dtype)
+
+
+def _block_extend(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
+                  base: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor,
+                  config: GPTConfig, wmm: bool = False) -> torch.Tensor:
+    """One block over a (B, T) window whose K/V land at cache rows ``rows``
+    (B, T) of each lane: append, then attend over the cache's first
+    base + t + 1 rows (``ops.extend_attention[_quant]``) through unpacked
+    views of a packed cache."""
+    bp = _layer(blocks, idx)
+    B, T, _ = x.shape
+    h = ops.layer_norm(x, bp["ln_1"]["w"], bp["ln_1"]["b"], config.layer_norm_eps)
+    q, k, v = _qkv(bp["attn"], h, config, wmm)  # (B, T, H, D)
+    packed = config.kv_packed
+    if packed:  # pack the window before any quantization: a scale per pair
+        k, v = pack_heads_rows(k), pack_heads_rows(v)
+
+    def cache_at(name):
+        c = caches[name][idx]
+        if not packed:
+            return c
+        return unpack_pair_scales_seq(c) if name.endswith("_scale") else unpack_heads_seq(c)
+
+    q = q.transpose(1, 2)  # (B, H, T, D)
+    if "k_scale" in caches:  # INT8 cache: quantize the window on append
+        (kq, ks), (vq, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
+        for name, win in (("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)):
+            _put_window(caches[name], win, idx, rows)
+        attn = ops.extend_attention_quant(q, cache_at("k"), cache_at("k_scale"), cache_at("v"),
+                                          cache_at("v_scale"), base, valid)
+    else:
+        _put_window(caches["k"], k, idx, rows)
+        _put_window(caches["v"], v, idx, rows)
+        attn = ops.extend_attention(q, cache_at("k"), cache_at("v"), base, valid)
+    attn = attn.transpose(1, 2).reshape(B, T, -1)
+    x = x + _linear(bp["attn"]["c_proj"], attn, config, wmm)
+    h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
+    h = ops.gelu(_linear(bp["mlp"]["c_fc"], h, config, wmm))
+    return x + _linear(bp["mlp"]["c_proj"], h, config, wmm)
+
+
+@torch.no_grad()
+def extend(params: Params, cache: KVCache, tokens: torch.Tensor, valid: torch.Tensor,
+           config: GPTConfig) -> Tuple[KVCache, torch.Tensor]:
+    """Multi-token forward from each lane's ``cache["length"]``: a (B, T)
+    window right-padded per lane, ``valid`` (B,) true rows (1 <= valid <=
+    T). Returns (cache, (B, T, vocab) logits), row t the next-token
+    logits after tokens[:, :t + 1]; rows at or past ``valid`` are garbage.
+    Padding rows are appended too, but ``length`` advances by ``valid``
+    only, so later appends overwrite them. The cache is updated in place.
+
+    The caller keeps T rows of headroom past every lane's length. Past
+    that, the window's first row clamps to S - T, as the JAX package's
+    dynamic_update_slice clamps: a lane that runs past (an idle batcher
+    lane) writes back over its own last rows. Positions clamp into wpe.
+    A linear cache only (a ring config's linear lane caches too): no caller
+    extends a ring."""
+    if "wptr" in cache:
+        raise ValueError("extend takes a linear KV cache, not a ring")
+    _check_packed_weights(config)
+    base = cache["length"]
+    B, T = tokens.shape
+    S = cache["k"].shape[-2]
+    steps = torch.arange(T, device=tokens.device)
+    pos = (base[:, None] + steps[None, :]).clamp(max=params["wpe"].shape[0] - 1)
+    x = _embed(params, tokens, pos)
+    valid = valid.to(device=tokens.device, dtype=torch.int32)
+    rows = (base.clamp(max=S - T)[:, None] + steps[None, :]).long()
+    wmm = _use_wmm()
+    for idx in range(config.n_layers):
+        x = _block_extend(x, params["blocks"], idx, cache, base, valid, rows, config, wmm)
+    x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
+    cache["length"] = base + valid
     return cache, _lm_head(params, x, config)

@@ -121,6 +121,49 @@ def decode_valid_mask(max_seq: int, length: torch.Tensor,
     return (rel < length[:, None])[:, None, :]
 
 
+def _extend_mask(base: torch.Tensor, valid: torch.Tensor, T: int, S: int) -> torch.Tensor:
+    """(B, T, S) bool mask of ``extend_attention``: window row t (absolute
+    position base + t) sees the cache columns up to base + t, clipped to the
+    window's valid rows (columns at or past base + valid hold padding).
+    Padding query rows give garbage that callers discard."""
+    col = torch.arange(S, device=base.device)
+    row = torch.arange(T, device=base.device)
+    limit = torch.minimum(base[:, None] + row[None, :] + 1, (base + valid)[:, None])
+    return col[None, None, :] < limit[:, :, None]
+
+
+def extend_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     base: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """T window queries over a (B, H, S, D) cache whose rows [base, base + T)
+    were just appended (append, then attend: the window's causal structure
+    is the column mask). q: (B, H, T, D); base, valid: (B,) int32. Scores
+    and softmax in f32; probabilities rounded to v's dtype before the value
+    product, as in the JAX op."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k_cache.float()) * scale
+    mask = _extend_mask(base, valid, q.shape[-2], k_cache.shape[-2])
+    probs = softmax(torch.where(mask[:, None], scores, MASK_VALUE), -1)
+    out = torch.einsum("bhts,bhsd->bhtd", probs.to(v_cache.dtype).float(), v_cache.float())
+    return out.to(q.dtype)
+
+
+def extend_attention_quant(q: torch.Tensor, k_cache: torch.Tensor, k_scale: torch.Tensor,
+                           v_cache: torch.Tensor, v_scale: torch.Tensor,
+                           base: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``extend_attention`` over an INT8 cache, k/v (B, H, S, D) int8 with
+    scales (B, H, S): the K scale multiplies the score and the V scale
+    folds into the probability. This is the JAX op's arithmetic, not the
+    all-f32 decode kernel's: q and p * v_scale are rounded to bf16 (int8
+    values are exact there), the products summed in f32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhtd,bhsd->bhts", q.to(torch.bfloat16).float(), k_cache.float())
+    scores = scores * (k_scale[:, :, None, :] * scale)
+    mask = _extend_mask(base, valid, q.shape[-2], k_cache.shape[-2])
+    probs = softmax(torch.where(mask[:, None], scores, MASK_VALUE), -1)
+    pv = (probs * v_scale[:, :, None, :]).to(torch.bfloat16).float()
+    return torch.einsum("bhts,bhsd->bhtd", pv, v_cache.float()).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """Single-query attention over a (B, H, S, D) cache whose first

@@ -29,8 +29,21 @@ The batcher runs on ``device="cuda"`` unless the caller asks for
 cache, and its admissions' lane caches, take the layout that
 ``gpt2.prepare_serving`` decides at construction, as the engine's. The
 sampler draws from a ``torch.Generator`` seeded from ``sampling.seed``.
-Prefix caching (``register_prefix``), speculative serving
-(``speculative=``) and a device mesh (``mesh=``) are not in the port yet.
+
+Prefix caching (``register_prefix``): a registered prefix's rows are kept
+as one B=1 linear cache of the slot's rows. Queued prompts that share
+leading tokens with one (``engine.match_prefix``) are grouped by prefix
+and suffix bucket; a group of k is one (k, bucket) ``gpt2.extend`` over
+copies of the stored rows at per-lane bases, spliced in like a prefill.
+
+Speculative serving (``speculative="ngram"``): each step runs
+``spec_chunk`` rounds of prompt lookup over each slot's token history and
+one (B, spec_k + 1) verify extend (``runtime.speculative``), committing 1
+to spec_k + 1 tokens per slot per round, with one host sync per step. Its
+cache is linear and unpacked (it sees prefill and extend only). When the
+committed tokens per live slot-round over a window of steps fall below
+``spec_min_tpr``, the batcher switches to plain decode for good. A device
+mesh (``mesh=``) is not in the port yet.
 """
 
 from __future__ import annotations
@@ -47,7 +60,8 @@ import torch
 
 from zig_gpt2_tpu_torch.config import GPTConfig, SamplingConfig
 from zig_gpt2_tpu_torch.models import gpt2
-from zig_gpt2_tpu_torch.runtime.engine import _bucket, _resolve_device
+from zig_gpt2_tpu_torch.runtime import speculative as spec_mod
+from zig_gpt2_tpu_torch.runtime.engine import _bucket, _resolve_device, match_prefix
 from zig_gpt2_tpu_torch.runtime.sampling import sample
 from zig_gpt2_tpu_torch.weights import tree_map
 
@@ -61,13 +75,15 @@ class Request:
     generated: List[int] = field(default_factory=list)
     done: bool = False
     slot: Optional[int] = None  # set while scheduled
+    # Speculative serving: True until the slot's first round emits the
+    # prefill's token (the plain path emits it as the first one consumed).
+    fresh: bool = False
     submitted_at: float = 0.0  # perf_counter at submit (latency metrics)
 
 
 @dataclass
 class BatcherMetrics:
-    """Aggregate serving metrics, the JAX batcher's fields. The prefix and
-    speculation counters stay zero until those slices are ported."""
+    """Aggregate serving metrics, the JAX batcher's fields."""
 
     steps: int = 0
     tokens_emitted: int = 0
@@ -76,12 +92,12 @@ class BatcherMetrics:
     decode_s: float = 0.0          # wall time inside batched decode steps
     prefill_s: float = 0.0         # wall time inside admissions (dispatch)
     occupied_slot_steps: int = 0   # sum of active slots over steps
-    prefix_hits: int = 0
-    prefill_tokens_saved: int = 0
-    spec_rounds: int = 0
-    spec_slot_rounds: int = 0
-    spec_committed: int = 0
-    spec_auto_off_step: Optional[int] = None
+    prefix_hits: int = 0           # admissions served from the prefix cache
+    prefill_tokens_saved: int = 0  # prompt rows not recomputed on those
+    spec_rounds: int = 0           # speculative rounds run
+    spec_slot_rounds: int = 0      # (live slot, round) pairs consumed
+    spec_committed: int = 0        # tokens committed in those pairs
+    spec_auto_off_step: Optional[int] = None  # step at which auto-off fired
     sync_ms: List[float] = field(default_factory=list)   # per decode dispatch + sync
     request_latency_s: List[float] = field(default_factory=list)
 
@@ -103,6 +119,9 @@ class BatcherMetrics:
 
     @property
     def tokens_per_round(self) -> float:
+        """Committed tokens per (live slot, round): about 1 when lookup
+        never hits, spec_k + 1 at most. Rounds a slot ran through after it
+        retired are counted in neither sum."""
         return self.spec_committed / max(self.spec_slot_rounds, 1)
 
     @property
@@ -149,31 +168,56 @@ class ContinuousBatcher:
         prompt_buckets: Optional[Sequence[int]] = None,
         sampling: SamplingConfig = SamplingConfig(),
         kv_quant: Optional[str] = None,
+        cache_dtype: Optional[torch.dtype] = None,
         on_token: Optional[Callable[[int, int], None]] = None,
         decode_chunk: int = 1,
         mesh=None,
         speculative: Optional[str] = None,
+        spec_k: int = 3,
+        spec_ngram: int = 2,
+        spec_chunk: int = 1,
+        spec_min_tpr: float = 1.5,
         device="cuda",
     ):
         """``decode_chunk``: decode steps run on the device per host sync;
         stop and budget checks happen per chunk and a slot that retires
         mid-chunk discards the rest of its chunk. ``kv_quant``: None for a
-        float cache in the weights' (wte's) dtype, or "int8". ``sampling``
-        is read at every draw, so a new SamplingConfig assigned between
-        ``run`` calls applies to the requests admitted after it."""
-        if speculative is not None:
-            raise NotImplementedError("speculative serving needs gpt2.extend, which "
-                                      "comes with the extend/speculation slice")
+        float cache in ``cache_dtype`` (default the weights' (wte's) dtype),
+        or "int8". ``sampling`` is read at every draw, so a new
+        SamplingConfig assigned between ``run`` calls applies to the
+        requests admitted after it.
+
+        ``speculative="ngram"``: prompt-lookup speculation, ``spec_k``
+        proposals from the last ``spec_ngram`` tokens, ``spec_chunk``
+        rounds per host sync (decode_chunk must stay 1). ``spec_min_tpr``:
+        the auto-off threshold on windowed tokens per round (0 keeps
+        speculation on)."""
         if mesh is not None:
             raise NotImplementedError("serving on a device mesh comes with the "
                                       "multi-GPU slice")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
+        self._spec = None
+        if speculative is not None:
+            if speculative != "ngram":
+                raise ValueError("serve-mode speculation is draft-free prompt lookup only "
+                                 f"(speculative='ngram'), got {speculative!r}")
+            if decode_chunk != 1:
+                raise ValueError("speculative serving replaces decode_chunk (a round commits "
+                                 "up to spec_k + 1 tokens per sync): leave decode_chunk=1")
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            self._spec = (spec_k, max(int(spec_ngram), 1), max(int(spec_chunk), 1))
         self.device = _resolve_device(device)
-        self._ring = os.environ.get("ZG2_RING", "1") != "0"
-        self.params, self.config = gpt2.prepare_serving(
-            tree_map(lambda t: t.to(self.device), params),
-            dataclasses.replace(config, ring_cache=self._ring), self.device)
+        # Speculative serving extends and never decode-steps until auto-off:
+        # a linear, unpacked cache.
+        self._ring = self._spec is None and os.environ.get("ZG2_RING", "1") != "0"
+        params = tree_map(lambda t: t.to(self.device), params)
+        config = dataclasses.replace(config, ring_cache=self._ring)
+        if self._spec is None:
+            self.params, self.config = gpt2.prepare_serving(params, config, self.device)
+        else:
+            self.params, self.config = params, dataclasses.replace(config, kv_packed=False)
         self.batch_size = batch_size
         self.max_seq = max_seq or config.context_size
         self.sampling = sampling
@@ -184,16 +228,42 @@ class ContinuousBatcher:
             b for b in (prompt_buckets or (32, 128, 512, config.context_size))
             if b <= self.max_seq
         ) or (self.max_seq,)
-        # decode_chunk - 1 headroom rows: a slot that hits its budget
-        # mid-chunk keeps writing rows until the chunk ends. One more ring
-        # row keeps every interval below R, so that none reaches the write
-        # row (the longest live interval is max_seq + decode_chunk - 1).
-        cache_rows = self.max_seq + self.decode_chunk - 1 + (1 if self._ring else 0)
+        if self._spec is not None:
+            # An active slot can overshoot its budget by spec_chunk rounds'
+            # windows before the host sees it, plus extend's k + 1 rows of
+            # headroom (idle slots clamp at rows - (k + 1) in the round).
+            sk, _, sr = self._spec
+            cache_rows = self._hist_cap = self.max_seq + (sr + 1) * (sk + 1)
+            self._len_cap = self._hist_len_cap = cache_rows - (sk + 1)
+            # Each slot's committed tokens, the feed token at _hist_len - 1.
+            self._hist = torch.zeros((batch_size, self._hist_cap), dtype=torch.int32,
+                                     device=self.device)
+            self._hist_len = torch.zeros((batch_size,), dtype=torch.int32, device=self.device)
+        else:
+            # decode_chunk - 1 headroom rows: a slot that hits its budget
+            # mid-chunk keeps writing rows until the chunk ends. One more
+            # ring row keeps every interval below R, so that none reaches
+            # the write row (the longest live interval is max_seq +
+            # decode_chunk - 1).
+            cache_rows = self.max_seq + self.decode_chunk - 1 + (1 if self._ring else 0)
+        self._cache_rows = cache_rows
+        self._cache_dtype = cache_dtype or self.params["wte"].dtype
         self.cache = gpt2.init_kv_cache(self.config, batch_size, cache_rows,
-                                        dtype=self.params["wte"].dtype,
-                                        device=self.device, quant=kv_quant)
+                                        dtype=self._cache_dtype, device=self.device,
+                                        quant=kv_quant)
         self._generator = torch.Generator(device=self.device).manual_seed(sampling.seed)
         self.metrics = BatcherMetrics()
+        # Prefix cache: [(token tuple, stored B=1 linear cache)], longest first.
+        self._prefixes: List[tuple] = []
+        # Speculation auto-off: a window of per-sync (live slot-rounds,
+        # committed tokens). After the switch, a slot that ran a round has
+        # its feed token already emitted (a round emits what it commits; the
+        # plain path emits what it consumes), so its first plain consume
+        # drops it (_refeed, cleared on admission).
+        self._spec_min_tpr = float(spec_min_tpr)
+        self._spec_off = False
+        self._tpr_window: Deque[tuple] = deque(maxlen=8)
+        self._refeed = [False] * batch_size
         self.slots: List[Optional[Request]] = [None] * batch_size
         self.queue: Deque[Request] = deque()
         self.finished: List[Request] = []
@@ -227,20 +297,45 @@ class ContinuousBatcher:
         return rid
 
     def register_prefix(self, prefix_ids: Sequence[int]) -> None:
-        raise NotImplementedError("prefix caching needs gpt2.extend, which comes "
-                                  "with the extend/speculation slice")
+        """Compute and keep the KV rows of a shared prompt prefix (a system
+        prompt): later submissions that share leading tokens with it admit
+        from the stored rows and compute only their suffix (one extend).
+        Memory: one slot's cache per registered prefix. Output is
+        unchanged."""
+        prefix_ids = [int(t) for t in prefix_ids]
+        if not prefix_ids:
+            raise ValueError("prefix must contain at least one token")
+        if len(prefix_ids) > max(self.prompt_buckets):
+            raise ValueError(f"prefix length {len(prefix_ids)} exceeds the largest "
+                             f"prompt bucket {max(self.prompt_buckets)}")
+        n = len(prefix_ids)
+        toks = np.zeros((1, _bucket(n, self.prompt_buckets)), np.int32)
+        toks[0, :n] = prefix_ids
+        init = gpt2.init_kv_cache(self.config, 1, self._cache_rows, dtype=self._cache_dtype,
+                                  device=self.device, quant=self.kv_quant, ring=False)
+        pre, _ = gpt2.prefill(self.params, init, self._to_device(toks),
+                              self._to_device(np.array([n], np.int32)), self.config)
+        self._prefixes.append((tuple(prefix_ids), pre))
+        self._prefixes.sort(key=lambda t: -len(t[0]))  # the longest match first
+
+    def _match_prefix(self, prompt: List[int]):
+        """The longest usable stored-prefix overlap for ``prompt``, or None."""
+        return match_prefix(self._prefixes, prompt, self.prompt_buckets, self._cache_rows)
 
     @property
     def pending(self) -> int:
         return len(self.queue) + sum(r is not None for r in self.slots)
 
     def step(self) -> Dict[int, List[int]]:
-        """Admit queued requests, run one batched decode chunk and return
-        {rid: [tokens]} emitted this step."""
+        """Admit queued requests, run one batched decode chunk (or
+        ``spec_chunk`` speculative rounds) and return {rid: [tokens]}
+        emitted this step."""
         self._admit()
         active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return {}
+        if self._spec is not None and not self._spec_off:
+            return self._step_spec(active)
         t0 = time.perf_counter()
         consumed = []
         token = self._tokens
@@ -259,7 +354,11 @@ class ContinuousBatcher:
 
         emitted: Dict[int, List[int]] = {}
         for i, req in active:
-            self._consume(i, req, block[:, i].tolist(), emitted)
+            toks = block[:, i].tolist()
+            if self._refeed[i]:  # after auto-off: the feed token was emitted already
+                self._refeed[i] = False
+                toks = toks[1:]
+            self._consume(i, req, toks, emitted)
         return emitted
 
     def run(self) -> List[Request]:
@@ -297,6 +396,79 @@ class ContinuousBatcher:
                 self._retire(i, req)
                 return
 
+    def _spec_round(self):
+        """One round for the whole batch, with no host sync: proposals from
+        each slot's history, the verify extend, then the idle-slot clamps
+        (a retired slot keeps verifying garbage: its length keeps extend's
+        k + 1 rows of headroom, its history cursor stops at the end; its
+        proposals degrade, never its neighbours'). Returns (emit (B, k + 1),
+        committed (B,))."""
+        sk, sn, _ = self._spec
+        s = self.sampling
+        ds = spec_mod._propose_ngram(self._hist, self._hist_len, self._tokens, k=sk, ngram=sn)
+        self.cache, emit, a, self._tokens = spec_mod._verify_accept_commit(
+            self.params, self.config, self.cache, self._tokens, ds, None, self._generator,
+            k=sk, greedy=s.temperature == 0.0, temperature=s.temperature, top_k=s.top_k,
+            top_p=s.top_p)
+        self.cache["length"] = self.cache["length"].clamp(max=self._len_cap)
+        spec_mod._write_rows(self._hist, emit, self._hist_len.clamp(max=self._hist_len_cap))
+        self._hist_len = (self._hist_len + a + 1).clamp(max=self._hist_len_cap)
+        return emit, a + 1
+
+    def _step_spec(self, active) -> Dict[int, List[int]]:
+        """One speculative step: ``spec_chunk`` rounds, one host sync. A
+        slot's first step also emits the prefill's token (the plain path
+        emits it as the first one consumed)."""
+        t0 = time.perf_counter()
+        consumed0 = self._tokens
+        rounds = [self._spec_round() for _ in range(self._spec[2])]
+        B = self.batch_size
+        flat = torch.cat([consumed0] + [t.reshape(-1) for r in rounds for t in r])
+        host = flat.cpu().numpy()  # the one host sync
+        consumed0, host = host[:B], host[B:].reshape(len(rounds), -1)
+        emits = host[:, :-B].reshape(len(rounds), B, -1)
+        ns = host[:, -B:]
+        dt = time.perf_counter() - t0
+        self.metrics.decode_s += dt
+        self.metrics.sync_ms.append(dt * 1000.0)
+        self.metrics.steps += len(rounds)
+        self.metrics.occupied_slot_steps += len(active) * len(rounds)
+        self.metrics.spec_rounds += len(rounds)
+
+        emitted: Dict[int, List[int]] = {}
+        sync_rounds = sync_committed = 0
+        for i, req in active:
+            if req.fresh:
+                req.fresh = False
+                self._consume(i, req, [int(consumed0[i])], emitted)
+            # Round by round, so that the telemetry counts only rounds the
+            # slot was live for (a retired slot's garbage rounds often
+            # accept and would inflate tokens_per_round).
+            for r in range(len(rounds)):
+                if req.done:
+                    break
+                n = int(ns[r, i])
+                self.metrics.spec_slot_rounds += 1
+                self.metrics.spec_committed += n
+                sync_rounds += 1
+                sync_committed += n
+                self._consume(i, req, emits[r, i, :n].tolist(), emitted)
+        # Auto-off: once the window holds enough evidence, a rate below
+        # spec_min_tpr moves the batcher to plain decode for good.
+        if self._spec_min_tpr > 0.0 and not self._spec_off:
+            self._tpr_window.append((sync_rounds, sync_committed))
+            w_rounds = sum(r for r, _ in self._tpr_window)
+            if len(self._tpr_window) >= 4 and w_rounds >= 64 and sum(
+                    c for _, c in self._tpr_window) < self._spec_min_tpr * w_rounds:
+                self._spec_off = True
+                self.metrics.spec_auto_off_step = self.metrics.steps
+                for i, req in active:
+                    # A slot that ran a round has emitted its feed token,
+                    # unless it is still fresh or retired just now.
+                    if self.slots[i] is req and not req.fresh:
+                        self._refeed[i] = True
+        return emitted
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the batcher's device. To a card it goes through
         pinned memory without blocking, so an admission adds no host sync."""
@@ -309,21 +481,29 @@ class ContinuousBatcher:
         free = [i for i in range(self.batch_size) if self.slots[i] is None]
         if not free or not self.queue:
             return
-        # Pair queued requests with free slots, grouped by prompt bucket so
-        # that each group shares one prefill shape.
+        # Pair queued requests with free slots: prefix hits grouped by
+        # (prefix, suffix bucket), the others by prompt bucket, so that each
+        # group shares one shape.
         by_bucket: Dict[int, List[tuple]] = {}
+        by_prefix: Dict[tuple, List[tuple]] = {}
         for i in free:
             if not self.queue:
                 break
             req = self.queue.popleft()
+            hit = self._match_prefix(req.prompt_ids) if self._prefixes else None
+            if hit is not None:
+                pidx, usable = hit
+                sb = _bucket(len(req.prompt_ids) - usable, self.prompt_buckets)
+                by_prefix.setdefault((pidx, sb), []).append((i, req, usable))
+                continue
             by_bucket.setdefault(_bucket(len(req.prompt_ids), self.prompt_buckets),
                                  []).append((i, req))
+        for (pidx, sb), group in by_prefix.items():
+            for chunk in _pow2_chunks(group):
+                self._admit_prefix_group(pidx, sb, chunk)
         for bucket, group in by_bucket.items():
-            start = 0
-            while start < len(group):  # power-of-two groups, biggest first
-                k = 1 << ((len(group) - start).bit_length() - 1)
-                self._admit_group(bucket, group[start:start + k])
-                start += k
+            for chunk in _pow2_chunks(group):
+                self._admit_group(bucket, chunk)
 
     def _admit_group(self, bucket: int, group: List[tuple]) -> None:
         """One prefill of k prompts padded to ``bucket`` into a linear k-lane
@@ -342,21 +522,79 @@ class ContinuousBatcher:
         lanes = gpt2.init_kv_cache(self.config, k, bucket, dtype=self.cache["k"].dtype,
                                    device=self.device, quant=self.kv_quant, ring=False)
         lanes, logits = gpt2.prefill(self.params, lanes, toks, lens, self.config)
-        self._splice(lanes, idxs, lens)
-        self._tokens[idxs] = self._sample(logits)
+        self._admit_epilogue(lanes, logits, idxs, toks, lens)
         for i, req in group:
-            req.slot = i
-            self.slots[i] = req
+            self._seat(i, req)
         self.metrics.prefills += k
         self.metrics.prefill_s += time.perf_counter() - t0
 
+    def _admit_prefix_group(self, pidx: int, sb: int, group: List[tuple]) -> None:
+        """k prefix hits on one stored prefix and one suffix bucket in one
+        extend: the stored B=1 rows copied to k lanes at per-lane bases
+        (partial overlaps share a group), the (k, sb) suffix windows run,
+        the lanes spliced in and each first token sampled from its last
+        suffix position. The stored rows are never written."""
+        t0 = time.perf_counter()
+        k = len(group)
+        toks = np.zeros((k, sb), np.int32)
+        bases, slens = np.zeros((k,), np.int32), np.zeros((k,), np.int32)
+        idxs = np.zeros((k,), np.int64)
+        for j, (i, req, usable) in enumerate(group):
+            suffix = req.prompt_ids[usable:]
+            toks[j, :len(suffix)] = suffix
+            bases[j], slens[j], idxs[j] = usable, len(suffix), i
+        pre = self._prefixes[pidx][1]
+        lanes = {name: t.repeat(1, k, *([1] * (t.dim() - 2)))
+                 for name, t in pre.items() if name != "length"}
+        lanes["length"] = self._to_device(bases)
+        slens_d, idxs = self._to_device(slens), self._to_device(idxs)
+        lanes, logits = gpt2.extend(self.params, lanes, self._to_device(toks), slens_d,
+                                    self.config)
+        last = logits[torch.arange(k, device=self.device), slens_d.long() - 1]
+        prows = lens = None
+        if self._spec is not None:  # the history holds the whole prompt
+            prows = np.zeros((k, max(len(r.prompt_ids) for _, r, _ in group)), np.int32)
+            for j, (_, req, _) in enumerate(group):
+                prows[j, :len(req.prompt_ids)] = req.prompt_ids
+            prows, lens = self._to_device(prows), lanes["length"]
+        self._admit_epilogue(lanes, last, idxs, prows, lens)
+        for i, req, usable in group:
+            self._seat(i, req)
+            self.metrics.prefix_hits += 1
+            self.metrics.prefill_tokens_saved += usable
+        self.metrics.prefills += k
+        self.metrics.prefill_s += time.perf_counter() - t0
+
+    def _admit_epilogue(self, lanes, logits, idxs: torch.Tensor, hist_tokens, hist_lens) -> None:
+        """The shared tail of both admissions: splice the k lanes in, sample
+        each first token into the feed vector and, when speculating, seed
+        each slot's history with [prompt..., first] (``hist_tokens`` (k, T)
+        right-padded, ``hist_lens`` (k,))."""
+        self._splice(lanes, idxs, lanes["length"])
+        first = self._sample(logits)
+        self._tokens[idxs] = first
+        if self._spec is None:
+            return
+        rows = torch.zeros((len(first), self._hist_cap), dtype=torch.int32, device=self.device)
+        rows[:, :hist_tokens.shape[1]] = hist_tokens
+        rows.scatter_(1, hist_lens.long()[:, None], first[:, None])
+        self._hist[idxs] = rows
+        self._hist_len[idxs] = hist_lens + 1
+
+    def _seat(self, i: int, req: Request) -> None:
+        req.slot = i
+        req.fresh = self._spec is not None
+        self._refeed[i] = False
+        self.slots[i] = req
+
     def _splice(self, lanes, idxs: torch.Tensor, lens: torch.Tensor) -> None:
-        """Write the k prefilled lanes' rows [0, T) into the shared cache at
-        batch indices ``idxs``: at rows [0, T) of a linear cache, or at ring
-        rows (start + i) mod R with start = (wptr - n) mod R, so that each
-        lane's n valid rows end at the write row. One indexed write per
-        array, on the S axis (axis 3) of either layout; rows i >= n are
-        padding that no read reaches."""
+        """Write the k lanes' rows [0, T) into the shared cache at batch
+        indices ``idxs`` (T up to the shared cache's rows: a prefill's
+        bucket, or a prefix lane's whole slot): at rows [0, T) of a linear
+        cache, or at ring rows (start + i) mod R with start = (wptr - n) mod
+        R, so that each lane's n valid rows end at the write row. One indexed
+        write per array, on the S axis (axis 3) of either layout; rows i >= n
+        are padding that no read reaches."""
         R = self.cache["k"].shape[-2]
         T = lanes["k"].shape[-2]
         rows = torch.arange(T, device=self.device)[None, :]
@@ -381,3 +619,13 @@ class ContinuousBatcher:
         if req.submitted_at:
             self.metrics.request_latency_s.append(time.perf_counter() - req.submitted_at)
         self.finished.append(req)
+
+
+def _pow2_chunks(group: List[tuple]):
+    """A group split into power-of-two chunks, the biggest first (one
+    admission shape per chunk size)."""
+    start = 0
+    while start < len(group):
+        k = 1 << ((len(group) - start).bit_length() - 1)
+        yield group[start:start + k]
+        start += k

@@ -12,6 +12,12 @@ decides the KV cache's layout at construction, as the JAX package's
 ``prepare_serving`` does on one device (``gpt2.prepare_serving``: packed
 on the card at head_dim 64 unless ``ZG2_KV_PACKED=0``, with an odd head
 count's phantom head added to the weights).
+
+Prefix caching (``register_prefix``): the KV rows of a shared prompt
+prefix are computed once and kept; a later prompt that starts with it
+(``match_prefix``: the longest usable overlap) copies the stored rows and
+runs only its suffix, as one ``gpt2.extend`` window. The stored cache is
+never written by a hit.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ class GenerationMetrics:
     prefill_ms: float = 0.0
     decode_ms: float = 0.0
     per_token_ms: List[float] = field(default_factory=list)
+    prefix_tokens_reused: int = 0  # prompt rows served from the prefix cache
 
     @property
     def ms_per_token(self) -> float:
@@ -108,6 +115,31 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds the largest bucket {buckets[-1]}")
+
+
+def match_prefix(prefixes, prompt, buckets, cache_rows):
+    """Longest usable stored-prefix overlap for ``prompt``: (prefix index,
+    usable rows) or None; ``prefixes`` is [(token tuple, stored cache)],
+    the engine's and the batcher's one policy. ``usable`` is at most
+    len(prompt) - 1 (a suffix token must remain to give the first token's
+    logits) and shrinks until the bucket-padded suffix window fits
+    ``cache_rows`` (the suffix extend writes a whole bucket at row
+    ``usable``; past the cache its start would clamp back over prefix
+    rows). A shrink can only grow the bucket, so the loop ends."""
+    best = None
+    for pidx, (ptoks, _pre) in enumerate(prefixes):
+        cap = min(len(ptoks), len(prompt) - 1)
+        k = 0
+        while k < cap and prompt[k] == ptoks[k]:
+            k += 1
+        while k >= 1:
+            sb = _bucket(len(prompt) - k, buckets)
+            if k + sb <= cache_rows:
+                break
+            k = cache_rows - sb
+        if k >= 1 and (best is None or k > best[1]):
+            best = (pidx, k)
+    return best
 
 
 def _resolve_device(device) -> torch.device:
@@ -159,6 +191,8 @@ class InferenceEngine:
         ) or (self.max_seq,)
         self.decode_chunk = max(int(decode_chunk or 1), 1)
         self._cache_rows = self.max_seq + (self.decode_chunk - 1)
+        # Prefix cache: [(token tuple, stored B=1 cache)], longest first.
+        self._prefixes: List[tuple] = []
 
     def new_cache(self) -> gpt2.KVCache:
         return gpt2.init_kv_cache(self.config, self.batch_size, self._cache_rows,
@@ -166,8 +200,35 @@ class InferenceEngine:
                                   quant=self.kv_quant)
 
     def register_prefix(self, prefix_ids: Sequence[int]) -> None:
-        raise NotImplementedError("prefix caching needs gpt2.extend, which comes "
-                                  "with the extend/speculation slice")
+        """Compute and keep the KV rows of a shared prompt prefix (a system
+        prompt): a later prompt that shares leading tokens with it starts
+        from the stored rows and runs only its suffix. Output is unchanged.
+        Single-sequence (batch_size 1; the batcher has its own)."""
+        if self.batch_size != 1:
+            raise ValueError("register_prefix is single-sequence (batch_size == 1); "
+                             "use ContinuousBatcher")
+        prefix_ids = [int(t) for t in prefix_ids]
+        if not prefix_ids:
+            raise ValueError("prefix must contain at least one token")
+        n = len(prefix_ids)
+        tokens = np.zeros((1, _bucket(n, self.prompt_buckets)), np.int32)  # raises if too long
+        tokens[0, :n] = prefix_ids
+        pre, _ = self._prefill(tokens, [n])
+        self._prefixes.append((tuple(prefix_ids), pre))
+        self._prefixes.sort(key=lambda t: -len(t[0]))
+
+    def _prefix_prefill(self, prompt_ids: List[int], pidx: int, usable: int):
+        """A prefix hit's prefill: a copy of the stored rows, its length set
+        to ``usable``, and one extend over the bucket-padded suffix.
+        Returns (cache, the last suffix position's (1, vocab) logits)."""
+        suffix = prompt_ids[usable:]
+        tokens = np.zeros((1, _bucket(len(suffix), self.prompt_buckets)), np.int32)
+        tokens[0, :len(suffix)] = suffix
+        cache = {name: t.clone() for name, t in self._prefixes[pidx][1].items()}
+        cache["length"] = self._tensor([usable])
+        cache, logits = gpt2.extend(self.params, cache, self._tensor(tokens),
+                                    self._tensor([len(suffix)]), self.config)
+        return cache, logits[:, len(suffix) - 1]
 
     def _tensor(self, data) -> torch.Tensor:
         return torch.as_tensor(np.asarray(data, np.int32), device=self.device)
@@ -231,9 +292,15 @@ class InferenceEngine:
         metrics.prompt_tokens = n
 
         t0 = time.perf_counter()
-        tokens = np.zeros((1, _bucket(n, self.prompt_buckets)), np.int32)
-        tokens[0, :n] = prompt_ids
-        cache, logits = self._prefill(tokens, [n])
+        hit = (match_prefix(self._prefixes, prompt_ids, self.prompt_buckets, self._cache_rows)
+               if self._prefixes else None)
+        if hit is not None:
+            cache, logits = self._prefix_prefill(prompt_ids, *hit)
+            metrics.prefix_tokens_reused = hit[1]
+        else:
+            tokens = np.zeros((1, _bucket(n, self.prompt_buckets)), np.int32)
+            tokens[0, :n] = prompt_ids
+            cache, logits = self._prefill(tokens, [n])
         generator = self._generator(sampling)
         token = sample(logits, generator, sampling.temperature, sampling.top_k,
                        sampling.top_p)
