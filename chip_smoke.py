@@ -62,7 +62,7 @@ prints no result line:
                the same quantized weights with f32 float leaves on the card
                and on the CPU (weights dequantized to f32, plain attention),
                and the logits compared, over the first 12 of the 48 layers
-               (phase 17 compares all 48).
+               (phase 17 compares the first 24).
 12. trace-1.5B - as 8, for the 1.5B INT4 + INT8-KV decode step (bf16).
 13. serve-batcher-1.5B - the 1.5B model of phase 11 on
                ``ContinuousBatcher(batch_size=16, max_seq=256, decode_chunk=1,
@@ -184,7 +184,37 @@ prints no result line:
                round one (16, 4) verify extend (289 qmm at 64 rows), equal to
                the plain unpacked batcher up to a near-tie, tokens per round;
                then the default spec_min_tpr, whether the auto-off fired.
-28. times    - each kernel's device time per call at the main paths'
+28. npz      - the 124M fp32 weights written as a raw checkpoint and
+               repacked on the host (``tools.repack --mode int4``) to an
+               .npz, loaded to the card bit-equal to ``quantize_params``
+               there; greedy tokens from the loaded tree identical to the
+               in-process quantized tree's (3 prompts x 32; 73 qmm per pass);
+               the 1.5B INT4 tree (float leaves as f32) round-tripped
+               bit-equal, with its size and load time.
+29. fused-qkv - ``ZG2_FUSE_QKV=1``: the 1.5B INT4 + INT8 KV packed engine
+               launches 193 qmm per decode step and per prefill (289
+               unfused; the fused projection is 1600 x 4992), greedy tokens
+               equal to the unfused engine's up to a near-tie; the 124M
+               fp32 engine with ``ZG2_WMM=1`` 48 wmm per step (72); one B=16
+               ring batcher pass at 1.5B fused and unfused (193 and 289 per
+               step, tokens up to a near-tie); 32 traced steps at 1.5B B=1
+               fused and unfused (reported).
+30. ppl      - ``tools.ppl_gate`` on the card at 124M (raw checkpoint of
+               phase 28, 8192 synthetic ids in a .npy, TF32 off), modes
+               int8, w8a8, int4: window 256 batch 1 (qmm per INT8/INT4
+               window: 73 launches) and window 1024 batch 8 (no GEMV
+               launch); at window 256 every mode against the CPU (fp32
+               1e-4, quantized 1e-3 relative). Budgets printed, not gated.
+31. train    - 5 AdamW steps at 124M fp32, B=8, T=1024, with and without
+               remat: the loss falls at every step, the runs agree within
+               1e-5, the remat peak memory is lower; one step at B=2, T=128
+               against the CPU (loss 1e-5, gradients 1e-3 of each leaf's
+               largest).
+32. profile-debug - ``cli --profile`` writes a trace naming the port's
+               kernels; ``nan_checks`` silent on clean weights, raising with
+               the op's name on a NaN planted in wte; ``checked_decode_step``
+               raises on a cache at max_seq.
+33. times    - each kernel's device time per call at the main paths'
                shapes (CUDA-graph replay of many calls), its bound, its
                plain version's time and one PyTorch library call computing
                the same function (timed only, never used by the port):
@@ -195,7 +225,10 @@ prints no result line:
                decode step or an extend window), and wmm at rows 1, 2 and
                8, f32 and bf16, per 124M shape and per 72-call step in
                served order, every call on another layer's weight (from
-               device memory, not L2).
+               device memory, not L2); and the fused QKV shapes: qmm INT4
+               and the w8a8 body at 1600 x 4992, rows 1 and 16, and wmm at
+               768 x 2304, one row, f32 and bf16 (rows of their own in the
+               kernels line).
 
 Phases 24-27 compare two bf16 paths' greedy tokens (with and without a
 prefix, speculative and plain): equal up to the first divergence, and
@@ -214,12 +247,14 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the f32 rate
@@ -321,24 +356,37 @@ def check_close(name: str, got, want, atol: float, rtol: float, torch) -> float:
 
 
 def check_attention(att, torch) -> None:
+    """The float kernel against its plain version at 124M shapes, q and the
+    cache in each pair of dtypes (one dtype, or f32 q over a bf16 cache and
+    the reverse: the engine's ``cache_dtype``), unpacked and packed; the
+    tolerance is that of q's dtype."""
     L, H, S, D = 12, 12, 1024, 64
     g = torch.Generator(device="cuda").manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
     for B, lengths in ((1, [17]), (1, [1023]), (4, [0, 1, 17, 1023])):
-        for dtype in (torch.float32, torch.bfloat16):
-            kc = torch.randn(L, B, H, S, D, device="cuda", generator=g).to(dtype)
-            vc = torch.randn(L, B, H, S, D, device="cuda", generator=g).to(dtype)
+        for dtype, cache_dtype in ((f32, f32), (bf16, bf16), (f32, bf16), (bf16, f32)):
+            kc = torch.randn(L, B, H, S, D, device="cuda", generator=g).to(cache_dtype)
+            vc = torch.randn(L, B, H, S, D, device="cuda", generator=g).to(cache_dtype)
             q, kn, vn = (torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
                          for _ in range(3))
             length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             atol, rtol = ATTN_TOL[str(dtype).split(".")[-1]]
+            what = f"{dtype}" + (f" over a {cache_dtype} cache" if cache_dtype != dtype else "")
+            layouts = (False, True) if cache_dtype != dtype else (False,)
             for layer in (0, L - 1):
-                got = att.decode_attention_deferred(q, kn, vn, kc, vc, length, layer=layer)
-                want = att.decode_attention_deferred_plain(q, kn, vn, kc, vc, length,
-                                                           layer=layer)
-                err = check_close(f"attention B={B} {dtype} layer={layer}", got, want,
-                                  atol, rtol, torch)
-                log(f"attention B={B} len={lengths} {dtype} layer={layer}: "
-                    f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol})")
+                for packed in layouts:
+                    args = (q, kn, vn, kc, vc)
+                    if packed:
+                        args = (*(att.pack_heads_rows(t) for t in args[:3]),
+                                *(att.pack_heads_seq(t).contiguous() for t in args[3:]))
+                    got = att.decode_attention_deferred(*args, length, layer=layer,
+                                                        packed=packed)
+                    want = att.decode_attention_deferred_plain(*args, length, layer=layer,
+                                                               packed=packed)
+                    label = f"attention B={B} {what}{' packed' if packed else ''} layer={layer}"
+                    err = check_close(label, got, want, atol, rtol, torch)
+                    log(f"{label} len={lengths}: max_abs_err={err:.3e} (atol {atol}, "
+                        f"rtol {rtol})")
 
 
 def int8_attention_inputs(ops, torch, g, L, B, H, S, D, dtype):
@@ -653,25 +701,29 @@ COUNTERS = tuple((key + suffix, fn, attr)
 
 
 @contextlib.contextmanager
-def kv_layout(value: str):
-    """ZG2_KV_PACKED set to ``value`` while runtimes are built (they decide
-    their cache layout at construction)."""
-    old = os.environ.get("ZG2_KV_PACKED")
-    os.environ["ZG2_KV_PACKED"] = value
+def env_setting(name: str, value: str):
+    """Environment variable ``name`` set to ``value`` inside the block, as
+    runtimes are built (``ZG2_KV_PACKED`` and ``ZG2_FUSE_QKV`` are read at
+    construction), and restored after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["ZG2_KV_PACKED"]
+            del os.environ[name]
         else:
-            os.environ["ZG2_KV_PACKED"] = old
+            os.environ[name] = old
 
 
 def reset_counts(att, sk, qk) -> None:
     for _, fn, attr in COUNTERS:
         setattr(getattr(att, fn), attr, 0)
+        getattr(att, fn).by_dtype.clear()
     sk.sample_categorical.launches = 0
     qk.qmm.launches = qk.qmm.w8a8_launches = qk.wmm.launches = 0
+    qk.qmm.by_shape.clear()
+    qk.wmm.by_shape.clear()
 
 
 def read_counts(att, sk, qk, torch) -> dict:
@@ -719,15 +771,16 @@ def run_requests(engine_mod, config_mod, engine, label: str, card: str):
 
 
 def teacher_forced(gpt2, params, config, ids, tokens, device, torch, kv_quant=None,
-                   bucket=32, group=1, lanes=1):
+                   bucket=32, group=1, lanes=1, cache_dtype=None):
     """(len(tokens) + 1, vocab) logits: prefill of ``ids`` padded to
     ``bucket`` (the engine's prompt bucket, so that the served run's
     arithmetic is repeated exactly), then one decode step per token of
     ``tokens``. ``group`` and ``lanes`` repeat a batcher's shapes: the
     prefill runs ``group`` copies of the prompt (one admission group) and
-    the decode steps ``lanes`` copies (the batch), lane 0 read."""
+    the decode steps ``lanes`` copies (the batch), lane 0 read. A float
+    cache is in ``cache_dtype`` (default wte's dtype)."""
     cache = gpt2.init_kv_cache(config, group, bucket + len(tokens) + 1, device=device,
-                               quant=kv_quant, dtype=params["wte"].dtype)
+                               quant=kv_quant, dtype=cache_dtype or params["wte"].dtype)
     prompt = torch.zeros((group, bucket), dtype=torch.int32, device=device)
     prompt[:, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
     cache, logits = gpt2.prefill(params, cache, prompt,
@@ -889,8 +942,10 @@ def serve_1p5b(pkg, torch, encoder, config, params, card: str, label: str = "ser
         f32 = dict(f32, blocks=weights.tree_map(lambda t: t[:check_layers], f32["blocks"]))
         log(f"{label} teacher-forced comparisons with the CPU over the first {check_layers} "
             f"of {engine.config.n_layers} layers")
-    cpu_w = dequantized(quantize, weights.tree_map(lambda t: t.cpu(), f32))
-    # On the CPU the weights are dequantized to f32 once: each linear is one
+    cpu_w = weights.tree_map(lambda t: t.cpu(), dequantized(quantize, f32))
+    # On the CPU the weights are dequantized to f32 once (on the card, then
+    # copied: float(q) * scale is one f32 product, the same bits on either
+    # device): each linear is one
     # plain matmul, the same products as qmm's plain version (weight
     # float(q) * scale in f32, f32 sums) in another order, at a fraction of
     # its time (the qmm phase holds the kernel to that plain version).
@@ -1304,6 +1359,29 @@ def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, ca
     return counts, b
 
 
+def marked_steps(prof) -> list:
+    """The kernels of each marked step of a profiler window, [(name, device
+    us)] per step, a ``torch.cuda._sleep`` marker kernel opening each, in
+    launch order (a device event's correlation id: by start time a marker
+    once fell 2954 kernels into the next step). Read from the raw kineto
+    events: building the profiler's FunctionEvent list took 17.97 s for a
+    1.5B B=1 window of 152896 kernels (NVIDIA H100 80GB HBM3, 700.00 W),
+    the raw events 1.75 s: the same kernels in the same order with the same
+    durations."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e.correlation_id(), e.start_ns(), e.name(), e.duration_ns())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    steps = []
+    for _, _, name, ns in events:
+        if "spin_kernel" in name:
+            steps.append([])
+        elif steps:
+            steps[-1].append((name, ns / 1e3))
+    return steps
+
+
 def trace_batcher(batcher, config_mod, torch, card: str, label: str = "trace-batcher",
                   weights: str = "INT4 (lm_head INT8), bf16 activations",
                   w8a8_per_step: int = 0) -> dict:
@@ -1318,7 +1396,6 @@ def trace_batcher(batcher, config_mod, torch, card: str, label: str = "trace-bat
     import warnings
     from collections import defaultdict
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     steps, pad = 32, 2
@@ -1344,16 +1421,7 @@ def trace_batcher(batcher, config_mod, torch, card: str, label: str = "trace-bat
                     wall_us += (time.perf_counter() - t0) * 1e6
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
-    # In launch order (a device event's id is its launch's correlation id):
-    # by start time, a marker once fell 2954 kernels into the next step.
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: (e.id, e.time_range.start))
-    by_step = []  # the kernels of each traced step whose marker was recorded
-    for e in events:
-        if "spin_kernel" in e.name:
-            by_step.append([])
-        elif by_step:
-            by_step[-1].append((e.name, e.time_range.end - e.time_range.start))
+    by_step = marked_steps(prof)
     kernels = [k for step in by_step for k in step]
     per_step = [(len(step), sum("qmm_w8a8" in name for name, _ in step)) for step in by_step]
     syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
@@ -1407,7 +1475,7 @@ def layout_ab(batcher_mod, config_mod, torch, config, params, packed_batcher, ca
     batcher, then on an unpacked one built alike (ZG2_KV_PACKED=0), the
     same requests and sampling."""
     kw = dict(batch_size=16, max_seq=256, decode_chunk=1, kv_quant="int8", device="cuda")
-    with kv_layout("0"):
+    with env_setting("ZG2_KV_PACKED", "0"):
         unpacked = batcher_mod.ContinuousBatcher(config, params, **kw)
     if unpacked.config.kv_packed or not packed_batcher.config.kv_packed:
         raise AssertionError("the layout A/B did not get one batcher of each layout")
@@ -1432,7 +1500,6 @@ def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str,
     import statistics
     from collections import defaultdict
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     steps, pad = 32, 2
@@ -1456,14 +1523,7 @@ def trace_decode(gpt2, sampling, engine, ids, torch, label: dict, card: str,
             int(token[0])
             if i >= pad:
                 wall_us += (time.perf_counter() - t0) * 1e6
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: (e.id, e.time_range.start))  # launch order
-    by_step = []
-    for e in events:
-        if "spin_kernel" in e.name:
-            by_step.append([])
-        elif by_step:
-            by_step[-1].append((e.name, e.time_range.end - e.time_range.start))
+    by_step = marked_steps(prof)
     kernels = [k for step in by_step for k in step]
     wmm_by_step = [sum("wmm_" in name for name, _ in step) for step in by_step]
     row = {**label, "batch": 1, "temperature": 0.8, "traced_decode_steps": steps,
@@ -1624,7 +1684,8 @@ def near_tie_pair(label: str, gpt2, engine, requests, a_served, b_served, tol: f
             raise AssertionError(f"{label}: a request ended at another length")
         logits = teacher_forced(gpt2, engine.params, engine.config, ids, a[:n], "cuda", torch,
                                 kv_quant=engine.kv_quant,
-                                bucket=_bucket(len(ids), engine.prompt_buckets))[-1]
+                                bucket=_bucket(len(ids), engine.prompt_buckets),
+                                cache_dtype=engine.cache_dtype)[-1]
         gap = abs(float(logits[a[n]] - logits[b[n]]))
         log(f"{label} near-tie check: prompt of {len(ids)}: first divergence at token {n}, "
             f"logit gap {gap:.3e} (tolerance {tol:.3e})")
@@ -1821,7 +1882,6 @@ def trace_spec_rounds(spec, ids, torch, card: str, label: str) -> dict:
     target's verify launches one qmm per linear (289; none above, at least
     one round exactly), the draft's k - 1 decode steps 12 x (k - 1)
     attention kernels, and no round a sampler kernel. Returns the row."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from zig_gpt2_tpu_torch.config import SamplingConfig
@@ -1843,14 +1903,7 @@ def trace_spec_rounds(spec, ids, torch, card: str, label: str) -> dict:
             int(count[0])  # the round's host read, as generate_iter makes it
             if i >= pad:
                 wall_us += (time.perf_counter() - t0) * 1e6
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: (e.id, e.time_range.start))
-    by_round = []
-    for e in events:
-        if "spin_kernel" in e.name:
-            by_round.append([])
-        elif by_round:
-            by_round[-1].append((e.name, e.time_range.end - e.time_range.start))
+    by_round = marked_steps(prof)
 
     def per_round(key):
         return [sum(key in name for name, _ in r) for r in by_round]
@@ -1886,7 +1939,8 @@ def speculative_1p5b(pkg, torch, encoder, config_1p5b, params_1p5b, config_124m,
     config_mod, gpt2, engine_mod, att, sk, qk, weights, _ = pkg
     label, k = "speculative-1.5B", 4
     greedy = config_mod.SamplingConfig(temperature=0.0)
-    with kv_layout("0"):  # the target's layout: extend-only caches stay unpacked
+    # the target's layout: extend-only caches stay unpacked
+    with env_setting("ZG2_KV_PACKED", "0"):
         ref = engine_mod.InferenceEngine(config_1p5b, params_1p5b, encoder, kv_quant="int8",
                                          device="cuda")
     spec = SpeculativeEngine(config_1p5b, params_1p5b, config_124m, params_124m, k=k,
@@ -1999,7 +2053,7 @@ def serve_batcher_spec_1p5b(pkg, batcher_mod, torch, config, params, engine, flo
     log(f"{label}: tokens_per_round {b.metrics.tokens_per_round:.4f}, metrics "
         f"{json.dumps(b.metrics.as_dict(16))} (INT4 + INT8 KV, linear unpacked, B=16, spec_k=3, "
         f"greedy, {card})")
-    with kv_layout("0"):
+    with env_setting("ZG2_KV_PACKED", "0"):
         plain = batcher_mod.ContinuousBatcher(config, params, **kw)
     serve_batch(plain, [([1, 2, 3], 4), ([4, 5], 4)], f"{label} plain warm-up")
     plain.metrics = batcher_mod.BatcherMetrics()
@@ -2019,6 +2073,606 @@ def serve_batcher_spec_1p5b(pkg, batcher_mod, torch, config, params, engine, flo
     near_tie_pair(f"{label} default spec_min_tpr", gpt2, engine, requests, auto_served,
                   plain_served, tol, torch)
     return counts
+
+
+# --- slice 10: .npz checkpoints, fused QKV, perplexity, training, hooks -------
+
+def leaf_paths(tree, prefix=""):
+    """{'/'-joined path: tensor} of a parameter tree."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(leaf_paths(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def check_bit_equal(label: str, got, want, torch) -> int:
+    """Every leaf of ``got`` equals ``want``'s in path, dtype, shape and
+    bits. Returns the number of leaves."""
+    got, want = leaf_paths(got), leaf_paths(want)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: leaf paths differ: {sorted(set(got) ^ set(want))}")
+    for key, w in want.items():
+        g = got[key]
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w.to(g.device)):
+            raise AssertionError(f"{label}: leaf {key} differs ({g.dtype} {tuple(g.shape)} vs "
+                                 f"{w.dtype} {tuple(w.shape)})")
+    return len(want)
+
+
+def npz_phase(pkg, torch, encoder, config, params, params_1p5b, tmp: str, card: str):
+    """Phase npz: the 124M fp32 weights written as a raw checkpoint, the
+    repacker (``tools.repack --mode int4``, on the host) to an INT4 .npz,
+    loaded to the card bit-equal to ``quantize_params`` there; greedy tokens
+    from the loaded tree and from the in-process quantized tree, 3 prompts
+    x 32, identical; the 1.5B INT4 tree round-tripped through the .npz
+    (its bf16 float leaves as f32: the format holds no bfloat16) bit-equal.
+    Returns the launch counts of the loaded tree's requests and the raw
+    checkpoint's directory."""
+    from zig_gpt2_tpu_torch.tools import repack
+    from zig_gpt2_tpu_torch.utils import io as zio
+
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, quantize = pkg
+    raw = os.path.join(tmp, "raw-124M")
+    t0 = time.perf_counter()
+    zio.save_gpt2_raw(params, raw, config)
+    out = os.path.join(tmp, "124M-int4.npz")
+    t1 = time.perf_counter()
+    repack.main(["--raw", raw, "--model", "124M", "--mode", "int4", "--out", out])
+    t2 = time.perf_counter()
+    loaded, meta = zio.load_pytree_npz(out, device="cuda", with_meta=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    want = quantize.quantize_params(params, "int4")
+    n = check_bit_equal("npz 124M INT4", loaded, want, torch)
+    if meta != {"model": "124M", "mode": "int4"}:
+        raise AssertionError(f"npz meta {meta}")
+    log(f"npz 124M: raw write {t1 - t0:.1f} s, repack (host) {t2 - t1:.1f} s, "
+        f"{os.path.getsize(out) / 1e6:.1f} MB, load to the card {t3 - t2:.2f} s; {n} leaves "
+        f"bit-equal to quantize_params(params, 'int4') on the card; meta {meta}")
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    prompts = [encoder.encode(p) for _, p, _ in REQUESTS]
+    served = {}
+    for name, tree in (("in-process", want), ("loaded", loaded)):
+        engine = engine_mod.InferenceEngine(config, tree, encoder, device="cuda")
+        engine.generate(prompts[0], 2, greedy)
+        reset_counts(att, sk, qk)
+        served[name] = [engine.generate(ids, 32, greedy) for ids in prompts]
+        counts = read_counts(att, sk, qk, torch)
+        key = "attention_packed" if engine.config.kv_packed else "attention"
+        expect_counts(f"npz 124M INT4 {name} engine", counts,
+                      {key: config.n_layers * 32 * len(prompts),
+                       "qmm": (6 * config.n_layers + 1) * (32 + 1) * len(prompts)})
+        del engine
+    if served["loaded"] != served["in-process"]:
+        raise AssertionError("npz: the loaded tree's greedy tokens differ from the in-process "
+                             "quantized tree's")
+    log(f"npz 124M INT4: greedy tokens of the loaded tree identical to the in-process tree's "
+        f"(3 prompts x 32, {layout_name(dataclasses.replace(config, kv_packed=True))}, {card})")
+    del loaded, want
+    # 1.5B INT4: float leaves as f32 (bf16 values held exactly).
+    f32 = weights.tree_map(lambda t: t.float() if t.is_floating_point() else t, params_1p5b)
+    big = os.path.join(tmp, "1558M-int4.npz")
+    t0 = time.perf_counter()
+    zio.save_pytree_npz(f32, big, meta={"model": "1558M", "mode": "int4"})
+    t1 = time.perf_counter()
+    back = zio.load_pytree_npz(big, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = check_bit_equal("npz 1.5B INT4", back, f32, torch)
+    back = leaf_paths(back)
+    for key, t in leaf_paths(params_1p5b).items():
+        if t.dtype == torch.bfloat16 and not torch.equal(back[key].to(torch.bfloat16), t):
+            raise AssertionError(f"npz 1.5B: bf16 leaf {key} does not survive the round trip")
+    log(f"npz 1.5B INT4: {os.path.getsize(big) / 1e6:.1f} MB, save {t1 - t0:.1f} s, load to "
+        f"the card {t2 - t1:.2f} s (host clock, {card}); {n} leaves bit-equal")
+    os.remove(big)
+    return counts, raw
+
+
+def fused_qkv_phase(pkg, batcher_mod, sampling, torch, encoder, config_1p5b, params_1p5b,
+                    config_124m, params_124m, floor: float, card: str, shapes: dict):
+    """Phase fused-qkv: ``ZG2_FUSE_QKV=1``. The 1.5B INT4 + INT8 KV packed
+    engine (one 1600 x 4992 projection per layer: the phantom head padded
+    in first): 193 qmm launches per decode step and per prefill, against
+    289 unfused; greedy tokens (3 prompts x 32) equal to the unfused
+    engine's up to a near-tie within max(1e-3, 3 x the INT8 floor, 3 x the
+    bf16 floor). The 124M fp32 engine with ``ZG2_WMM=1``: 48 wmm launches
+    per decode step against 72, the same tokens up to a near-tie within
+    1e-3. One B=16 ring batcher pass at 1.5B, fused and unfused: 193 and
+    289 qmm per decode step, tokens up to a near-tie. Then 32 traced decode
+    steps at 1.5B B=1, fused and unfused (reported, not gated). Returns the
+    fused runs' launch counts and the traces' rows; ``shapes`` (a Counter)
+    receives the counted runs' qmm and wmm launches per shape, as the
+    wrappers tally them (``qmm.by_shape``, ``wmm.by_shape``)."""
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, _ = pkg
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    prompts = [encoder.encode(p) for _, p, _ in REQUESTS]
+    L = config_1p5b.n_layers
+    t0 = time.perf_counter()
+    total = {}
+    engines, served = {}, {}
+    for fused in ("1", "0"):
+        with env_setting("ZG2_FUSE_QKV", fused):
+            engine = engine_mod.InferenceEngine(config_1p5b, params_1p5b, encoder,
+                                                kv_quant="int8", device="cuda")
+        attn = engine.params["blocks"]["attn"]
+        if (fused == "1") != ("wqkv" in attn):
+            raise AssertionError(f"fused-qkv: ZG2_FUSE_QKV={fused} gave {sorted(attn)}")
+        engine.generate(prompts[0], 2, greedy)
+        reset_counts(att, sk, qk)
+        served[fused] = [engine.generate(ids, 32, greedy) for ids in prompts]
+        counts = read_counts(att, sk, qk, torch)
+        shapes.update(qk.qmm.by_shape)
+        per_pass = (4 if fused == "1" else 6) * L + 1
+        expect_counts(f"fused-qkv 1.5B engine ZG2_FUSE_QKV={fused}", counts,
+                      {"qmm": per_pass * 33 * len(prompts),
+                       "attention_int8_packed": L * 32 * len(prompts)})
+        log(f"fused-qkv 1.5B engine ZG2_FUSE_QKV={fused}: {per_pass} qmm per decode step "
+            f"(packed, INT4 + INT8 KV, bf16 activations, {card})")
+        if fused == "1":
+            n = attn["wqkv"]["qw4"].shape[-1]
+            if n != 3 * engine.config.attn_heads * engine.config.head_dim or n != 4992:
+                raise AssertionError(f"fused-qkv: wqkv is {n} wide, expected 4992")
+            total = counts
+        engines[fused] = engine
+    plain = engines["0"]
+    bf16 = bf16_floor(gpt2, weights, plain, prompts[0], served["0"][0][:-1], torch, "fused-qkv")
+    tol = max(E2E_ATOL, 3 * floor, 3 * bf16)
+    requests = [(ids, 32) for ids in prompts]
+    near_tie_pair("fused-qkv 1.5B engine vs unfused", gpt2, plain, requests, served["1"],
+                  served["0"], tol, torch)
+    log(f"fused-qkv 1.5B engines and their near-tie check: {time.perf_counter() - t0:.1f} s")
+    traces = {}
+    for fused in ("1", "0"):
+        ids = prompts[0]
+        traces[f"ZG2_FUSE_QKV={fused}"] = trace_decode(
+            gpt2, sampling, engines[fused], ids, torch,
+            {"model": "1558M", "weights": f"INT4 (lm_head INT8), fused QKV {fused}",
+             "kv_cache": "int8, packed"}, card)
+    keys = ("device_busy_ms_per_step", "kernels_per_decode_step", "device_idle_share",
+            "traced_wall_ms")
+    rows = {k: {n: r.get(k) for n, r in traces.items()} for k in keys}
+    log(f"trace-fused-qkv {json.dumps(rows)} (1.5B INT4 + INT8 KV packed, B=1, 32 steps each, "
+        f"{card})")
+    del engines["1"]
+    log(f"fused-qkv traces: {time.perf_counter() - t0:.1f} s")
+
+    # 124M fp32 with wmm: 48 launches per step fused, 72 unfused.
+    with env_setting("ZG2_WMM", "1"):  # read at every decode step
+        tokens = {}
+        for fused in ("1", "0"):
+            with env_setting("ZG2_FUSE_QKV", fused):
+                engine = engine_mod.InferenceEngine(config_124m, params_124m, encoder,
+                                                    device="cuda")
+            engine.generate(prompts[0], 2, greedy)
+            reset_counts(att, sk, qk)
+            tokens[fused] = [engine.generate(ids, 32, greedy) for ids in prompts]
+            counts = read_counts(att, sk, qk, torch)
+            shapes.update(qk.wmm.by_shape)
+            per_step = (4 if fused == "1" else 6) * engine.config.n_layers
+            expect_counts(f"fused-qkv 124M ZG2_WMM=1 ZG2_FUSE_QKV={fused}", counts,
+                          {"wmm": per_step * 32 * len(prompts),
+                           "attention_packed": engine.config.n_layers * 32 * len(prompts)})
+            log(f"fused-qkv 124M fp32 ZG2_WMM=1 ZG2_FUSE_QKV={fused}: {per_step} wmm per decode "
+                f"step ({card})")
+            if fused == "1":
+                total = {k: total[k] + counts[k] for k in total}
+            else:
+                near_tie_pair("fused-qkv 124M wmm vs unfused", gpt2, engine, requests,
+                              tokens["1"], tokens["0"], E2E_ATOL, torch)
+            del engine
+    log(f"fused-qkv 124M wmm engines: {time.perf_counter() - t0:.1f} s")
+    # One B=16 ring batcher pass at 1.5B, fused and unfused.
+    kw = dict(batch_size=16, max_seq=256, kv_quant="int8", sampling=greedy, device="cuda")
+    reqs = batch_requests(71, 16, config_1p5b.vocab_size, (8, 60), (16, 32))
+    out = {}
+    for fused in ("1", "0"):
+        with env_setting("ZG2_FUSE_QKV", fused):
+            b = batcher_mod.ContinuousBatcher(config_1p5b, params_1p5b, **kw)
+        serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], "fused-qkv batcher warm-up")
+        b.metrics = batcher_mod.BatcherMetrics()
+        with recording(gpt2, {"prefill": [], "extend": []}) as calls:
+            reset_counts(att, sk, qk)
+            out[fused] = serve_batch(b, reqs, f"fused-qkv batcher ZG2_FUSE_QKV={fused}")
+            counts = read_counts(att, sk, qk, torch)
+            shapes.update(qk.qmm.by_shape)
+        steps = b.metrics.steps
+        per_pass = (4 if fused == "1" else 6) * L
+        prefill = sum(per_pass * (k * t <= 256) + 1 for k, t in window_shapes(calls["prefill"]))
+        expect_counts(f"fused-qkv 1.5B batcher ZG2_FUSE_QKV={fused}", counts,
+                      {"qmm": (per_pass + 1) * steps + prefill,
+                       "attention_int8_packed_ring": L * steps})
+        log(f"fused-qkv 1.5B batcher ZG2_FUSE_QKV={fused}: {steps} steps, {per_pass + 1} qmm "
+            f"per decode step, metrics {json.dumps(b.metrics.as_dict(16))} (B=16, ring, "
+            f"packed, INT4 + INT8 KV, {card})")
+        if fused == "1":
+            total = {k: total[k] + counts[k] for k in total}
+        del b
+    near_tie_pair("fused-qkv 1.5B batcher vs unfused", gpt2, plain, reqs, out["1"], out["0"],
+                  tol, torch)
+    return total, traces
+
+
+def cache_dtype_phase(pkg, torch, encoder, config, params, card: str) -> dict:
+    """Phase cache-dtype: ``InferenceEngine(cache_dtype=torch.bfloat16)`` on
+    the 124M fp32 weights (the JAX engine's option: a bf16 KV cache under
+    f32 activations), in the layout the card picks (packed). The float
+    decode-attention kernel reads f32 q and the current row over bf16 rows:
+    one launch per layer and decode step (3 prompts x 32 greedy tokens).
+    The greedy prompt's teacher-forced logits over a bf16 cache, card
+    against CPU, within max(1e-3, 3 x the CPU's f64-vs-f32 floor); every
+    prompt's greedy tokens equal to the CPU engine's (the same cache dtype
+    and layout) up to a near-tie within the same tolerance. Returns the launch counts and the launches with
+    f32 q over a bf16 cache, as the wrapper tallied them."""
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, _ = pkg
+    from zig_gpt2_tpu_torch.runtime.engine import _bucket
+
+    bf16 = torch.bfloat16
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    prompts = [encoder.encode(p) for _, p, _ in REQUESTS]
+    engine = engine_mod.InferenceEngine(config, params, encoder, device="cuda",
+                                        cache_dtype=bf16)
+    if engine.new_cache()["k"].dtype != bf16:
+        raise AssertionError(f"cache-dtype: the engine's cache is {engine.new_cache()['k'].dtype}")
+    engine.generate(prompts[0], 2, greedy)
+    reset_counts(att, sk, qk)
+    served = [engine.generate(ids, 32, greedy) for ids in prompts]
+    counts = read_counts(att, sk, qk, torch)
+    key = "attention_packed" if engine.config.kv_packed else "attention"
+    expect_counts("cache-dtype 124M fp32, bf16 KV cache", counts,
+                  {key: config.n_layers * 32 * len(prompts)})
+    variant = "packed_launches" if engine.config.kv_packed else "launches"
+    mixed = att.decode_attention_deferred.by_dtype[(variant, "float32", "bfloat16")]
+    if mixed != counts[key]:
+        raise AssertionError(f"cache-dtype: {mixed} of {counts[key]} launches read f32 q over "
+                             f"the bf16 cache")
+    with env_setting("ZG2_KV_PACKED", "1" if engine.config.kv_packed else "0"):
+        cpu = engine_mod.InferenceEngine(config, weights.tree_map(lambda t: t.cpu(), params),
+                                         encoder, device="cpu", cache_dtype=bf16)
+    if cpu.config.kv_packed != engine.config.kv_packed:
+        raise AssertionError("cache-dtype: the CPU engine took another layout")
+    ids, tokens = prompts[0], served[0][:-1]
+    bucket = _bucket(len(ids), engine.prompt_buckets)
+    f64 = weights.tree_map(lambda t: t.double() if t.is_floating_point() else t, cpu.params)
+    got, want, exact = (teacher_forced(gpt2, p, cpu.config, ids, tokens, dev, torch,
+                                       bucket=bucket, cache_dtype=bf16)
+                        for p, dev in ((engine.params, "cuda"), (cpu.params, "cpu"),
+                                       (f64, "cpu")))
+    # A K or V element within roundoff of a bf16 rounding boundary may land
+    # one bf16 step apart on two devices: the CPU's own f64-vs-f32 gap is
+    # the floor, as for the INT8 cache.
+    floor = (exact - want).abs().max().item()
+    log(f"cache-dtype 124M floor: the CPU run in f64 and in f32, both over a bf16 cache, differ "
+        f"by max_abs_err={floor:.3e} over {want.shape[0]} positions")
+    tol = max(E2E_ATOL, 3 * floor)
+    compare_logits("cache-dtype 124M fp32, bf16 KV cache", got, want, torch, atol=tol)
+    near_tie_pair("cache-dtype 124M fp32, bf16 KV cache, card vs CPU", gpt2, engine,
+                  [(ids, 32) for ids in prompts], served,
+                  [cpu.generate(ids, 32, greedy) for ids in prompts], tol, torch)
+    log(f"cache-dtype 124M: bf16 KV cache under f32 activations served on the card "
+        f"({layout_name(engine.config)}, {card})")
+    return counts, mixed
+
+
+PPL_MODES = ("int8", "w8a8", "int4")
+# Card vs CPU perplexity over PPL_CPU_IDS ids, relative, from the readings
+# (the same in every run: fp32 0, INT8 and INT4 1.197e-07, w8a8 6.582e-06;
+# NVIDIA H100 80GB HBM3, 700.00 W): about 8 x the weight-only modes' gap,
+# 3 x w8a8's (its rows are quantized, so a roundoff-sized difference
+# flips int8 values). Each lies below its mode's distance from fp32
+# (INT8 4.6e-4, w8a8 3.2e-4, INT4 1.1e-5), which the phase checks.
+PPL_RTOL = {"fp32": 1e-6, "int8": 1e-6, "int4": 1e-6, "w8a8": 2e-5}
+PPL_CPU_IDS = 2048
+
+
+def ppl_phase(pkg, torch, raw: str, tmp: str, card: str) -> dict:
+    """Phase ppl: GPT-2 124M at full width (the raw checkpoint of phase npz,
+    its 50257-id vocab), a synthetic corpus of 8192 ids from a seed, TF32
+    off.
+    ``tools.ppl_gate`` on the card against the raw directory and a .npy
+    corpus, modes int8, w8a8 and int4, at window 256 and batch 1 (each
+    INT8/INT4 window through qmm: 73 launches per window; w8a8's 256 rows
+    take ``w8a8_matmul``) and at window 1024 and batch 8 (8192 rows:
+    dequantize-then-matmul, no GEMV launch). Each mode's perplexity at
+    window 256 over the first PPL_CPU_IDS ids on the card is held to the
+    same computation on the CPU within its mode's PPL_RTOL, and each
+    quantized mode's limit must lie below its distance from fp32 on the
+    card, so that a path in the wrong precision would fail it. (With wte
+    times 3 the perplexity moves away from V, but w8a8's card-vs-CPU gap
+    grows to 4.3e-4 against a distance of 9.8e-4 from fp32: no limit
+    separates the two; PERF.md.) The gate's budgets are
+    printed, not gated: on random weights a budget of 0.1 or 0.5 says
+    nothing about quantization. Returns the launch counts of the window-256
+    run."""
+    import io
+
+    import numpy as np
+
+    from zig_gpt2_tpu_torch.eval.perplexity import perplexity
+    from zig_gpt2_tpu_torch.tools import ppl_gate
+    from zig_gpt2_tpu_torch.utils import io as zio
+
+    config_mod, gpt2, _, att, sk, qk, weights, quantize = pkg
+    config = config_mod.get_config("124M")
+    ids = np.random.default_rng(10).integers(0, config.vocab_size, 8192).astype(np.int32)
+    corpus = os.path.join(tmp, "corpus.npy")
+    np.save(corpus, ids)
+    result = None
+    for window, batch in ((256, 1), (1024, 8)):
+        reset_counts(att, sk, qk)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = ppl_gate.main(["--model", "124M", "--weights", raw, "--corpus", corpus,
+                                "--modes", ",".join(PPL_MODES), "--window", str(window),
+                                "--batch", str(batch), "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        counts = read_counts(att, sk, qk, torch)
+        out = buf.getvalue().strip().splitlines()
+        for line in out[:-1]:
+            log(f"ppl window={window} batch={batch} | {line}")
+        verdict = json.loads(out[-1])
+        log(f"ppl window={window} batch={batch}: {json.dumps(verdict)} (exit code {rc}, budgets "
+            f"not gated; {secs:.1f} s, 124M, 8192 ids, {card})")
+        if [r["mode"] for r in verdict["rows"]] != ["fp32", *PPL_MODES]:
+            raise AssertionError(f"ppl: rows {verdict['rows']}")
+        if not all(np.isfinite(r["ppl"]) and r["ppl"] > 1 for r in verdict["rows"]):
+            raise AssertionError("ppl: a perplexity is not finite")
+        windows = -(-ids.size // window)
+        want = {"qmm": 2 * (6 * config.n_layers + 1) * windows} if window * batch <= 256 else {}
+        expect_counts(f"ppl window={window} batch={batch}", counts, want)
+        if window == 256:
+            result = counts
+    # The card against the CPU, each mode, window 256 and batch 1 (the GEMV
+    # path) over the corpus's first PPL_CPU_IDS ids (the H100 machine's host
+    # CPU takes ~7 s per mode for 2048 ids at 124M, so ~1 minute for the
+    # whole corpus); the CPU's weight-only modes as their f32 dequantized
+    # weights (the plain version's products, dequantized once, not per window).
+    card_w = zio.load_gpt2_raw(raw, config, device="cuda")
+    cpu = zio.load_gpt2_raw(raw, config, device="cpu")
+    part = ids[:PPL_CPU_IDS]
+    t0 = time.perf_counter()
+    card_ppl = {}
+    for mode in ("fp32", *PPL_MODES):
+        trees, cfg = [card_w, cpu], config
+        if mode != "fp32":
+            trees = [quantize.quantize_params(t, "int8" if mode == "w8a8" else mode)
+                     for t in trees]
+            cfg = dataclasses.replace(config, act_quant=mode == "w8a8")
+        if mode in ("int8", "int4"):
+            trees[1] = dequantized(quantize, trees[1])
+        got, want = (perplexity(t, cfg, part, window=256, batch_size=1) for t in trees)
+        card_ppl[mode] = got
+        rel = abs(got - want) / want
+        tol = PPL_RTOL[mode]
+        dist = abs(got - card_ppl["fp32"]) / card_ppl["fp32"]
+        log(f"ppl {mode} window=256 over the first {part.size} ids: card {got:.6f}, CPU "
+            f"{want:.6f}, relative gap {rel:.3e} (tolerance {tol:.0e})"
+            + ("" if mode == "fp32" else f"; distance from fp32 on the card {dist:.3e}"))
+        if not rel <= tol:
+            raise AssertionError(f"ppl {mode}: the card's perplexity is not the CPU's")
+        if mode != "fp32" and not tol < dist:
+            raise AssertionError(f"ppl {mode}: the tolerance {tol:.3e} does not tell the mode "
+                                 f"from fp32 ({dist:.3e})")
+    log(f"ppl card vs CPU: {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+TRAIN_LR = 3e-5
+
+
+def train_phase(pkg, torch, encoder, card: str) -> None:
+    """Phase train: GPT-2 124M fp32 at full width and depth, random weights
+    from a seed, TF32 off. Five AdamW steps on one fixed batch (B=8,
+    T=1024: the demo text encoded by the in-process BPE, repeated, each row
+    from another offset) with and without ``remat``: the loss falls at
+    every step, the two runs' losses agree within 1e-5 relative, and the
+    peak memory with recompute is below the peak without it. Then one step
+    at B=2, T=128 on the card against the CPU: the loss within 1e-5
+    relative, each leaf's gradient within 1e-3 of the CPU's in L2 norm, or
+    within 3 x the CPU's own f32-vs-f64 gap. The gated runs take TRAIN_LR;
+    five steps at optax's default 3e-4 (no warmup) are run first and
+    reported: there the loss falls, then overshoots, and the JAX package's
+    train_step overshoots alike (tests/adamw_overshoot_witness.py: JAX and
+    the port on the CPU at 124M width and 6 layers, the same curve)."""
+    from zig_gpt2_tpu_torch import train
+
+    config_mod, gpt2, _, att, sk, qk, weights, _ = pkg
+    config = config_mod.get_config("124M")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    base = gpt2.init_params(config, g, torch.float32)
+    text = encoder.encode(DEMO_TEXT)
+    stream = text * (-(-(8 * 37 + 1025) // len(text)))
+    tokens = torch.tensor([stream[37 * r:37 * r + 1025] for r in range(8)], device="cuda")
+    params = weights.tree_map(lambda t: t.clone(), base)
+    opt = train.make_optimizer(params)
+    step = train.make_train_step(config)
+    losses = [step(params, opt, tokens)[2].item() for _ in range(5)]
+    log(f"train at optax's default lr 3e-4, no warmup (reported, not gated): losses {losses}")
+    del params, opt
+    runs = {}
+    for remat in (False, True):
+        params = weights.tree_map(lambda t: t.clone(), base)
+        opt = train.make_optimizer(params, learning_rate=TRAIN_LR)
+        step = train.make_train_step(config, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(5):
+            params, opt, loss = step(params, opt, tokens)
+            losses.append(loss.item())
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        runs[remat] = (losses, peak)
+        log(f"train remat={remat}: losses {losses}, peak memory {peak / 2**30:.3f} GiB, "
+            f"{5 * 8 * 1024 / secs:.1f} tokens/s over 5 steps ({secs:.2f} s; 124M fp32, B=8, "
+            f"T=1024, AdamW lr {TRAIN_LR}, {card})")
+        if not all(a > b for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"train remat={remat}: the loss does not fall at every step")
+        del params, opt
+    for a, b in zip(runs[False][0], runs[True][0]):
+        if abs(a - b) > 1e-5 * abs(a):
+            raise AssertionError(f"train: remat losses {runs[True][0]} differ from "
+                                 f"{runs[False][0]}")
+    if not runs[True][1] < runs[False][1]:
+        raise AssertionError("train: the peak memory with remat is not below the peak without")
+    torch.cuda.empty_cache()
+    small = tokens[:2, :129]
+    out = []
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        params = weights.tree_map(lambda t: t.detach().clone().to(device, dtype), base)
+        train.make_optimizer(params)
+        loss = train.loss_fn(params, small.to(device), config)
+        loss.backward()
+        out.append((loss.item(), {k: t.grad.cpu().double()
+                                  for k, t in leaf_paths(params).items()}))
+    (loss_card, g_card), (loss_cpu, g_cpu), (_, g64) = out
+    rel = abs(loss_card - loss_cpu) / loss_cpu
+    # Per leaf, in L2: the card's gap to the CPU within 1e-3 of the CPU
+    # gradient's norm, or within 3 x the CPU's own f32-vs-f64 gap (leaves
+    # whose true gradient is zero, as the K bias's under softmax, hold only
+    # roundoff).
+    ratios = {}
+    for k, g in g_cpu.items():
+        tol = max(1e-3 * g.norm().item(), 3 * (g64[k] - g).norm().item())
+        ratios[k] = (g_card[k] - g).norm().item() / tol
+    worst = max(ratios, key=ratios.get)
+    log(f"train one step B=2 T=128, card vs CPU: loss {loss_card:.6f} vs {loss_cpu:.6f} "
+        f"(relative {rel:.3e}, tolerance 1e-5); gradients per leaf (L2): the largest gap over "
+        f"its tolerance max(1e-3 x the gradient, 3 x the CPU f32-vs-f64 gap) is "
+        f"{ratios[worst]:.3e}, at {worst}")
+    if rel > 1e-5 or ratios[worst] > 1:
+        raise AssertionError("train: the card's step is not the CPU's")
+
+
+PORT_KERNELS = ("decode_attention_kernel", "qmm_simt_kernel", "qmm_mma_kernel",
+                "qmm_w8a8_kernel", "wmm_simt_kernel", "wmm_mma_kernel",
+                "sample_categorical_kernel")
+
+
+def profile_debug_phase(pkg, torch, config, params, tmp: str, card: str) -> dict:
+    """Phase profile-debug: ``cli.main(--demo --model 124M --profile DIR)``
+    on the card writes a torch.profiler trace that names the port's own
+    kernels; ``nan_checks`` stays silent over the 124M forward on clean
+    weights and raises, naming the op, on a NaN planted in wte;
+    ``checked_decode_step`` raises on a cache at max_seq. Returns the CLI
+    run's launch counts."""
+    from zig_gpt2_tpu_torch import cli
+    from zig_gpt2_tpu_torch.utils import debug
+
+    config_mod, gpt2, _, att, sk, qk, weights, _ = pkg
+    trace_dir = os.path.join(tmp, "profile")
+    reset_counts(att, sk, qk)
+    cli.main(["--demo", "--model", "124M", "--dtype", "fp32", "--device", "cuda", "--temp",
+              "0.8", "--max-tokens", "8", "--profile", trace_dir, "the quick brown fox"])
+    counts = read_counts(att, sk, qk, torch)
+    path = os.path.join(trace_dir, "trace.json")
+    events = json.load(open(path))["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ours = sorted({k for k in PORT_KERNELS if any(k in name for name in kernels)})
+    log(f"profile-debug: cli --profile wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB, "
+        f"{len(kernels)} kernel events); the port's kernels named in it: {ours}; launches "
+        f"{counts}")
+    if not ours:
+        raise AssertionError("profile-debug: the trace names none of the port's kernels")
+    toks = torch.tensor([[5, 17, 3, 99, 42, 7]], device="cuda")
+    with torch.no_grad(), debug.nan_checks():
+        gpt2.forward(params, toks, config)
+    bad = dict(params, wte=params["wte"].clone())
+    bad["wte"][17, 3] = float("nan")
+    try:
+        with torch.no_grad(), debug.nan_checks():
+            gpt2.forward(bad, toks, config)
+    except FloatingPointError as e:
+        log(f"profile-debug: nan_checks on a NaN planted in wte: {e}")
+        if "aten." not in str(e):
+            raise AssertionError("profile-debug: nan_checks did not name the op") from e
+    else:
+        raise AssertionError("profile-debug: nan_checks missed a planted NaN")
+    del bad
+    step = debug.checked_decode_step(config)
+    cache = gpt2.init_kv_cache(config, 1, 64, device="cuda")
+    cache, _ = step(params, cache, torch.tensor([5], device="cuda"))  # length 0: fine
+    cache["length"].fill_(64)
+    try:
+        step(params, cache, torch.tensor([5], device="cuda"))
+    except ValueError as e:
+        log(f"profile-debug: checked_decode_step on a cache at max_seq: {e}")
+    else:
+        raise AssertionError("profile-debug: checked_decode_step missed a full cache")
+    return counts
+
+
+def time_fused_qkv(qk, quantize, gpt2, config_1p5b, params_1p5b, params_w8, params_124m, torch,
+                   shapes: dict, card: str):
+    """The fused QKV projections' rows of the kernels line: qmm INT4 and
+    the w8a8 body at 1600 x 4992 (the packed 1.5B trees, phantom head
+    padded in), rows 1 and 16, bf16 activations, and wmm at 768 x 2304 (the
+    124M tree), one row, f32 and bf16; each call on another layer's weight
+    (from device memory), against its bound (bytes), its plain version and
+    torch.matmul on the weight dequantized ahead of time (bf16; for wmm the
+    weight itself). ``launches``: the fused-qkv phase's launches of that
+    kernel at that shape, as its wrapper tallied them (``shapes``)."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    padded, _ = gpt2.pad_phantom_head(params_1p5b, config_1p5b)
+    int4 = gpt2.fuse_qkv_params(padded)["blocks"]["attn"]["wqkv"]
+    w8 = gpt2.fuse_qkv_params(params_w8)["blocks"]["attn"]["wqkv"]
+    del padded
+    entries = []
+    for name, p, key, w8a8, peak in (("qmm", int4, "qw4", False, PEAK_BF16_OPS_PER_S),
+                                     ("qmm_w8a8", w8, "qw", True, PEAK_INT8_OPS_PER_S)):
+        qws, scales = p[key], p["scale"]
+        L, k = qws.shape[0], qws.shape[1] * (2 if key == "qw4" else 1)
+        n = qws.shape[-1]
+        dq = [quantize.dequantize_linear({key: qws[i], "scale": scales[i]},
+                                         torch.bfloat16)["w"] for i in range(L)]
+        kw = dict(int4=key == "qw4", w8a8=w8a8)
+        for rows in (1, 16):
+            x = torch.randn(rows, k, device="cuda", generator=g).to(torch.bfloat16)
+            err = max_err(qk.qmm(x, qws[0], scales[0], **kw), qk.qmm_plain(x, qws[0], scales[0],
+                                                                           **kw))
+            ms = time_ms(lambda i: qk.qmm(x, qws[i % L], scales[i % L], **kw), 4 * L)
+            plain_ms = time_ms(lambda i: qk.qmm_plain(x, qws[i % L], scales[i % L], **kw), L)
+            lib_ms = time_ms(lambda i: torch.matmul(x, dq[i % L]), 4 * L)
+            nbytes, nops = qmm_work(qws[0], scales[0], key == "qw4", rows, 2)
+            bms, by = bound_ms(nbytes, nops, PEAK_OPS_PER_S if rows == 1 and not w8a8 else peak)
+            label = f"{name} fused QKV {'INT4' if key == 'qw4' else 'w8a8'} {k}x{n} rows={rows}"
+            log(f"time {label} bf16: kernel {ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), "
+                f"plain {plain_ms * 1e3:.2f} us, torch.matmul on a pre-dequantized bf16 weight "
+                f"{lib_ms * 1e3:.2f} us, max_abs_err={err:.3e} ({card})")
+            entries.append({"name": label, "route": "cuda",
+                            "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
+                            "replaces": ("zig_gpt2_tpu/quant/kernels.py:77" if w8a8 else
+                                         "zig_gpt2_tpu/quant/kernels.py:256"),
+                            "launches": shapes[("w8a8" if w8a8 else "int4", k, n, rows)],
+                            "max_abs_err": err,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                            "library_ms": lib_ms})
+        del dq
+    fused = gpt2.fuse_qkv_params(params_124m)["blocks"]["attn"]["wqkv"]["w"]
+    for dtype in (torch.float32, torch.bfloat16):
+        ws = [w.to(dtype) for w in fused]
+        L, (k, n) = len(ws), ws[0].shape
+        size = 4 if dtype == torch.float32 else 2
+        x = torch.randn(1, k, device="cuda", generator=g).to(dtype)
+        err = max_err(qk.wmm(x, ws[0]), qk.wmm_plain(x, ws[0]))
+        t = {key: time_ms(lambda i: fn(x, ws[i % L]), 8 * L) for key, fn in
+             (("ms", qk.wmm), ("plain_ms", qk.wmm_plain), ("library_ms", torch.matmul))}
+        bms, by = bound_ms(k * n * size + k * size + n * 4, 2 * k * n,
+                           PEAK_OPS_PER_S if dtype == torch.float32 else PEAK_BF16_OPS_PER_S)
+        label = f"wmm fused QKV {k}x{n} rows=1 {str(dtype).replace('torch.', '')}"
+        log(f"time {label}: kernel {t['ms'] * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain "
+            f"{t['plain_ms'] * 1e3:.2f} us, torch.matmul {t['library_ms'] * 1e3:.2f} us, "
+            f"max_abs_err={err:.3e} ({card})")
+        entries.append({"name": label, "route": "cuda",
+                        "source": "zig_gpt2_tpu_torch/ops/csrc/wmm.cu",
+                        "replaces": "zig_gpt2_tpu/quant/kernels.py:162",
+                        "launches": shapes[(str(dtype).removeprefix("torch."), k, n, 1)],
+                        "max_abs_err": err, **t, "bound_ms": bms, "bound_by": by})
+    return entries
 
 
 def time_sampler(sk, torch, counts, card: str):
@@ -2095,7 +2749,8 @@ def attention_work(args, n: int, S: int, L: int, quant: bool):
 
 # Attention kernels timed at the main paths' shapes: (JSON name, or None to
 # log only; TPU kernel line; INT8 cache; q dtype; B; ring; deferred; packed;
-# model shapes: float caches at 124M unless "1.5B", INT8 caches at 1.5B).
+# model shapes: float caches at 124M unless "1.5B", INT8 caches at 1.5B;
+# a float cache's dtype when it is not q's).
 ATTENTION_TIMES = (
     ("decode_attention_deferred", ":913", False, "float32", 1, False, True, False),
     (None, ":913", False, "bfloat16", 1, False, True, False),
@@ -2114,10 +2769,13 @@ ATTENTION_TIMES = (
     ("decode_attention_quant_packed", ":898", True, "bfloat16", 1, False, False, True),
     # the w8a8 engine's bf16 cache: float, packed, 1.5B shapes (Hp=13)
     ("decode_attention_deferred_packed_bf16_1p5b", ":913", False, "bfloat16", 1, False, True,
-     True, "1.5B"))
+     True, "1.5B"),
+    # the cache-dtype engine: f32 q over a bf16 cache, packed, 124M shapes
+    ("decode_attention_deferred_packed_bf16_cache", ":913", False, "float32", 1, False, True,
+     True, "124M", "bfloat16"))
 
 
-def time_attention_kernels(att, ops, torch, counts, card: str):
+def time_attention_kernels(att, ops, torch, counts, card: str, launches: dict):
     """Every attention kernel of ``ATTENTION_TIMES``, rotating over the
     layers so that the caches come from HBM: float at 124M shapes (12
     heads, Hp=6) and the w8a8 engine's packed bf16 cache at 1.5B shapes,
@@ -2128,13 +2786,17 @@ def time_attention_kernels(att, ops, torch, counts, card: str):
     unpacked view of the same rows (copied ahead of time; for INT8
     dequantized ahead of time to q's dtype, 2 or 4 times the bytes), with a
     boolean mask over all R rows for the ring (the interval plus the next
-    row, standing for the current one)."""
+    row, standing for the current one); a float cache in another dtype than
+    q's is converted to q's ahead of time. ``launches``: an entry's count
+    by name, where the variant's counter in ``counts`` also holds other
+    dtypes' launches."""
     import torch.nn.functional as F
 
     entries = []
     for name, replaces, quant, dtype, B, ring, deferred, packed, *model in ATTENTION_TIMES:
-        L, H = (48, 25) if quant or model == ["1.5B"] else (12, 12)
+        L, H = (48, 25) if quant or model[:1] == ["1.5B"] else (12, 12)
         dtype = getattr(torch, dtype)
+        cache_dtype = getattr(torch, model[1]) if len(model) > 1 else dtype
         rows, W = ((H + 1) // 2, 128) if packed else (H, 64)
         S = RING_ROWS if ring else 1024
         n = 1023 if deferred else 1024  # old rows, or every row of the appended form
@@ -2146,9 +2808,9 @@ def time_attention_kernels(att, ops, torch, counts, card: str):
         else:
             args = [torch.randn(B, rows, W, device="cuda", generator=g).to(dtype)
                     for _ in range(3)]
-            args += [torch.randn(L, B, rows, S, W, device="cuda", generator=g).to(dtype)
+            args += [torch.randn(L, B, rows, S, W, device="cuda", generator=g).to(cache_dtype)
                      for _ in range(2)]
-            kd, vd = args[3], args[4]
+            kd, vd = args[3].to(dtype), args[4].to(dtype)
         q4 = args[0]
         if packed:
             kd, vd, q4 = att.unpack_heads_seq(kd), att.unpack_heads_seq(vd), \
@@ -2177,11 +2839,14 @@ def time_attention_kernels(att, ops, torch, counts, card: str):
                 + ("_deferred" if deferred else ""))
         nbytes, nops = attention_work([*args, length] + ([kw["start"]] if ring else []), n, S,
                                       L, quant)
-        what = (f"{'INT8, ' if quant else ''}{dtype}, B={B}, "
+        what = (f"{'INT8, ' if quant else ''}{dtype}"
+                f"{f' over a {cache_dtype} cache' if cache_dtype != dtype else ''}, B={B}, "
                 f"{'Hp=' + str(rows) if packed else 'H=' + str(H)}, {'R' if ring else 'S'}={S}, "
                 f"{n} {'old ' if deferred else ''}rows{', ring' if ring else ''}; library: SDPA "
-                f"over the unpacked rows{', dequantized ahead of time' if quant else ''}")
-        entry = time_attention(name or base, replaces, counts[key], getattr(att, base),
+                f"over the unpacked rows{', dequantized ahead of time' if quant else ''}"
+                f"{f', converted to {dtype} ahead of time' if cache_dtype != dtype else ''}")
+        entry = time_attention(name or base, replaces, launches.get(name, counts[key]),
+                               getattr(att, base),
                                getattr(att, base + "_plain"), [*args, length], L, lib, nbytes,
                                nops, what, card, **kw)
         if name:
@@ -2573,17 +3238,45 @@ def main() -> int:
         counts_sb1p5b = serve_batcher_spec_1p5b(pkg, batcher_mod, torch, config_1p5b,
                                                 params_1p5b, engine, spec_floor, card)
         del engine
+        fused_shapes = collections.Counter()
+        with tempfile.TemporaryDirectory(prefix="zg2_smoke_") as tmp:
+            phase("npz: the 124M raw checkpoint repacked to INT4 .npz, loaded to the card and "
+                  "served; the 1.5B INT4 tree round-tripped")
+            counts_npz, raw = npz_phase(pkg, torch, encoder, config_124m, params_124m,
+                                        params_1p5b, tmp, card)
+            phase("fused-qkv: ZG2_FUSE_QKV=1 on the 1.5B INT4 + INT8 KV engine and B=16 "
+                  "batcher, and the 124M wmm engine")
+            counts_f, _ = fused_qkv_phase(pkg, batcher_mod, sampling, torch, encoder,
+                                          config_1p5b, params_1p5b, config_124m, params_124m,
+                                          floor, card, fused_shapes)
+            phase("cache-dtype: InferenceEngine(cache_dtype=torch.bfloat16) on the 124M fp32 "
+                  "weights, against the CPU")
+            counts_cd, mixed = cache_dtype_phase(pkg, torch, encoder, config_124m, params_124m,
+                                                 card)
+            phase("ppl: tools.ppl_gate on the card at 124M, 8192 synthetic ids, windows 256 "
+                  "and 1024, against the CPU")
+            counts_ppl = ppl_phase(pkg, torch, raw, tmp, card)
+            phase("train: 5 AdamW steps at 124M fp32, B=8 T=1024, with and without remat; "
+                  "one step against the CPU")
+            train_phase(pkg, torch, encoder, card)
+            phase("profile-debug: cli --profile, nan_checks, checked_decode_step")
+            counts_prof = profile_debug_phase(pkg, torch, config_124m, params_124m, tmp, card)
         phase("times")
         paths = (counts_124m, counts_b124, counts_1p5b, counts_b1p5b, counts_p124,
                  counts_pb124, counts_p1p5b, counts_pb1p5b, counts_w1p5b, counts_wb1p5b,
                  counts_m124, counts_mb124, counts_mbf16, counts_x, counts_x1p5b,
-                 counts_xb1p5b, counts_s1p5b, counts_sb1p5b)
+                 counts_xb1p5b, counts_s1p5b, counts_sb1p5b, counts_npz, counts_f,
+                 counts_cd, counts_ppl, counts_prof)
         counts = {k: sum(c[k] for c in paths) for k in counts_124m}
         log(f"launches on the main paths (the serve and serve-batcher phases, unpacked and "
-            f"packed, INT4, w8a8 and wmm, and the extend path's phases): {counts}")
-        entries = time_attention_kernels(att, ops, torch, counts, card)
+            f"packed, INT4, w8a8 and wmm, the extend path's phases, and the npz, fused-qkv, "
+            f"cache-dtype, ppl and profile-debug phases): {counts}")
+        entries = time_attention_kernels(att, ops, torch, counts, card,
+                                         {"decode_attention_deferred_packed_bf16_cache": mixed})
         entries += time_sampler(sk, torch, counts, card)
         entries += time_qmm(qk, quantize, params_1p5b, torch, counts, card)
+        entries += time_fused_qkv(qk, quantize, gpt2, config_1p5b, params_1p5b, params_w8,
+                                  params_124m, torch, fused_shapes, card)
         del params_1p5b
         entries += time_w8a8(qk, quantize, params_w8, torch, counts, card)
         entries += time_wmm(qk, params_124m, torch, counts, card)

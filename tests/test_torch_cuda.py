@@ -38,6 +38,7 @@ from zig_gpt2_tpu_torch.quant import kernels as qk
 from zig_gpt2_tpu_torch.quant import quantize as quant
 from zig_gpt2_tpu_torch.runtime.batcher import ContinuousBatcher
 from zig_gpt2_tpu_torch.runtime.engine import InferenceEngine
+from zig_gpt2_tpu_torch.weights import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -1027,3 +1028,170 @@ def test_speculative_cuda_greedy_matches_engine(dev, draft):
             out.append([by_rid[r] for r in rids])
             assert sk.sample_categorical.launches == before  # greedy: argmax, no sampler
         assert out[0] == out[1]
+
+
+# --- fused QKV shapes, perplexity and training on the card (slice 10) ---------
+
+@pytest.mark.parametrize("rows", [1, 2, 16, 64])
+@pytest.mark.parametrize("n", [4800, 4992])
+@pytest.mark.parametrize("mode", ["int4", "int8", "w8a8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qmm_at_the_fused_qkv_widths(dev, rows, n, mode, dtype):
+    """The fused 1.5B QKV projection: K 1600, N 3 x 1600 (unpacked; not a
+    multiple of the 128-column tile) or 3 x 1664 (phantom head padded in),
+    INT4 (G 32) and INT8 per channel weight-only within 2e-5, the w8a8 body
+    bit for bit; one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    p = quant.quantize_linear({"w": torch.randn(1600, n, device=dev, generator=g) * 0.05},
+                              "int4" if mode == "int4" else "int8")
+    qw = p["qw4"] if mode == "int4" else p["qw"]
+    x = torch.randn(rows, 1600, device=dev, generator=g).to(dtype)
+    kw = dict(int4=mode == "int4", w8a8=mode == "w8a8")
+    before = qk.qmm.launches + qk.qmm.w8a8_launches
+    got = qk.qmm(x, qw, p["scale"], **kw)
+    assert qk.qmm.launches + qk.qmm.w8a8_launches == before + 1
+    want = qk.qmm_plain(x, qw, p["scale"], **kw)
+    assert got.shape == (rows, n)
+    if mode == "w8a8":
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 8, 16])
+@pytest.mark.parametrize("xdtype,wdtype", WMM_DTYPES)
+def test_wmm_at_the_fused_qkv_width(dev, rows, xdtype, wdtype):
+    """The fused 124M QKV projection, 768 x 2304: within 1e-4 of the plain
+    version, one launch, two calls bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    w = (torch.randn(768, 2304, device=dev, generator=g) * 0.05).to(wdtype)
+    x = torch.randn(rows, 768, device=dev, generator=g).to(xdtype)
+    before = qk.wmm.launches
+    got = qk.wmm(x, w)
+    assert qk.wmm.launches == before + 1
+    torch.testing.assert_close(got, qk.wmm_plain(x, w), atol=1e-4, rtol=1e-4)
+    assert torch.equal(qk.wmm(x, w), got)
+
+
+def test_fused_qkv_engine_cuda_greedy_matches_cpu(dev, monkeypatch):
+    """ZG2_FUSE_QKV=1 on the card (INT4 weights, INT8 cache, odd heads
+    packed): the CPU's fused greedy tokens; 4 qmm launches per layer and
+    one for the lm_head per decode step and per prefill."""
+    monkeypatch.setenv("ZG2_FUSE_QKV", "1")
+    monkeypatch.setenv("ZG2_KV_PACKED", "1")
+    params = gpt2.init_params(PACKED_CFG, torch.Generator().manual_seed(3))
+    params = quant.quantize_params({**params, "wte": params["wte"] * 3}, "int4")
+    greedy = SamplingConfig(temperature=0.0)
+    out = {}
+    for device in ("cpu", "cuda"):
+        eng = InferenceEngine(PACKED_CFG, params, max_seq=48, prompt_buckets=(16,),
+                              kv_quant="int8", device=device)
+        assert "wqkv" in eng.params["blocks"]["attn"]
+        before = qk.qmm.launches
+        out[device] = eng.generate([5, 17, 3, 99], 12, greedy)
+        if device == "cuda":
+            assert qk.qmm.launches - before == (4 * PACKED_CFG.n_layers + 1) * (12 + 1)
+    assert out["cuda"] == out["cpu"]
+
+
+def test_perplexity_window_and_train_step_cuda_match_cpu(dev):
+    """One perplexity batch (2 windows of 64, INT4: 128 rows through qmm)
+    and one AdamW step at B=2, T=65 on the card against the CPU, f32
+    without TF32: perplexity within 1e-5 relative (fp32) and 1e-4 (INT4),
+    the loss within 1e-5, the updated weights within 1e-6 + 1e-4 relative
+    where |g| > 1e-6 (sign flips of near-zero gradients move a weight by
+    2 lr)."""
+    from zig_gpt2_tpu_torch import train
+    from zig_gpt2_tpu_torch.eval.perplexity import perplexity
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = tconfig.GPT2_NANO
+        base = gpt2.init_params(cfg, torch.Generator().manual_seed(5))
+        ids = np.random.default_rng(5).integers(0, cfg.vocab_size, 128)
+        for tree, rtol in ((base, 1e-5), (quant.quantize_params(base, "int4"), 1e-4)):
+            ppl = [perplexity(_to(tree, d), cfg, ids, window=64, batch_size=2)
+                   for d in ("cpu", "cuda")]
+            assert abs(ppl[1] - ppl[0]) <= rtol * ppl[0], ppl
+        toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 65)))
+        out = {}
+        for d in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.detach().clone().to(d), base)  # fresh leaves each
+            opt = train.make_optimizer(p)
+            p, opt, loss = train.train_step(p, opt, toks.to(d), cfg)
+            grads = [t.grad.cpu() for t in train._leaves(p)]
+            out[d] = (loss.item(), [t.detach().cpu() for t in train._leaves(p)], grads)
+        assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+        for got, want, g in zip(out["cuda"][1], out["cpu"][1], out["cpu"][2]):
+            sure = g.abs() > 1e-6
+            torch.testing.assert_close(got[sure], want[sure], atol=1e-6, rtol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# --- a float cache in another dtype than q's ---------------------------------------
+
+MIXED = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("deferred", [True, False], ids=["deferred", "appended"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+@pytest.mark.parametrize("ring", [False, True], ids=["prefix", "ring"])
+@pytest.mark.parametrize("qd,cd", MIXED, ids=["f32q-bf16cache", "bf16q-f32cache"])
+def test_attention_kernel_mixed_cache_dtype_matches_plain(dev, qd, cd, ring, packed,
+                                                          deferred):
+    """q (and the deferred form's current rows) in one dtype, the caches in
+    the other: each read in its own type, the sums in f32, as the plain
+    version (and the TPU kernel) do; the output in q's dtype. Tolerance by
+    q's dtype, as in the one-dtype tests."""
+    g = torch.Generator(device=dev).manual_seed(17 + 2 * ring + packed)
+    L, B, H, S, W = 2, 4, 3, 201, 128 if packed else 64
+    q, kn, vn = (torch.randn(B, H, W, device=dev, generator=g).to(qd) for _ in range(3))
+    kc, vc = (torch.randn(L, B, H, S, W, device=dev, generator=g).to(cd) for _ in range(2))
+    lanes = _ring_grid(S, dev) if ring else [
+        (None, torch.tensor([0, 1, 65, 201], dtype=torch.int32, device=dev))]
+    fn = att.decode_attention_deferred if deferred else att.decode_attention
+    plain = att.decode_attention_deferred_plain if deferred else att.decode_attention_plain
+    args = (q, kn, vn, kc, vc) if deferred else (q, kc, vc)
+    atol, rtol = (2e-5, 2e-5) if qd == torch.float32 else (1e-4, 8e-3)
+    for start, length in lanes:
+        if not deferred:
+            length = length.clamp(min=1)  # the appended form needs a row on every lane
+        before = fn.launches + fn.ring_launches + fn.packed_launches + fn.packed_ring_launches
+        got = fn(*args, length, layer=1, start=start, packed=packed)
+        want = plain(*args, length, layer=1, start=start, packed=packed)
+        assert (fn.launches + fn.ring_launches + fn.packed_launches
+                + fn.packed_ring_launches) == before + 1
+        assert got.dtype == qd
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("packed", ["0", "1"], ids=["unpacked", "packed"])
+def test_engine_and_batcher_bf16_cache_under_f32_weights_match_cpu(dev, monkeypatch,
+                                                                   packed):
+    """cache_dtype=torch.bfloat16 on f32 weights, the JAX engine's option:
+    a bf16 cache on the card, the float kernel launched once per layer and
+    step, and the CPU's greedy tokens (the same bf16 rows, f32 sums)."""
+    monkeypatch.setenv("ZG2_KV_PACKED", packed)
+    cfg = PACKED_CFG  # heads of 64 (a phantom head when packed)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(8))
+    params = {**params, "wte": params["wte"] * 3}
+    greedy = SamplingConfig(temperature=0.0)
+    out = {}
+    for device in ("cpu", "cuda"):
+        eng = InferenceEngine(cfg, params, max_seq=48, prompt_buckets=(8,), device=device,
+                              cache_dtype=torch.bfloat16)
+        b = ContinuousBatcher(cfg, params, batch_size=2, max_seq=32, prompt_buckets=(8,),
+                              sampling=greedy, device=device, cache_dtype=torch.bfloat16)
+        assert eng.new_cache()["k"].dtype == b.cache["k"].dtype == torch.bfloat16
+        assert eng.config.kv_packed == b.config.kv_packed == (packed == "1")
+        before = sum(_counts(att.decode_attention_deferred))
+        toks = eng.generate([1, 2, 3, 4], 16, greedy)
+        rids = [b.submit(p, 10) for p in ([1, 2, 3], [9, 8, 7, 6, 5], [4])]
+        by_rid = {r.rid: r.generated for r in b.run()}
+        out[device] = (toks, [by_rid[r] for r in rids])
+        if device == "cuda":
+            assert (sum(_counts(att.decode_attention_deferred)) - before
+                    == cfg.n_layers * (16 + b.metrics.steps))
+    assert out["cuda"] == out["cpu"]

@@ -189,17 +189,32 @@ def test_cli_demo_cpu(capsys):
                                   ["--weights", "raw", "--draft-model", "nano",
                                    "--draft-weights", "d.npz"]],
                          ids=["mesh", "npz-weights", "npz-draft-weights"])
-def test_cli_refuses_later_slices(flag, tmp_path, nano_params):
-    """Tensor-parallel serving and .npz checkpoints (the target's or the
-    draft's) are refused with the slice that brings them; the others run
-    on a nano model saved as a raw checkpoint with its encoder.json."""
-    vocab, _ = train_bpe(CORPUS, vocab_size=300)
+def test_cli_refuses_later_slices(flag, tmp_path, nano_params, capsys):
+    """Tensor-parallel serving is refused with the slice that brings it.
+    .npz checkpoints (the target's or the draft's), refused until the port
+    could read them, are served now: greedy tokens from the .npz tree equal
+    those from the same weights as a raw checkpoint. A nano model saved
+    both ways, with an encoder.json that decodes every id it can emit."""
+    rng = np.random.default_rng(0)
+    words = ("".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), int(rng.integers(2, 8))))
+             for _ in range(400))
+    vocab, _ = train_bpe(" ".join(words), vocab_size=TCFG.vocab_size)
     (tmp_path / "encoder.json").write_text(json.dumps(vocab))
     tio.save_gpt2_raw(nano_params[1], tmp_path / "raw", TCFG)
+    for name in ("w.npz", "d.npz"):
+        tio.save_pytree_npz(nano_params[1], tmp_path / name)
     flag = [str(tmp_path / f) if f in ("raw", "w.npz", "d.npz") else f for f in flag]
-    with pytest.raises(SystemExit, match="not in the PyTorch port yet|later slice of the port"):
-        tcli.main(["--model", "nano", "--encoder-dir", str(tmp_path), "--device", "cpu",
-                   *flag, "hi"])
+    argv = ["--model", "nano", "--encoder-dir", str(tmp_path), "--device", "cpu", *flag]
+    if "--mesh" in flag:
+        with pytest.raises(SystemExit, match="not in the PyTorch port yet"):
+            tcli.main([*argv, "hi"])
+        return
+    served = []
+    as_raw = [str(tmp_path / "raw") if f.endswith(".npz") else f for f in argv]
+    for args in (argv, as_raw):
+        tcli.main([*args, "--dtype", "fp32", "--temp", "0", "--max-tokens", "5", "ab cd"])
+        served.append(capsys.readouterr().out)
+    assert served[0].startswith("ab cd") and served[0] == served[1]
 
 
 def test_cli_demo_quantized_cpu(capsys):

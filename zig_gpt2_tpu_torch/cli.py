@@ -25,6 +25,13 @@ Examples::
     python -m zig_gpt2_tpu_torch.cli --demo --draft-model ngram --batch-file prompts.txt
     python -m zig_gpt2_tpu_torch.cli --model 124M --weights models/124M/raw \\
         --encoder-dir models/124M "Hello, my name is"
+    python -m zig_gpt2_tpu_torch.cli --model 124M --weights models/124M/int4.npz \\
+        --encoder-dir models/124M --profile traces/124M "Hello, my name is"
+
+``--weights`` (and ``--draft-weights``) take a raw checkpoint directory or
+a ``.npz`` tree (``tools.repack`` of either package: quantized leaves are
+served as they are, with the padding its meta records). ``--profile DIR``
+writes a ``torch.profiler`` trace of the serving run to ``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -48,7 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("prompt", nargs="?", default=None, help="prompt text")
     p.add_argument("--model", default=None,
                    help="config name: 124M/355M/774M/1558M/nano/micro (default 124M)")
-    p.add_argument("--weights", default=None, help="raw checkpoint dir (e.g. models/124M/raw)")
+    p.add_argument("--weights", default=None,
+                   help="raw checkpoint dir (e.g. models/124M/raw) or a .npz tree "
+                        "(tools.repack)")
     p.add_argument("--encoder-dir", default=None, help="dir holding encoder.json + vocab.bpe")
     p.add_argument("--dtype", default="bf16", choices=["fp32", "bf16"], help="weight/activation dtype")
     p.add_argument("--temp", type=float, default=0.8, help="sampling temperature (0 = greedy)")
@@ -60,6 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-seq", type=int, default=None)
     p.add_argument("--stop", default=None, metavar="TOK",
                    help="stop token: an id, or 'eos' for <|endoftext|>")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace to DIR/trace.json")
     p.add_argument("--metrics", action="store_true", help="print timing metrics to stderr")
     p.add_argument("--demo", action="store_true",
                    help="random weights + a tokenizer trained on the fly (no files "
@@ -89,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "tokens per round and the --model target verifies them in one pass. "
                         "Single-prompt, except that ngram composes with --batch-file")
     p.add_argument("--draft-weights", default=None,
-                   help="the draft's raw checkpoint directory")
+                   help="the draft's raw checkpoint directory or .npz tree")
     p.add_argument("--draft-quant", default=None, choices=["int8", "int4"],
                    help="quantize the draft's weights")
     p.add_argument("--draft-kv-quant", action="store_true", help="INT8 KV cache for the draft")
@@ -153,6 +164,7 @@ def main(argv=None) -> None:
 
     from zig_gpt2_tpu_torch.config import SamplingConfig, get_config
     from zig_gpt2_tpu_torch.runtime.engine import GenerationMetrics, InferenceEngine
+    from zig_gpt2_tpu_torch.utils.profiling import profiler_trace
 
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -169,13 +181,18 @@ def main(argv=None) -> None:
         encoder = _load_encoder(args)
         if args.weights is None:
             sys.exit("error: --weights required (or use --demo)")
-        if str(args.weights).endswith(".npz"):
-            sys.exit("error: .npz checkpoints come with a later slice of the port; "
-                     "pass a raw checkpoint directory")
         from zig_gpt2_tpu_torch.utils import io as zio
 
-        params = zio.load_gpt2_raw(args.weights, config, dtype=dtype, device=args.device)
-    if args.quant:
+        if str(args.weights).endswith(".npz"):  # a repacked (quantized) tree, as stored
+            params, meta = zio.load_pytree_npz(args.weights, device=args.device,
+                                               with_meta=True)
+            if meta and (meta.get("padded_heads") or meta.get("padded_vocab_size")):
+                # padding baked into the stored layouts (the JAX repacker's --tp)
+                config = dataclasses.replace(config, padded_heads=meta.get("padded_heads"),
+                                             padded_vocab_size=meta.get("padded_vocab_size"))
+        else:
+            params = zio.load_gpt2_raw(args.weights, config, dtype=dtype, device=args.device)
+    if args.quant and "lm_head" not in params:
         from zig_gpt2_tpu_torch.quant.quantize import quantize_params
 
         params = quantize_params(params, mode="int8" if args.quant == "w8a8" else args.quant)
@@ -222,7 +239,9 @@ def main(argv=None) -> None:
             batcher.register_prefix(encoder.encode(args.prefix))
         rid_to_prompt = {batcher.submit(encoder.encode(p), args.max_tokens, stop_tokens): p
                          for p in prompts}
-        for req in batcher.run():
+        with profiler_trace(args.profile, args.device):
+            done = batcher.run()
+        for req in done:
             print(json.dumps({"prompt": rid_to_prompt[req.rid],
                               "completion": encoder.decode(req.generated)}))
         if args.metrics:
@@ -236,8 +255,9 @@ def main(argv=None) -> None:
                              kv_quant=kv_quant)
     metrics = GenerationMetrics()
     print(args.prompt, end="", flush=True)
-    engine.generate_text(args.prompt, args.max_tokens, sampling, stream_to=sys.stdout,
-                         metrics=metrics, stop_tokens=stop_tokens)
+    with profiler_trace(args.profile, args.device):
+        engine.generate_text(args.prompt, args.max_tokens, sampling, stream_to=sys.stdout,
+                             metrics=metrics, stop_tokens=stop_tokens)
     print()
     if args.metrics:
         print(json.dumps({
@@ -264,6 +284,7 @@ def _speculate(args, config, params, encoder, sampling, stop_tokens, kv_quant, d
     from zig_gpt2_tpu_torch.models import gpt2
     from zig_gpt2_tpu_torch.runtime.engine import GenerationMetrics
     from zig_gpt2_tpu_torch.runtime.speculative import SpeculativeEngine
+    from zig_gpt2_tpu_torch.utils.profiling import profiler_trace
 
     draft_config = draft_params = None
     if args.draft_model == "ngram":
@@ -279,13 +300,13 @@ def _speculate(args, config, params, encoder, sampling, stop_tokens, kv_quant, d
         draft_config = get_config(args.draft_model)
         if args.draft_weights is None:
             sys.exit("error: --draft-weights required with --draft-model (or use --demo)")
-        if str(args.draft_weights).endswith(".npz"):
-            sys.exit("error: .npz draft checkpoints come with the port's .npz reader, a later "
-                     "slice of the port; pass a raw checkpoint directory")
         from zig_gpt2_tpu_torch.utils import io as zio
 
-        draft_params = zio.load_gpt2_raw(args.draft_weights, draft_config, dtype=dtype,
-                                         device=args.device)
+        if str(args.draft_weights).endswith(".npz"):
+            draft_params = zio.load_pytree_npz(args.draft_weights, device=args.device)
+        else:
+            draft_params = zio.load_gpt2_raw(args.draft_weights, draft_config, dtype=dtype,
+                                             device=args.device)
     if args.draft_quant and draft_params is not None and "lm_head" not in draft_params:
         from zig_gpt2_tpu_torch.quant.quantize import quantize_params
 
@@ -296,8 +317,9 @@ def _speculate(args, config, params, encoder, sampling, stop_tokens, kv_quant, d
                              device=args.device)
     metrics = GenerationMetrics()
     print(args.prompt, end="", flush=True)
-    spec.generate_text(args.prompt, encoder, args.max_tokens, sampling, stream_to=sys.stdout,
-                       metrics=metrics, stop_tokens=stop_tokens)
+    with profiler_trace(args.profile, args.device):
+        spec.generate_text(args.prompt, encoder, args.max_tokens, sampling,
+                           stream_to=sys.stdout, metrics=metrics, stop_tokens=stop_tokens)
     print()
     if args.metrics:
         print(json.dumps({

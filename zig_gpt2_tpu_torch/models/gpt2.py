@@ -57,6 +57,17 @@ INT8/INT4 weights, float or INT8 KV cache:
 - The lm_head is tied to wte unless ``params["lm_head"]`` exists (the
   quantized tree unties it), and runs only on the positions that need
   logits; padded vocab rows are masked.
+- ``ZG2_FUSE_QKV=1`` (off by default, as in the JAX package) serves one
+  fused ``wqkv`` projection per layer (``fuse_qkv_params``: Q, K and V
+  concatenated on N, float or quantized) instead of three: one GEMV
+  launch where there were three. ``prepare_serving`` applies it after
+  the phantom head is padded in, so each third of ``wqkv`` is
+  ``attn_heads * head_dim`` wide and ``_qkv`` splits at equal thirds.
+- ``forward`` follows the caller's grad mode (training differentiates
+  it; the serving and eval callers run it under ``torch.no_grad`` or
+  ``torch.inference_mode``); ``remat=True`` recomputes each block's
+  activations in the backward pass (``torch.utils.checkpoint``).
+  ``prefill``, ``decode_step`` and ``extend`` never build a graph.
 """
 
 from __future__ import annotations
@@ -66,6 +77,7 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from zig_gpt2_tpu_torch.config import GPTConfig
 from zig_gpt2_tpu_torch.ops import layers as ops
@@ -133,6 +145,8 @@ def pad_phantom_head(params: Params, config: GPTConfig) -> Tuple[Params, GPTConf
     Returns (params, config) unchanged for an even count."""
     if config.attn_heads % 2 == 0:
         return params, config
+    if "wqkv" in params["blocks"]["attn"]:
+        raise ValueError("pad the phantom head before fusing Q/K/V (prepare_serving's order)")
     attn = dict(params["blocks"]["attn"])
     for name in ("wq", "wk", "wv"):
         attn[name] = pad_linear(attn[name], n_out=config.head_dim)
@@ -141,12 +155,47 @@ def pad_phantom_head(params: Params, config: GPTConfig) -> Tuple[Params, GPTConf
     return params, dataclasses.replace(config, padded_heads=config.attn_heads + 1)
 
 
+def fuse_qkv_params(params: Params) -> Params:
+    """The three attention projections as one stacked ``wqkv`` linear
+    (N axis: [Q | K | V]), so a layer runs one (E, 3A) product instead of
+    three (E, A) ones. Float (``w``) or quantized (``qw``/``qw4`` and
+    ``scale``) leaves, and the biases: the INT4 pack and the scale groups
+    lie on K, so an N-axis concat keeps them. Idempotent. A serving-time
+    transform (``prepare_serving`` under ``ZG2_FUSE_QKV=1``), never
+    written to checkpoints."""
+    attn = dict(params["blocks"]["attn"])
+    if "wqkv" in attn:
+        return params
+    parts = [attn.pop(name) for name in ("wq", "wk", "wv")]
+    attn["wqkv"] = {key: torch.cat([p[key] for p in parts], dim=-1)
+                    for key in parts[0] if key in ("w", "qw", "qw4", "scale", "b")}
+    return dict(params, blocks=dict(params["blocks"], attn=attn))
+
+
+def _fuse_qkv_enabled() -> bool:
+    """``ZG2_FUSE_QKV``: ``0``, the default, serves separate Q/K/V
+    projections; ``1`` fuses them (``fuse_qkv_params``). Off by default as
+    in the JAX package."""
+    opt = os.environ.get("ZG2_FUSE_QKV", "0")
+    if opt not in ("0", "1"):
+        raise ValueError(f"ZG2_FUSE_QKV={opt!r}: expected 0 or 1")
+    return opt == "1"
+
+
+def fuse_qkv_if_enabled(params: Params) -> Params:
+    return fuse_qkv_params(params) if _fuse_qkv_enabled() else params
+
+
 def prepare_serving(params: Params, config: GPTConfig, device) -> Tuple[Params, GPTConfig]:
     """The single-device half of the JAX package's ``prepare_serving``: the
     layout ``default_kv_packed`` decides for ``device`` and, when packed,
-    the phantom head in the weights. Returns (params, config)."""
+    the phantom head in the weights; then, under ``ZG2_FUSE_QKV=1``, the
+    fused Q/K/V projection (after the padding, so that each third holds
+    the padded heads). Returns (params, config)."""
     config = dataclasses.replace(config, kv_packed=default_kv_packed(config, device))
-    return pad_phantom_head(params, config) if config.kv_packed else (params, config)
+    if config.kv_packed:
+        params, config = pad_phantom_head(params, config)
+    return fuse_qkv_if_enabled(params), config
 
 
 # ---------------------------------------------------------------------------
@@ -280,12 +329,15 @@ def _layer(tree: Params, idx: int) -> Params:
 
 def _qkv(attn_p: Params, h: torch.Tensor, config: GPTConfig, wmm: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(..., E) -> three (..., H, D) projections."""
+    """(..., E) -> three (..., H, D) projections: three linears, or the
+    fused ``wqkv`` one split at equal thirds (views of its output)."""
     n_heads = config.attn_heads
 
     def heads(t):
         return t.reshape(*t.shape[:-1], n_heads, t.shape[-1] // n_heads)
 
+    if "wqkv" in attn_p:
+        return tuple(heads(t) for t in _linear(attn_p["wqkv"], h, config, wmm).chunk(3, -1))
     return tuple(heads(_linear(attn_p[name], h, config, wmm)) for name in ("wq", "wk", "wv"))
 
 
@@ -329,7 +381,9 @@ def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
     place. ``wmm``: float linears take the wmm GEMV (``_use_wmm``)."""
     bp = _layer(blocks, idx)
     h = ops.layer_norm(x, bp["ln_1"]["w"], bp["ln_1"]["b"], config.layer_norm_eps)
-    q, k, v = _qkv(bp["attn"], h, config, wmm)  # (B, H, D)
+    # (B, H, D), contiguous for the kernels (a fused projection's thirds
+    # are strided views when B > 1)
+    q, k, v = (t.contiguous() for t in _qkv(bp["attn"], h, config, wmm))
     packed = config.kv_packed
     if packed:  # (B, Hp, 2D) views, before any quantization: a scale per pair
         q, k, v = (pack_heads_rows(t) for t in (q, k, v))
@@ -374,13 +428,27 @@ def _embed(params: Params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Ten
 # Entry points
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def forward(params: Params, tokens: torch.Tensor, config: GPTConfig) -> torch.Tensor:
-    """Full-sequence forward: (B, T) tokens -> (B, T, vocab) logits."""
+def _block_forward(x: torch.Tensor, bp: Params, config: GPTConfig) -> torch.Tensor:
+    return _block_prefill(x, bp, config, None)[0]
+
+
+def forward(params: Params, tokens: torch.Tensor, config: GPTConfig,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward: (B, T) tokens -> (B, T, vocab) logits, for
+    perplexity and training; it differentiates when grad is enabled.
+    ``remat``: under grad, checkpoint each block (its activations are
+    recomputed in the backward pass instead of kept: activation memory for
+    compute, as the JAX package's ``jax.checkpoint``)."""
     T = tokens.shape[1]
     x = _embed(params, tokens, torch.arange(T, device=tokens.device))
+    recompute = remat and torch.is_grad_enabled()
     for idx in range(config.n_layers):
-        x, _, _ = _block_prefill(x, _layer(params["blocks"], idx), config, None)
+        bp = _layer(params["blocks"], idx)
+        if recompute:
+            x = torch.utils.checkpoint.checkpoint(_block_forward, x, bp, config,
+                                                  use_reentrant=False)
+        else:
+            x = _block_forward(x, bp, config)
     x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
     return _lm_head(params, x, config)
 

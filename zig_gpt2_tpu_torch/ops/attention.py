@@ -15,7 +15,8 @@ over (splits, H, B) blocks (``attention_splits``: the cache rows split
 into chunks, merged in split order by the last block). A CUDA tensor
 launches it (or the wrapper raises); a CPU tensor runs the plain version.
 Each wrapper counts its launches per variant: ``launches`` (prefix),
-``ring_launches``, ``packed_launches`` and ``packed_ring_launches``.
+``ring_launches``, ``packed_launches`` and ``packed_ring_launches``, and
+in ``by_dtype`` per (variant, q's dtype, the cache's dtype).
 
 Packed layout (head_dim 64): adjacent heads (2p, 2p + 1) share one 2D-wide
 row, lanes [0, D) and [D, 2D); rows are (..., Hp, 2D) and caches
@@ -29,6 +30,7 @@ q and p * v_scale to bf16.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -250,16 +252,31 @@ def attention_splits(B: int, H: int, S: int) -> tuple[int, int]:
 def _counted(wrapper):
     for name in ("launches", "ring_launches", "packed_launches", "packed_ring_launches"):
         setattr(wrapper, name, 0)
+    wrapper.by_dtype = collections.Counter()
     return wrapper
 
 
-def _launch(wrapper, q, ptrs, length, start, sizes, layer, packed):
+def _dtype_code(q_dtype, cache_dtype) -> int:
+    """The kernel's dtype code: q's (0 float32, 1 bfloat16), plus for a
+    float cache twice the cache's, so that the kernel reads each in its own
+    type. An INT8 cache (``torch.int8``) adds nothing; another cache dtype
+    raises."""
+    if cache_dtype == torch.int8:
+        return _DTYPE_CODES[q_dtype]
+    if cache_dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported cache dtype {cache_dtype} (float32 or bfloat16)")
+    return _DTYPE_CODES[q_dtype] + 2 * _DTYPE_CODES[cache_dtype]
+
+
+def _launch(wrapper, q, ptrs, length, start, sizes, layer, packed, cache_dtype=torch.int8):
     """Launch the library's entry point for ``wrapper`` (``zg2_`` + its
     name, which takes a null ``start`` for the prefix rows and a packed
     flag) once, with the split geometry of ``attention_splits`` and, for
     more than one split, its scratch: the partials (B, H, splits, W + 4)
     f32 and the per-device tickets. Counts the launch. ``ptrs`` are the
-    operands' data pointers before ``length``. Returns the output, like q."""
+    operands' data pointers before ``length``; ``cache_dtype`` the cache's
+    dtype (int8 for an INT8 cache). Returns the output, like q."""
+    code = _dtype_code(q.dtype, cache_dtype)
     _, B, H, S, D = sizes
     out = torch.empty_like(q)
     splits, chunk = attention_splits(B, H, S)
@@ -273,10 +290,12 @@ def _launch(wrapper, q, ptrs, length, start, sizes, layer, packed):
     partial, tickets = (None if t is None else t.data_ptr() for t in scratch)
     _build.check(entry(*ptrs, length.data_ptr(), None if start is None else start.data_ptr(),
                        out.data_ptr(), partial, tickets, B, H, S, D, int(layer), splits,
-                       chunk, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], int(packed),
+                       chunk, 1.0 / math.sqrt(D), code, int(packed),
                        stream),
                  f"{wrapper.__name__} ({variant or 'prefix_'}launch)")
     setattr(wrapper, variant + "launches", getattr(wrapper, variant + "launches") + 1)
+    wrapper.by_dtype[(variant + "launches", *(str(t).removeprefix("torch.")
+                                               for t in (q.dtype, cache_dtype)))] += 1
     return out
 
 
@@ -288,8 +307,10 @@ def decode_attention_deferred(q, k_new, v_new, k_cache, v_cache, length, *,
     append-then-attend over length + 1 rows.
 
     q, k_new, v_new: (B, H, D); k_cache, v_cache: (L, B, H, S, D), or with
-    ``packed`` (B, Hp, 2D) and (L, B, Hp, S, 2D) at head_dim 64; all five
-    float32, or all bfloat16; length: (B,) int32; layer: int; start: None
+    ``packed`` (B, Hp, 2D) and (L, B, Hp, S, 2D) at head_dim 64; q, k_new
+    and v_new float32 or bfloat16, the caches float32 or bfloat16 (each
+    pair of one dtype, which may differ: each is read in its own type and
+    the sums are f32); length: (B,) int32; layer: int; start: None
     for the prefix rows [0, length), or (B,) int32 for the ring interval
     [start, start + length) mod S. Returns q's shape and dtype. The kernel
     never reads the row that the caller appends next."""
@@ -299,14 +320,15 @@ def decode_attention_deferred(q, k_new, v_new, k_cache, v_cache, length, *,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_deferred: no kernel for {q.device}")
     L, B, H, S, W = k_cache.shape
-    row, cache = ((B, H, W), q.dtype), ((L, B, H, S, W), q.dtype)
+    row, cache = ((B, H, W), q.dtype), ((L, B, H, S, W), k_cache.dtype)
     sizes = _check(q, k_cache, [("q", q, *row), ("k_new", k_new, *row),
                                 ("v_new", v_new, *row), ("k_cache", k_cache, *cache),
                                 ("v_cache", v_cache, *cache)],
                    length, start, layer, packed)
     ptrs = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr())
-    return _launch(decode_attention_deferred, q, ptrs, length, start, sizes, layer, packed)
+    return _launch(decode_attention_deferred, q, ptrs, length, start, sizes, layer, packed,
+                   k_cache.dtype)
 
 
 def _quant_specs(q, k_cache, rows, planes):
@@ -368,12 +390,12 @@ def decode_attention(q, k_cache, v_cache, length, *, layer, start=None, packed=F
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     L, B, H, S, W = k_cache.shape
-    cache = ((L, B, H, S, W), q.dtype)
+    cache = ((L, B, H, S, W), k_cache.dtype)
     sizes = _check(q, k_cache, [("q", q, (B, H, W), q.dtype), ("k_cache", k_cache, *cache),
                                 ("v_cache", v_cache, *cache)],
                    length, start, layer, packed)
     return _launch(decode_attention, q, (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()),
-                   length, start, sizes, layer, packed)
+                   length, start, sizes, layer, packed, k_cache.dtype)
 
 
 @_counted

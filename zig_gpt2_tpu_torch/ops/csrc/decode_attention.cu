@@ -8,7 +8,9 @@
 // (packed), with the prefix mask and with the ring interval (start=). Same
 // contract: q (B, H, D); stacked caches (L, B, H, S, D); length (B,) int32;
 // layer index; for the ring variants start (B,) int32. Output (B, H, D) in
-// q's dtype. The deferred form computes
+// q's dtype; a float cache may be float32 or bfloat16 whatever q's dtype,
+// as in the TPU kernel (each operand is read in its own type, the sums are
+// f32). The deferred form computes
 //
 //   softmax over {q.k_new * scale} U {q.k_cache[layer, b, h, row(i)] * scale : i < length[b]}
 //   applied to {v_new} U {v_cache[layer, b, h, row(i)]}
@@ -110,6 +112,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "async_copy.cuh"
 
 namespace {
@@ -199,8 +203,8 @@ struct Args {
   float scale;
 };
 
-// T: type of q and out. C: type of k_new, v_new and the caches (T, or int8_t
-// when QUANT). RING: read the interval from start. PACKED: head-pair rows.
+// T: type of q and out. C: type of the caches (float32 or bfloat16, or
+// int8_t when QUANT). k_new and v_new are of type T, or int8_t when QUANT. RING: read the interval from start. PACKED: head-pair rows.
 // DEFERRED: seed split 0's warp 0 with the self-term. DPL: W / 32, with the
 // row width W = D, or 2D when packed.
 template <typename T, typename C, bool QUANT, bool RING, bool PACKED, bool DEFERRED, int DPL>
@@ -226,8 +230,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ float sm_acc[kWarps][W];
 
   const T* q = static_cast<const T*>(a.q);
-  const C* k_new = static_cast<const C*>(a.k_new);
-  const C* v_new = static_cast<const C*>(a.v_new);
+  using N = typename std::conditional<QUANT, int8_t, T>::type;  // the current row
+  const N* k_new = static_cast<const N*>(a.k_new);
+  const N* v_new = static_cast<const N*>(a.v_new);
   const int S = a.S;
   const int split = blockIdx.x;
   const int h = blockIdx.y;
@@ -498,20 +503,22 @@ cudaError_t launch_layout(const Args& a, bool packed, cudaStream_t stream) {
                 : launch<T, C, QUANT, RING, false, DEFERRED>(a, stream);
 }
 
-// dtype code of q and out: 0 = float32, 1 = bfloat16 (also the cache's
-// type for a float cache).
+// dtype code: q's (and out's) type, 0 = float32, 1 = bfloat16, plus for a
+// float cache twice the cache's type in the same code (0 to 3).
 template <bool RING, bool DEFERRED>
 int dispatch(const Args& a, bool quant, bool packed, int dtype, void* stream) {
+  using bf16 = __nv_bfloat16;
   cudaStream_t st = (cudaStream_t)stream;
   if (quant) {
     if (dtype == 0) return launch_layout<float, int8_t, true, RING, DEFERRED>(a, packed, st);
-    if (dtype == 1)
-      return launch_layout<__nv_bfloat16, int8_t, true, RING, DEFERRED>(a, packed, st);
+    if (dtype == 1) return launch_layout<bf16, int8_t, true, RING, DEFERRED>(a, packed, st);
   } else {
-    if (dtype == 0) return launch_layout<float, float, false, RING, DEFERRED>(a, packed, st);
-    if (dtype == 1)
-      return launch_layout<__nv_bfloat16, __nv_bfloat16, false, RING, DEFERRED>(a, packed,
-                                                                                 st);
+    switch (dtype) {
+      case 0: return launch_layout<float, float, false, RING, DEFERRED>(a, packed, st);
+      case 1: return launch_layout<bf16, float, false, RING, DEFERRED>(a, packed, st);
+      case 2: return launch_layout<float, bf16, false, RING, DEFERRED>(a, packed, st);
+      case 3: return launch_layout<bf16, bf16, false, RING, DEFERRED>(a, packed, st);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -530,9 +537,10 @@ Args args(const void* q, const void* k_new, const void* ks_new, const void* v_ne
 // --- entry points. One per form and cache type; each takes start (null for
 // the prefix rows, else (B,) int32, each lane's first physical row) and
 // packed (0 or 1: q, the current rows and the caches in pairs, H = Hp,
-// D = 64). dtype code of q and out: 0 = float32, 1 = bfloat16 (also the
-// type of a float cache and its current rows). For an INT8 cache k_new,
-// v_new and the caches are int8, with f32 scales ks_new, vs_new (B, H) and
+// D = 64). dtype code of q, out and the current rows: 0 = float32,
+// 1 = bfloat16, plus for a float cache 2 x its type (so 0 to 3: f32 q
+// over a bf16 cache is 2). For an INT8 cache k_new, v_new and the caches
+// are int8, with f32 scales ks_new, vs_new (B, H) and
 // planes k_scale, v_scale (L, B, H, S) (per pair when packed). splits and
 // chunk: the split geometry (splits * chunk >= S); partial (B, H, splits,
 // W + 4) f32 and tickets (B * H) int32 at 0, unused (may be null) when

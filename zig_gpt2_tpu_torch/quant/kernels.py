@@ -35,6 +35,7 @@ passes the view ``qw[idx]``, which copies nothing.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -87,11 +88,12 @@ def _uses_w8a8(w8a8: bool, int4: bool, scale: torch.Tensor) -> bool:
 
 def qmm_plain(x, qw, scale, *, int4=False, w8a8=False):
     """The kernel's arithmetic in plain PyTorch: (rows, N) f32. The w8a8
-    product is taken in f64, which is exact here (|sum| <= K * 127^2 < 2^53)
-    and so equals the kernel's int32 sums."""
+    product is the kernel's exact int32 sums: ``torch._int_mm`` on the CPU,
+    on the card an f64 product, exact here (|sum| <= K * 127^2 < 2^53)."""
     if _uses_w8a8(w8a8, int4, scale):
         xq, sx = quantize_rows(x)
-        return w8a8_tail(xq.double() @ qw.double(), sx, scale)
+        acc = torch._int_mm(xq, qw) if xq.device.type == "cpu" else xq.double() @ qw.double()
+        return w8a8_tail(acc, sx, scale)
     q = unpack_int4(qw) if int4 else qw
     k, n = q.shape
     groups = scale.shape[0]
@@ -112,7 +114,9 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
     (rows <= W8A8_MAX_ROWS) and is ignored for any other weight. Returns
     (rows, N) float32. One launch per call (the K split and its combine are
     in the kernel: ``qmm_geometry``, ``w8a8_geometry``). Launches count in
-    ``qmm.launches``, w8a8 launches in ``qmm.w8a8_launches``."""
+    ``qmm.launches``, w8a8 launches in ``qmm.w8a8_launches``, and both per
+    (body, K, N, rows) in ``qmm.by_shape`` (body "int8", "int4" or
+    "w8a8")."""
     if x.device.type == "cpu":
         return qmm_plain(x, qw, scale, int4=int4, w8a8=w8a8)
     if x.device.type != "cuda":
@@ -155,6 +159,7 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
             _DTYPE_CODES[x.dtype], stream)
         _build.check(err, "qmm (w8a8)")
         qmm.w8a8_launches += 1
+        qmm.by_shape[("w8a8", k, n, rows)] += 1
         return out
     geo = qmm_geometry(rows, k, n, int4, x.dtype)
     scratch = (None, None)
@@ -168,11 +173,13 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
         _DTYPE_CODES[x.dtype], stream)
     _build.check(err, "qmm")
     qmm.launches += 1
+    qmm.by_shape[("int4" if int4 else "int8", k, n, rows)] += 1
     return out
 
 
 qmm.launches = 0
 qmm.w8a8_launches = 0
+qmm.by_shape = collections.Counter()
 
 
 def wmm_plain(x, w):
@@ -187,7 +194,8 @@ def wmm(x, w):
     x: (rows, K) float32 or bfloat16, 1 <= rows <= GEMV_MAX_ROWS; w: (K, N)
     float32 or bfloat16. Both contiguous, on one device. Returns (rows, N)
     float32. One launch per call (the K split and its combine are in the
-    kernel: ``wmm_geometry``). Launches count in ``wmm.launches``."""
+    kernel: ``wmm_geometry``). Launches count in ``wmm.launches``, and per
+    (x's dtype name, K, N, rows) in ``wmm.by_shape``."""
     if x.device.type == "cpu":
         return wmm_plain(x, w)
     if x.device.type != "cuda":
@@ -220,10 +228,12 @@ def wmm(x, w):
         _DTYPE_CODES[w.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "wmm")
     wmm.launches += 1
+    wmm.by_shape[(str(x.dtype).removeprefix("torch."), k, n, rows)] += 1
     return out
 
 
 wmm.launches = 0
+wmm.by_shape = collections.Counter()
 
 # Launch geometry of csrc/wmm.cu: a row tile of x and a column tile per
 # block (64 columns on the CUDA cores, 128 on the tensor cores); K split into

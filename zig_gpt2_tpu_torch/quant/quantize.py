@@ -24,12 +24,16 @@ version on the CPU) and dequantizes larger row counts to the activation
 dtype for one ``torch.matmul``. With ``act_quant`` (w8a8) a per-channel
 INT8 linear quantizes its activations per row instead: up to
 ``kernels.W8A8_MAX_ROWS`` rows take the s8 x s8 body of ``qmm``, more rows
-``w8a8_matmul``; grouped INT8 and INT4 stay weight-only. The JAX package's
-mesh options (``tp``) are left out: the port serves one card.
+``w8a8_matmul``; grouped INT8 and INT4 stay weight-only. ``ZG2_QMM=0``
+(the JAX package's escape hatch) sends every row count to the plain
+routes instead: ``w8a8_matmul``, the grouped matmul up to GEMV_MAX_ROWS
+rows, dequantize-then-matmul above. The JAX package's tensor-parallel
+layouts (``tp`` > 1) are left out: the port serves one card.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -173,16 +177,26 @@ def w8a8_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor) -> torch
     (``quantize_rows``), the int8 products summed exactly, then
     ``float(acc) * sx * scale[0]``. Per-channel scales only (scale (1, N)).
     The plain matrix product for the rows the GEMV kernel does not take:
-    ``torch._int_mm`` on the card where its shape rules hold, else an f64
-    product (exact: |sum| <= K * 127^2 < 2^53). Both give the JAX
-    package's int32 sums, so the result is the same bits either way.
-    (rows, N) f32."""
+    ``torch._int_mm`` on the CPU and on the card where its shape rules
+    hold, else an f64 product (exact: |sum| <= K * 127^2 < 2^53). Both give
+    the JAX package's int32 sums, so the result is the same bits either
+    way. (rows, N) f32."""
     if scale.shape[0] != 1:
         raise ValueError(f"w8a8 needs per-channel scales (1, N), got {tuple(scale.shape)}")
     xq, sx = quantize_rows(x)
-    if _int_mm_takes(xq, qw):
+    if xq.device.type == "cpu" or _int_mm_takes(xq, qw):
         return kernels.w8a8_tail(torch._int_mm(xq, qw), sx, scale)
     return kernels.w8a8_tail(xq.double() @ qw.double(), sx, scale)
+
+
+def _use_qmm() -> bool:
+    """Whether quantized linears take the ``qmm`` GEMV kernel within its
+    row cap (``ZG2_QMM``: ``1``, the default, on; ``0`` off, the JAX
+    package's escape hatch)."""
+    opt = os.environ.get("ZG2_QMM", "1")
+    if opt not in ("0", "1"):
+        raise ValueError(f"ZG2_QMM={opt!r}: expected 0 or 1")
+    return opt == "1"
 
 
 def quantized_linear(p: Dict[str, Any], x: torch.Tensor,
@@ -191,8 +205,10 @@ def quantized_linear(p: Dict[str, Any], x: torch.Tensor,
     the dequant-GEMV kernel, which never materializes the float weight;
     more rows dequantize to x's dtype and take one matmul. ``act_quant``
     (w8a8) applies to a per-channel INT8 linear only: up to W8A8_MAX_ROWS
-    rows run the kernel's s8 x s8 body, more rows ``w8a8_matmul``. The f32
-    product is cast to x's dtype before the bias is added."""
+    rows run the kernel's s8 x s8 body, more rows ``w8a8_matmul``. Under
+    ``ZG2_QMM=0`` no row count runs the kernel: w8a8 takes ``w8a8_matmul``
+    and up to GEMV_MAX_ROWS rows ``grouped_matmul``. The f32 product is cast
+    to x's dtype before the bias is added."""
     int4 = "qw4" in p
     q = p["qw4"] if int4 else p["qw"]
     *lead, k_in = x.shape
@@ -200,12 +216,15 @@ def quantized_linear(p: Dict[str, Any], x: torch.Tensor,
     n = q.shape[-1]
     rows = x2.shape[0]
     w8a8 = act_quant and not int4 and p["scale"].shape[-2] == 1
-    if w8a8 and rows <= kernels.W8A8_MAX_ROWS:
+    gemv = _use_qmm()
+    if w8a8 and gemv and rows <= kernels.W8A8_MAX_ROWS:
         y = kernels.qmm(x2.contiguous(), q, p["scale"], w8a8=True)
     elif w8a8:
         y = w8a8_matmul(x2, q, p["scale"])
-    elif rows <= kernels.GEMV_MAX_ROWS:
+    elif gemv and rows <= kernels.GEMV_MAX_ROWS:
         y = kernels.qmm(x2.contiguous(), q, p["scale"], int4=int4)
+    elif rows <= kernels.GEMV_MAX_ROWS:
+        y = grouped_matmul(x2, unpack_int4(q) if int4 else q, p["scale"])
     else:
         y = torch.matmul(x2, dequantize_linear(p, dtype=x.dtype)["w"])
     y = y.to(x.dtype).reshape(*lead, n)
@@ -214,18 +233,28 @@ def quantized_linear(p: Dict[str, Any], x: torch.Tensor,
     return y
 
 
-def quantize_params(params: Dict[str, Any], mode: str = "int8") -> Dict[str, Any]:
-    """Quantize every block linear of a GPT-2 tree, and untie the lm_head
-    into ``params["lm_head"]`` quantized from wte^T. Embeddings and
-    LayerNorms stay float (wte is still the embedding table). The lm_head
-    is INT8 per-channel even in INT4 mode, as in the JAX package."""
+def quantize_params(params: Dict[str, Any], mode: str = "int8",
+                    group_size: Optional[int] = None, quantize_lm_head: bool = True,
+                    tp: int = 1) -> Dict[str, Any]:
+    """Quantize every block linear of a GPT-2 tree and, with
+    ``quantize_lm_head``, untie the lm_head into ``params["lm_head"]``
+    quantized from wte^T. Embeddings and LayerNorms stay float (wte is
+    still the embedding table). The lm_head is INT8 even in INT4 mode, as
+    in the JAX package; ``group_size`` (None: per-channel INT8, or
+    ``pick_group_size`` for INT4) applies to every linear, the lm_head
+    included. ``tp`` > 1 (layouts aligned for tensor parallelism) raises:
+    it comes with the multi-GPU slice of the port."""
+    if tp != 1:
+        raise ValueError(f"tp={tp}: tensor-parallel layouts come with the multi-GPU slice "
+                         f"of the port (tp=1 only)")
     params = dict(params)
     blocks = dict(params["blocks"])
     for mod, name in _BLOCK_LINEARS:
         sub = dict(blocks[mod])
-        sub[name] = quantize_linear(sub[name], mode)
+        sub[name] = quantize_linear(sub[name], mode, group_size)
         blocks[mod] = sub
     params["blocks"] = blocks
-    if "lm_head" not in params:
-        params["lm_head"] = quantize_linear({"w": params["wte"].T}, "int8")
+    if quantize_lm_head and "lm_head" not in params:
+        lm_mode = "int8" if mode == "int4" else mode
+        params["lm_head"] = quantize_linear({"w": params["wte"].T}, lm_mode, group_size)
     return params

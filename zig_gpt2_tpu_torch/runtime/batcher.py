@@ -217,7 +217,8 @@ class ContinuousBatcher:
         if self._spec is None:
             self.params, self.config = gpt2.prepare_serving(params, config, self.device)
         else:
-            self.params, self.config = params, dataclasses.replace(config, kv_packed=False)
+            self.params = gpt2.fuse_qkv_if_enabled(params)
+            self.config = dataclasses.replace(config, kv_packed=False)
         self.batch_size = batch_size
         self.max_seq = max_seq or config.context_size
         self.sampling = sampling

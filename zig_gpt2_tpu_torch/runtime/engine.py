@@ -165,6 +165,7 @@ class InferenceEngine:
         decode_chunk: Optional[int] = None,
         device="cuda",
         kv_quant: Optional[str] = None,
+        cache_dtype: Optional[torch.dtype] = None,
     ):
         """``decode_chunk``: decode steps run per host sync in the streaming
         path. Stop and budget checks happen per chunk and overshoot is
@@ -172,16 +173,17 @@ class InferenceEngine:
         carries decode_chunk - 1 headroom rows for the discarded steps.
         Default 1 (no measurement on the card says otherwise yet).
 
-        ``kv_quant``: None for a float KV cache in the weights' (wte's)
-        dtype, or "int8" for int8 rows with f32 scales per (token, head), or
-        per (token, head pair) in the packed layout. ``params`` may be float
-        or quantized (``quant.quantize_params``)."""
+        ``kv_quant``: None for a float KV cache in ``cache_dtype`` (default
+        the weights' (wte's) dtype), or "int8" for int8 rows with f32 scales
+        per (token, head), or per (token, head pair) in the packed layout.
+        ``params`` may be float or quantized (``quant.quantize_params``)."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
         self.device = _resolve_device(device)
         self.kv_quant = kv_quant
         self.params, self.config = gpt2.prepare_serving(
             tree_map(lambda t: t.to(self.device), params), config, self.device)
+        self.cache_dtype = cache_dtype or self.params["wte"].dtype
         self.encoder = encoder
         self.batch_size = batch_size
         self.max_seq = max_seq or config.context_size
@@ -196,7 +198,7 @@ class InferenceEngine:
 
     def new_cache(self) -> gpt2.KVCache:
         return gpt2.init_kv_cache(self.config, self.batch_size, self._cache_rows,
-                                  dtype=self.params["wte"].dtype, device=self.device,
+                                  dtype=self.cache_dtype, device=self.device,
                                   quant=self.kv_quant)
 
     def register_prefix(self, prefix_ids: Sequence[int]) -> None:
