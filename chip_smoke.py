@@ -230,6 +230,30 @@ prints no result line:
                768 x 2304, one row, f32 and bf16 (rows of their own in the
                kernels line).
 
+34. native-bpe (run after phase 6) - the port's loader builds ``libzg2bpe``
+               from the repository's ``native/bpe.cpp`` on the card's host;
+               the native core's ids and bytes equal the Python core's on a
+               fixed corpus, and the serving encoder runs the native core.
+35. serve-tp (run after phase 32) - two ranks (spawned processes) on the
+               one card over gloo (NCCL refuses two ranks on one device),
+               mesh 1 x 2: GPT-2 1.5B at full width and depth, 25 heads
+               padded to 26 (13 per rank: unpacked), vocab rows 50304, INT4
+               weights quantized for tp=2, the INT8 lm_head and KV cache.
+               ``InferenceEngine(mesh=)``: two greedy requests x 32 tokens
+               and one at T=0.8 top-k 40 x 16; then
+               ``ContinuousBatcher(batch_size=4, mesh=)``, ring cache: 6
+               greedy and 2 sampled requests, each ending at its budget; then
+               a 124M fp32 engine (6 heads per rank: packed), 16 greedy
+               tokens. Each rank's launches per kernel (``return_max`` draws
+               apart) and collectives equal what the steps imply; each kernel
+               at the rank's shapes (qmm per shard linear, INT8 attention
+               over 13 heads and its ring, the sampler with ``return_max``
+               over 25152 ids) against its plain version; the ranks return
+               the same tokens, the greedy ones the one-card engine's on the
+               same weights up to a near-tie; no id >= the vocab. Rank 0
+               times the kernels at its shapes (rows of their own in the
+               kernels line) and the collectives (host clock).
+
 Phases 24-27 compare two bf16 paths' greedy tokens (with and without a
 prefix, speculative and plain): equal up to the first divergence, and
 there a near-tie within max(1e-3, 3 x the INT8 floor, 3 x the bf16 floor:
@@ -720,7 +744,7 @@ def reset_counts(att, sk, qk) -> None:
     for _, fn, attr in COUNTERS:
         setattr(getattr(att, fn), attr, 0)
         getattr(att, fn).by_dtype.clear()
-    sk.sample_categorical.launches = 0
+    sk.sample_categorical.launches = sk.sample_categorical.max_launches = 0
     qk.qmm.launches = qk.qmm.w8a8_launches = qk.wmm.launches = 0
     qk.qmm.by_shape.clear()
     qk.wmm.by_shape.clear()
@@ -729,7 +753,8 @@ def reset_counts(att, sk, qk) -> None:
 def read_counts(att, sk, qk, torch) -> dict:
     torch.cuda.synchronize()
     counts = {key: getattr(getattr(att, fn), attr) for key, fn, attr in COUNTERS}
-    counts.update(sampler=sk.sample_categorical.launches, qmm=qk.qmm.launches,
+    counts.update(sampler=sk.sample_categorical.launches,
+                  sampler_max=sk.sample_categorical.max_launches, qmm=qk.qmm.launches,
                   qmm_w8a8=qk.qmm.w8a8_launches, wmm=qk.wmm.launches)
     return counts
 
@@ -3061,6 +3086,494 @@ def time_wmm(qk, params, torch, counts, card: str):
              "library_ms": step["library_ms"]}]
 
 
+# --- native-bpe and serve-tp ------------------------------------------------
+
+NATIVE_CORPUS = (DEMO_TEXT + "numbers 12345, punctuation?!... unicode: héllo wörld — naïve "
+                 "café 日本語 🎉 contractions: don't we'll i'm ")
+
+
+def native_bpe_phase(tok, vocab, merges) -> None:
+    """The port's loader builds ``libzg2bpe`` from the repository's
+    ``native/bpe.cpp`` on this host; the native core's ids and bytes equal
+    the Python core's on a fixed corpus; the serving encoder's core is the
+    native one (no quiet fallback here)."""
+    from zig_gpt2_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.load_bpe()
+    if lib is None:
+        raise AssertionError(f"native BPE library unavailable: {native.load_error()}")
+    log(f"native-bpe: {native.library_path().name} loaded in {time.perf_counter() - t0:.2f} s "
+        f"(compiler {native.toolchain()})")
+    nat, py = tok.Encoder(vocab, merges), tok.Encoder(vocab, merges, native=False)
+    if not nat.native_active or py.native_active:
+        raise AssertionError("the serving encoder does not run the native core")
+    for text in (NATIVE_CORPUS, DEMO_TEXT[::-1], " ", ""):
+        ids = nat.encode(text)
+        if ids != py.encode(text) or nat.decode_bytes(ids) != py.decode_bytes(ids):
+            raise AssertionError(f"native ids differ from the Python core's on {text[:30]!r}")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        nat._native_ids.clear()
+        nat.encode(NATIVE_CORPUS)
+    t_nat = (time.perf_counter() - t0) / 20
+    t0 = time.perf_counter()
+    for _ in range(20):
+        py._bpe_cache.clear()
+        py.encode(NATIVE_CORPUS)
+    t_py = (time.perf_counter() - t0) / 20
+    log(f"native-bpe: ids identical to the Python core on {len(NATIVE_CORPUS)} chars "
+        f"({len(py.encode(NATIVE_CORPUS))} ids); encode with cold caches {t_nat * 1e3:.3f} ms "
+        f"native, {t_py * 1e3:.3f} ms Python (host CPU)")
+
+
+TP = 2
+TP_DEVICE = "cuda:0"
+# The serve-tp engine's requests: (name, prompt, sampling, new tokens).
+TP_REQUESTS = (("greedy", "the quick brown fox", dict(temperature=0.0), 32),
+               ("greedy", "hello world, streaming", dict(temperature=0.0), 32),
+               ("T=0.8 top-k 40", "the lazy dog", dict(temperature=0.8, top_k=40, seed=2), 16))
+TP_BATCH = 4
+# The short packed run: GPT-2 124M fp32 (12 heads, 6 per rank: even, so
+# the head-pair-packed layout, Hp=3 per rank), random weights drawn on the
+# CPU from this seed by the parent and by each rank alike.
+TP_124M_SEED, TP_124M_PROMPT, TP_124M_TOKENS = 3, "the quick brown fox", 16
+
+
+def build_tp_124m(config_mod, gpt2, vocab_size: int, torch):
+    config = dataclasses.replace(config_mod.get_config("124M"), vocab_size=vocab_size,
+                                 padded_vocab_size=50257)
+    return config, gpt2.init_params(config, torch.Generator().manual_seed(TP_124M_SEED),
+                                    torch.float32)
+
+
+def build_tp_tree(config_mod, gpt2, quantize, encoder, torch, tp: int = TP):
+    """GPT-2 1.5B at full width and depth, bf16 weights from phase 11's seed,
+    padded for tp (25 heads to 26, vocab rows 50257 to 50304) and quantized
+    for it: INT4 block linears with the c_proj groups aligned for tp, the
+    INT8 lm_head."""
+    from zig_gpt2_tpu_torch.parallel.sharding import pad_for_tp
+
+    config = dataclasses.replace(config_mod.get_config("1558M"), vocab_size=len(encoder.vocab),
+                                 padded_vocab_size=50257)
+    params = gpt2.init_params(config, torch.Generator(device="cuda").manual_seed(0),
+                              torch.bfloat16)
+    params, config = pad_for_tp(params, config, tp)
+    params = quantize.quantize_params(params, mode="int4", tp=tp)
+    torch.cuda.synchronize()
+    return config, params
+
+
+def tp_collective_counts(config, passes: int, draws: int, thresholded: int) -> dict:
+    """A rank's model-group collectives for ``passes`` forwards (each: the
+    embedding's all-reduce, one per row-parallel linear, and the INT4
+    all-gather of x per row-parallel linear) and ``draws`` draws (two
+    all-gathers each, one more per thresholded draw)."""
+    L = config.n_layers
+    return {"all_reduce": passes * (1 + 2 * L),
+            "all_gather": passes * 2 * L + 2 * draws + thresholded}
+
+
+def tp_check_kernels(rank: int, engine, att, sk, qk, quantize, torch, card: str) -> list:
+    """This rank's kernels against their plain versions at its per-shard
+    shapes, a few calls each: qmm on its layer-0 and last-layer linears
+    (rows 1 and 4; the INT4 c_proj fed its two half-split feature ranges),
+    the INT8 decode attention over its heads (B=1, and the ring at B=4),
+    the sampler with return_max over its vocab slice. Returns the qmm
+    shapes (label, qw, scale, int4, calls per step) for the timings."""
+    from zig_gpt2_tpu_torch.ops import layers as ops
+    from zig_gpt2_tpu_torch.parallel.shard_kernels import int4_row_shard_slices
+
+    g = torch.Generator(device="cuda").manual_seed(100 + rank)
+    p = engine.params
+    blocks = p["blocks"]
+    L = engine.config.n_layers
+    shapes = []
+    for name, calls in (("attn.wq", 3), ("attn.c_proj", 1), ("mlp.c_fc", 1), ("mlp.c_proj", 1)):
+        mod, lin = name.split(".")
+        leaf = blocks[mod][lin]
+        int4 = "qw4" in leaf
+        qw = leaf["qw4"] if int4 else leaf["qw"]
+        shapes.append((name, [(qw[i], leaf["scale"][i]) for i in range(L)], int4, calls * L))
+    shapes.append(("lm_head", [(p["lm_head"]["qw"], p["lm_head"]["scale"])], False, 1))
+    worst = 0.0
+    for name, layers, int4, _ in shapes:
+        for qw, scale in (layers[0], layers[-1]):
+            k = qw.shape[0] * (2 if int4 else 1)
+            for rows in (1, 4):
+                x = (torch.randn(rows, k, device="cuda", generator=g)).to(torch.bfloat16)
+                sc = scale
+                if int4 and name.endswith("c_proj"):  # the rank's two feature ranges
+                    full = torch.randn(rows, TP * k, device="cuda", generator=g).to(torch.bfloat16)
+                    x, sc = int4_row_shard_slices(full, scale, TP, engine.mesh.model_index)
+                worst = max(worst, check_close(
+                    f"serve-tp rank {rank} qmm {name} K={k} N={qw.shape[1]} rows={rows}",
+                    qk.qmm(x, qw, sc, int4=int4), qk.qmm_plain(x, qw, sc, int4=int4),
+                    *QMM_TOL, torch))
+    log(f"serve-tp rank {rank}: qmm at {[(n, l[0][0].shape[0] * (2 if i4 else 1), l[0][0].shape[1]) for n, l, i4, _ in shapes]} "
+        f"(K, N per shard) rows 1 and 4, layers 0 and {L - 1}: max_abs_err={worst:.3e} vs plain")
+    H = engine.config.attn_heads
+    S = engine.new_cache()["k"].shape[-2]
+    for B, ring in ((1, False), (TP_BATCH, True)):
+        R = 257 if ring else S
+        args = int8_attention_inputs(ops, torch, g, L, B, H, R, 64, torch.bfloat16)
+        kw = {}
+        if ring:
+            start, length = ring_lanes(B, R, (0, 1, 17, 255), torch)
+            kw["start"] = start
+        else:
+            length = torch.tensor([17], dtype=torch.int32, device="cuda")
+        for layer in (0, L - 1):
+            err = check_close(f"serve-tp rank {rank} attention-int8 B={B}",
+                              att.decode_attention_quant_deferred(*args, length, layer=layer, **kw),
+                              att.decode_attention_quant_deferred_plain(*args, length,
+                                                                        layer=layer, **kw),
+                              *ATTN_TOL["bfloat16"], torch)
+        log(f"serve-tp rank {rank}: INT8 decode attention{' ring' if ring else ''} H={H} B={B} "
+            f"{'R' if ring else 'S'}={R}: max_abs_err={err:.3e} vs plain")
+    V = p["lm_head"]["qw"].shape[1]
+    for B in (1, TP_BATCH):
+        logits = (torch.randn(B, V, device="cuda", generator=g) * 3).float()
+        seeds = torch.randint(0, 2**31 - 1, (B,), device="cuda", dtype=torch.int32, generator=g)
+        got, z = sk.sample_categorical(logits, seeds, 0.8, return_max=True)
+        want, want_z = sk.sample_categorical_plain(logits, seeds, 0.8, return_max=True)
+        gap = ((z - want_z).abs() / want_z.abs().clamp(min=1e-30)).max().item()
+        if not torch.equal(got, want) or gap > SAMPLER_ZMAX_RTOL:
+            raise AssertionError(f"serve-tp rank {rank}: sampler return_max at V={V} B={B} "
+                                 f"differs from its plain version (z* gap {gap:.3e})")
+        log(f"serve-tp rank {rank}: sampler return_max V={V} B={B}: ids identical, z* gap "
+            f"{gap:.3e} (bound {SAMPLER_ZMAX_RTOL:.3e})")
+    return shapes
+
+
+def tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch, counts: dict, card: str):
+    """Rank 0's kernels at its per-shard shapes, by CUDA-graph replay, with
+    their plain versions, bounds and library calls, as phase ``times``
+    does: qmm per rank-step at rows 1 (289 calls, each on another layer's
+    weight), the INT8 attention over 13 heads at B=1 (1023 old rows of a
+    1024-row cache) and its ring at B=4 (R=257), the sampler with
+    return_max over the 25152-id slice at B=1. The other rank waits."""
+    import torch.nn.functional as F
+
+    from zig_gpt2_tpu_torch.ops import layers as ops
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    L = engine.config.n_layers
+    entries = []
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    errs = []
+    for name, layers, int4, calls in shapes:
+        qw, scale = layers[0]
+        k = qw.shape[0] * (2 if int4 else 1)
+        if int4 and scale.shape[0] != 1 and name.endswith("c_proj"):
+            layers = [(w, torch.cat([s[:s.shape[0] // (2 * TP)],
+                                     s[s.shape[0] // 2:s.shape[0] // 2 + s.shape[0] // (2 * TP)]]))
+                      for w, s in layers]  # rank 0's two feature ranges of the scales
+            scale = layers[0][1]
+        x = torch.randn(1, k, device="cuda", generator=g).to(torch.bfloat16)
+        dq = [quantize.dequantize_linear({"qw4" if int4 else "qw": w, "scale": s},
+                                         torch.bfloat16)["w"] for w, s in layers]
+        nl = len(layers)
+        errs.append(max_err(qk.qmm(x, qw, scale, int4=int4), qk.qmm_plain(x, qw, scale,
+                                                                          int4=int4)))
+        ms = time_ms(lambda i: qk.qmm(x, *layers[i % nl], int4=int4), max(4 * nl, 64))
+        plain_ms = time_ms(lambda i: qk.qmm_plain(x, *layers[i % nl], int4=int4), max(nl, 8))
+        lib_ms = time_ms(lambda i: torch.matmul(x, dq[i % nl]), max(4 * nl, 64))
+        nbytes, nops = qmm_work(qw, scale, int4, 1, 2)
+        bms, by = bound_ms(nbytes, nops)
+        log(f"time serve-tp qmm {name} per shard K={k} N={qw.shape[1]} "
+            f"{'int4' if int4 else 'int8'} groups={scale.shape[0]} rows=1 bf16: kernel "
+            f"{ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, "
+            f"torch.matmul on a pre-dequantized bf16 weight {lib_ms * 1e3:.2f} us ({card})")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bytes", nbytes), ("ops", nops)):
+            step[key] += calls * val
+        del dq
+    bms, by = bound_ms(step["bytes"], step["ops"])
+    log(f"time serve-tp qmm per rank-step (289 calls, rows=1, bf16, tp={TP}): kernel "
+        f"{step['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
+        f"torch.matmul {step['library_ms']:.4f} ms ({card})")
+    entries.append({"name": f"qmm_tp{TP}_rank_step", "route": "cuda",
+                    "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
+                    "replaces": "zig_gpt2_tpu/quant/kernels.py:256", "launches": counts["qmm"],
+                    "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
+                    "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]})
+    H = engine.config.attn_heads
+    for name, B, ring in ((f"decode_attention_quant_deferred_tp{TP}", 1, False),
+                          (f"decode_attention_quant_deferred_ring_tp{TP}", TP_BATCH, True)):
+        S = 257 if ring else 1024
+        n = 255 if ring else 1023
+        args = int8_attention_inputs(ops, torch, g, L, B, H, S, 64, torch.bfloat16)
+        kd = (args[5].float() * args[6][..., None]).to(torch.bfloat16)
+        vd = (args[7].float() * args[8][..., None]).to(torch.bfloat16)
+        q4 = args[0][:, :, None, :]
+        kw = {"packed": False}
+        if ring:
+            start, length = ring_lanes(B, S, (n,), torch)
+            kw["start"] = start
+            mask = ops.decode_valid_mask(S, length + 1, start)[:, :, None, :]
+
+            def lib(layer, kd=kd, vd=vd, mask=mask):
+                return F.scaled_dot_product_attention(q4, kd[layer], vd[layer], attn_mask=mask)
+        else:
+            length = torch.full((B,), n, dtype=torch.int32, device="cuda")
+            kd, vd = kd[..., :n + 1, :], vd[..., :n + 1, :]
+
+            def lib(layer, kd=kd, vd=vd):
+                return F.scaled_dot_product_attention(q4, kd[layer], vd[layer])
+        nbytes, nops = attention_work([*args, length] + ([kw["start"]] if ring else []), n, S,
+                                      L, True)
+        entries.append(time_attention(
+            name, ":928", counts["attention_int8_ring" if ring else "attention_int8"],
+            att.decode_attention_quant_deferred, att.decode_attention_quant_deferred_plain,
+            [*args, length], L, lib, nbytes, nops,
+            f"serve-tp rank 0 shard: INT8, bf16 q, B={B}, H={H}, {'R' if ring else 'S'}={S}, "
+            f"{n} old rows{', ring' if ring else ''}; library: SDPA over the rows dequantized "
+            f"ahead of time", card, **kw))
+    V = engine.params["lm_head"]["qw"].shape[1]
+    logits = torch.randn(1, V, device="cuda", generator=g)
+    seeds = torch.randint(0, 2**31 - 1, (1,), device="cuda", dtype=torch.int32, generator=g)
+    ms = time_ms(lambda i: sk.sample_categorical(logits, seeds, 0.8, return_max=True), 400)
+    plain_ms = time_ms(lambda i: sk.sample_categorical_plain(logits, seeds, 0.8, return_max=True),
+                       40, graph=False)
+    u = torch.rand(1, V, device="cuda", generator=g)
+    lib_ms = time_ms(lambda i: torch.max(logits / 0.8 - torch.log(-torch.log(u)), -1), 400)
+    bms, by = bound_ms(V * 4 + 8 + 4, SAMPLER_OPS_PER_ELEM * V)
+    err = float((sk.sample_categorical(logits, seeds, 0.8, return_max=True)[1]
+                 - sk.sample_categorical_plain(logits, seeds, 0.8, return_max=True)[1]).abs().item())
+    log(f"time serve-tp sampler return_max f32 B=1 V={V} ({sk.sampler_geometry(1, V)[0]} "
+        f"splits): kernel {ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain "
+        f"{plain_ms * 1e3:.2f} us, max of gumbel-perturbed logits {lib_ms * 1e3:.2f} us, "
+        f"z* max_abs_err={err:.3e} ({card})")
+    entries.append({"name": f"sample_categorical_return_max_tp{TP}", "route": "cuda",
+                    "source": "zig_gpt2_tpu_torch/ops/csrc/sampling.cu",
+                    "replaces": "zig_gpt2_tpu/ops/sampling_kernel.py:37",
+                    "launches": counts["sampler_max"], "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    return entries
+
+
+def tp_rank(rank: int, init: str, tree_path: str, cfg_fields: dict, vocab, merges,
+            out_path: str, card: str) -> None:
+    """One rank of serve-tp (a spawned process on the one card): join the
+    gloo group, serve the engine's requests and then the batcher's over the
+    1 x 2 mesh, hold each kernel against its plain version at the shard's
+    shapes, and count every launch and collective. Rank 0 also times the
+    kernels and the host-staged collectives (rank 1 waits) and writes the
+    results for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(TP_DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from zig_gpt2_tpu_torch import config as config_mod
+    from zig_gpt2_tpu_torch import tokenizer as tok
+    from zig_gpt2_tpu_torch.models import gpt2
+    from zig_gpt2_tpu_torch.ops import attention as att
+    from zig_gpt2_tpu_torch.ops import sampling_kernel as sk
+    from zig_gpt2_tpu_torch.parallel import distributed as pdist
+    from zig_gpt2_tpu_torch.parallel.mesh import make_mesh
+    from zig_gpt2_tpu_torch.quant import kernels as qk
+    from zig_gpt2_tpu_torch.quant import quantize
+    from zig_gpt2_tpu_torch.runtime import batcher as batcher_mod
+    from zig_gpt2_tpu_torch.runtime import engine as engine_mod
+
+    pdist.initialize(init, TP, rank, init_timeout_s=300, backend="gloo")
+    try:
+        mesh = make_mesh(1, TP, TP_DEVICE)
+        log(f"serve-tp rank {rank}: gloo took CUDA tensors directly for "
+            f"{[op for op, d in mesh.model.direct.items() if d]}, through the host for "
+            f"{[op for op, d in mesh.model.direct.items() if not d]}")
+        t0 = time.perf_counter()
+        params = torch.load(tree_path, map_location="cpu", weights_only=False)
+        config = config_mod.GPTConfig(**cfg_fields)
+        encoder = tok.Encoder(vocab, merges)
+        if not encoder.native_active:
+            raise AssertionError("serve-tp: the encoder does not run the native core")
+        engine = engine_mod.InferenceEngine(config, params, encoder, kv_quant="int8",
+                                            device=TP_DEVICE, mesh=mesh)
+        L = config.n_layers
+        log(f"serve-tp rank {rank}: tree loaded and sliced in {time.perf_counter() - t0:.1f} s; "
+            f"{engine.config.attn_heads} heads, {engine.params['wte'].shape[0]} vocab rows, "
+            f"{'packed' if engine.config.kv_packed else 'unpacked'} INT8 KV")
+        engine.generate_text("warm up", 2, config_mod.SamplingConfig(temperature=0.8, top_k=40))
+        before = dict(mesh.model.counts)
+        reset_counts(att, sk, qk)
+        out = {"engine": []}
+        for name, prompt, kw, n in TP_REQUESTS:
+            sampling = config_mod.SamplingConfig(**kw)
+            m = engine_mod.GenerationMetrics()
+            ids = encoder.encode(prompt)
+            toks = engine.generate(ids, n, sampling, metrics=m)
+            out["engine"].append((name, ids, toks, m.ms_per_token_percentile(50),
+                                  m.tokens_per_sec))
+            log(f"serve-tp rank {rank} [{name}] {prompt!r} -> {encoder.decode(toks)!r} "
+                f"ms_per_token_p50={m.ms_per_token_percentile(50):.3f} "
+                f"tok_per_s={m.tokens_per_sec:.1f} ({card})")
+            if len(toks) != n or max(toks) >= config.vocab_size:
+                raise AssertionError(f"serve-tp [{name}]: {len(toks)} tokens, max id {max(toks)}")
+        counts = read_counts(att, sk, qk, torch)
+        steps = sum(n for *_, n in TP_REQUESTS)
+        sampled = sum(n + 1 for _, _, kw, n in TP_REQUESTS if kw["temperature"] > 0)
+        expect_counts(f"serve-tp rank {rank} engine", counts,
+                      {"qmm": (6 * L + 1) * (steps + len(TP_REQUESTS)), "attention_int8": L * steps,
+                       "sampler": sampled, "sampler_max": sampled})
+        got = {op: mesh.model.counts[op] - before.get(op, 0) for op in mesh.model.counts}
+        want = tp_collective_counts(config, steps + len(TP_REQUESTS),
+                                    steps + len(TP_REQUESTS), sampled)
+        log(f"serve-tp rank {rank} engine collectives {got} (expected {want}); host-staged "
+            f"so far {dict(mesh.model.host_staged)}")
+        if got != want:
+            raise AssertionError(f"serve-tp rank {rank}: collectives {got} vs {want}")
+        total = dict(counts)
+
+        greedy = config_mod.SamplingConfig(temperature=0.0)
+        b = batcher_mod.ContinuousBatcher(config, params, batch_size=TP_BATCH, max_seq=256,
+                                          kv_quant="int8", device=TP_DEVICE, mesh=mesh,
+                                          sampling=greedy)
+        del params
+        serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], f"serve-tp rank {rank} batcher warm-up")
+        b.metrics = batcher_mod.BatcherMetrics()
+        requests = batch_requests(61, 6, config.vocab_size, (8, 40), (8, 16))
+        sampled_requests = batch_requests(62, 2, config.vocab_size, (8, 40), (8, 12))
+        with recording(gpt2, {"prefill": [], "extend": []}) as calls:
+            reset_counts(att, sk, qk)
+            served = serve_batch(b, requests, f"serve-tp rank {rank} batcher greedy")
+            greedy_steps, greedy_prefills = b.metrics.steps, len(calls["prefill"])
+            b.sampling = config_mod.SamplingConfig(temperature=0.8, top_k=40, seed=9)
+            drawn = serve_batch(b, sampled_requests, f"serve-tp rank {rank} batcher T=0.8")
+            counts = read_counts(att, sk, qk, torch)
+        steps = b.metrics.steps
+        n_sampled = steps - greedy_steps + len(calls["prefill"]) - greedy_prefills
+        expect_counts(f"serve-tp rank {rank} batcher", counts,
+                      {"attention_int8_ring": L * steps,
+                       **gemv_counts(engine.config, steps, window_shapes(calls["prefill"])),
+                       "sampler": n_sampled, "sampler_max": n_sampled})
+        if max(t for toks in drawn + served for t in toks) >= config.vocab_size:
+            raise AssertionError("serve-tp batcher emitted a phantom id")
+        log(f"serve-tp rank {rank} batcher metrics {json.dumps(b.metrics.as_dict(TP_BATCH))} "
+            f"(INT4, INT8 KV ring, B={TP_BATCH}, tp={TP}, {card})")
+        out["batcher"] = (requests, served)
+        total = {k: total[k] + counts[k] for k in total}
+        del b
+
+        small_cfg, small = build_tp_124m(config_mod, gpt2, config.vocab_size, torch)
+        small = engine_mod.InferenceEngine(small_cfg, small, encoder, device=TP_DEVICE,
+                                           mesh=mesh)  # the card's default layout: packed
+        reset_counts(att, sk, qk)
+        ids = encoder.encode(TP_124M_PROMPT)
+        out["packed_124m"] = small.generate(ids, TP_124M_TOKENS, greedy)
+        counts = read_counts(att, sk, qk, torch)
+        expect_counts(f"serve-tp rank {rank} packed 124M", counts,
+                      {"attention_packed": small_cfg.n_layers * TP_124M_TOKENS})
+        log(f"serve-tp rank {rank} packed 124M fp32 ({small.config.attn_heads} heads per rank, "
+            f"{small.new_cache()['k'].shape[2]} packed rows): "
+            f"{encoder.decode(out['packed_124m'])!r}")
+        total = {k: total[k] + counts[k] for k in total}
+        del small
+
+        shapes = tp_check_kernels(rank, engine, att, sk, qk, quantize, torch, card)
+        dist.barrier()
+        x = torch.randn(1, config.n_embed, device=TP_DEVICE)
+        idx = torch.zeros(1, dtype=torch.int32, device=TP_DEVICE)
+        for label, fn in (("all_reduce (1, 1600) f32", lambda: mesh.model.all_reduce(x)),
+                          ("all_gather (1,) int32", lambda: mesh.model.all_gather(idx))):
+            for _ in range(10):  # both ranks take part in every call
+                fn()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            if rank == 0:
+                log(f"time serve-tp collective {label} on cuda over gloo "
+                    f"({'direct' if mesh.model.direct[label.split()[0]] else 'host-staged'}): "
+                    f"{(time.perf_counter() - t0) / 200 * 1e3:.3f} ms per call, host clock, "
+                    f"two ranks on one card ({card})")
+        if rank == 0:
+            out["entries"] = tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch,
+                                             total, card)
+        dist.barrier()
+        out["counts"] = total
+        out["collectives"] = dict(mesh.model.counts)
+        out["host_staged"] = dict(mesh.model.host_staged)
+        out["direct"] = dict(mesh.model.direct)
+        torch.save(out, f"{out_path}.{rank}")
+    finally:
+        pdist.shutdown()
+
+
+def serve_tp_phase(pkg, torch, encoder, vocab, merges, floor: float, tmp: str, card: str):
+    """serve-tp: two ranks on the one card over gloo (NCCL refuses two ranks
+    on one device), mesh 1 x 2, GPT-2 1.5B at full width and depth (26 heads
+    padded from 25, 50304 vocab rows), INT4 weights quantized for tp=2, the
+    INT8 lm_head, an INT8 KV cache (13 heads per rank: odd, so unpacked).
+    The parent builds the tree once, serves the greedy requests on one
+    device (unpacked, the same weights) for the near-tie check, and starts
+    the ranks. Returns (each rank's launch counts summed, kernel entries)."""
+    import torch.multiprocessing as mp
+
+    config_mod, gpt2, engine_mod, att, sk, qk, weights, quantize = pkg
+    t0 = time.perf_counter()
+    config, params = build_tp_tree(config_mod, gpt2, quantize, encoder, torch)
+    if (config.attn_heads, config.vocab_rows) != (26, 50304):
+        raise AssertionError(f"serve-tp: padded to {config.attn_heads} heads, "
+                             f"{config.vocab_rows} vocab rows")
+    tree_path = os.path.join(tmp, "tp_tree.pt")
+    torch.save(weights.tree_map(lambda t: t.cpu(), params), tree_path)
+    log(f"serve-tp: 1.5B INT4 tree padded and quantized for tp={TP} and written in "
+        f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(tree_path) / 1e6:.0f} MB)")
+    out_path = os.path.join(tmp, "tp_out")
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    with env_setting("ZG2_KV_PACKED", "0"):  # 13 heads per rank: the ranks serve unpacked
+        single = engine_mod.InferenceEngine(config, params, encoder, kv_quant="int8",
+                                            device="cuda")
+    del params
+    wants, rates = [], []
+    for name, prompt, kw, n in TP_REQUESTS:
+        if kw["temperature"] == 0.0:
+            m = engine_mod.GenerationMetrics()
+            wants.append(single.generate(encoder.encode(prompt), n, greedy, metrics=m))
+            rates.append(m.tokens_per_sec)
+    fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config_mod.GPTConfig)}
+    t0 = time.perf_counter()
+    mp.start_processes(tp_rank, args=(f"file://{tmp}/tp_rendezvous", tree_path, fields, vocab,
+                                      merges, out_path, card),
+                       nprocs=TP, join=True, start_method="spawn")
+    log(f"serve-tp: the ranks ran {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(f"{out_path}.{r}", weights_only=False) for r in range(TP)]
+    for r in ranks[1:]:
+        if ([e[2] for e in r["engine"]] != [e[2] for e in ranks[0]["engine"]]
+                or r["batcher"][1] != ranks[0]["batcher"][1]
+                or r["packed_124m"] != ranks[0]["packed_124m"]):
+            raise AssertionError("serve-tp: the ranks returned different tokens")
+    engine_runs = [(ids, toks) for name, ids, toks, _, _ in ranks[0]["engine"]
+                   if name == "greedy"]
+    tp_rate = [tps for name, _, _, _, tps in ranks[0]["engine"] if name == "greedy"]
+    log(f"serve-tp: greedy tokens/s tp={TP} (rank 0) {[round(x, 1) for x in tp_rate]} against "
+        f"one device on the same weights {[round(x, 1) for x in rates]} ({card})")
+    near_tie_check("serve-tp against one device", gpt2, single,
+                   [(ids, len(t)) for ids, t in engine_runs], [t for _, t in engine_runs],
+                   max(E2E_ATOL, 3 * floor), torch, wants=wants)
+    del single
+    small_cfg, small = build_tp_124m(config_mod, gpt2, config.vocab_size, torch)
+    small = engine_mod.InferenceEngine(small_cfg, small, encoder, device="cuda")
+    if not small.config.kv_packed:
+        raise AssertionError("serve-tp: the one-card 124M engine is not packed")
+    near_tie_check("serve-tp packed 124M against one device", gpt2, small,
+                   [(encoder.encode(TP_124M_PROMPT), TP_124M_TOKENS)],
+                   [ranks[0]["packed_124m"]], E2E_ATOL, torch)
+    del small
+    log(f"serve-tp collectives per rank {[r['collectives'] for r in ranks]}, host-staged "
+        f"{[r['host_staged'] for r in ranks]}, gloo direct on cuda {ranks[0]['direct']}")
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+    entries = ranks[0]["entries"]
+    for entry, key in zip(entries, ("qmm", "attention_int8", "attention_int8_ring",
+                                    "sampler_max")):
+        entry["launches"] = counts[key]  # both ranks' launches
+    return counts, entries
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3116,6 +3629,8 @@ def main() -> int:
         phase("sampler: kernel vs plain, B 1/4/16/17 x V 7/1000/50257, return_max, ties")
         check_sampler(sk, sampling, torch)
         vocab, merges = tok.train_bpe(DEMO_TEXT, vocab_size=512)
+        phase("native-bpe: the port's loader builds libzg2bpe; native ids vs the Python core")
+        native_bpe_phase(tok, vocab, merges)
         encoder = tok.Encoder(vocab, merges)
         phase("serve: GPT-2 124M full width on InferenceEngine(device='cuda')")
         counts_124m, engine, ids = serve(pkg, torch, encoder, card)
@@ -3261,16 +3776,21 @@ def main() -> int:
             train_phase(pkg, torch, encoder, card)
             phase("profile-debug: cli --profile, nan_checks, checked_decode_step")
             counts_prof = profile_debug_phase(pkg, torch, config_124m, params_124m, tmp, card)
+            phase(f"serve-tp: two ranks on the card over gloo, mesh 1x{TP}, GPT-2 1.5B INT4 + "
+                  f"INT8 KV, 48 layers, InferenceEngine and ContinuousBatcher(batch_size="
+                  f"{TP_BATCH})")
+            counts_tp, tp_entries = serve_tp_phase(pkg, torch, encoder, vocab, merges,
+                                                   floor_unpacked, tmp, card)
         phase("times")
         paths = (counts_124m, counts_b124, counts_1p5b, counts_b1p5b, counts_p124,
                  counts_pb124, counts_p1p5b, counts_pb1p5b, counts_w1p5b, counts_wb1p5b,
                  counts_m124, counts_mb124, counts_mbf16, counts_x, counts_x1p5b,
                  counts_xb1p5b, counts_s1p5b, counts_sb1p5b, counts_npz, counts_f,
-                 counts_cd, counts_ppl, counts_prof)
+                 counts_cd, counts_ppl, counts_prof, counts_tp)
         counts = {k: sum(c[k] for c in paths) for k in counts_124m}
         log(f"launches on the main paths (the serve and serve-batcher phases, unpacked and "
             f"packed, INT4, w8a8 and wmm, the extend path's phases, and the npz, fused-qkv, "
-            f"cache-dtype, ppl and profile-debug phases): {counts}")
+            f"cache-dtype, ppl, profile-debug and serve-tp phases): {counts}")
         entries = time_attention_kernels(att, ops, torch, counts, card,
                                          {"decode_attention_deferred_packed_bf16_cache": mixed})
         entries += time_sampler(sk, torch, counts, card)
@@ -3280,6 +3800,7 @@ def main() -> int:
         del params_1p5b
         entries += time_w8a8(qk, quantize, params_w8, torch, counts, card)
         entries += time_wmm(qk, params_124m, torch, counts, card)
+        entries += tp_entries
         phase("done")
     except Exception as e:  # a failed phase ends the run with its traceback
         import traceback

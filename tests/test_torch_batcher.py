@@ -172,7 +172,7 @@ def test_refuses_unported_options_and_missing_card(params):
     _, tp = params
     with pytest.raises(ValueError, match="prompt lookup only"):
         ContinuousBatcher(TCFG, tp, device="cpu", speculative="draft")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ContinuousBatcher(TCFG, tp, device="cpu", mesh="1x2")
     b = ContinuousBatcher(TCFG, tp, max_seq=32, prompt_buckets=(8,), device="cpu")
     with pytest.raises(ValueError, match="largest prompt bucket"):

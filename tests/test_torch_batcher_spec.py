@@ -23,6 +23,7 @@ from zig_gpt2_tpu.models import gpt2 as jgpt2
 from zig_gpt2_tpu.runtime.batcher import ContinuousBatcher as JBatcher
 from zig_gpt2_tpu_torch import config as tconfig
 from zig_gpt2_tpu_torch.config import SamplingConfig
+from zig_gpt2_tpu_torch.parallel.mesh import make_mesh
 from zig_gpt2_tpu_torch.runtime.batcher import ContinuousBatcher
 from zig_gpt2_tpu_torch.weights import params_from_numpy
 
@@ -201,8 +202,8 @@ def test_spec_serve_constructor_guards(params):
         _port(params, batch_size=2, speculative="124M")
     with pytest.raises(ValueError, match="spec_k"):
         _port(params, batch_size=2, speculative="ngram", spec_k=0)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        _port(params, batch_size=2, speculative="ngram", mesh="1x2")
+    with pytest.raises(NotImplementedError, match="slice 12"):
+        _port(params, batch_size=2, speculative="ngram", mesh=make_mesh(1, 1))
 
 
 def test_cli_batch_file_ngram_speculation(tmp_path, capsys):

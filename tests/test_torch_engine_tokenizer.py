@@ -185,13 +185,15 @@ def test_cli_demo_cpu(capsys):
     assert '"generated_tokens": 6' in err and '"device": "cpu"' in err
 
 
-@pytest.mark.parametrize("flag", [["--demo", "--mesh", "1x2"], ["--weights", "w.npz"],
+@pytest.mark.parametrize("flag", [["--demo", "--mesh", "1x2", "--seq-parallel"],
+                                  ["--weights", "w.npz"],
                                   ["--weights", "raw", "--draft-model", "nano",
                                    "--draft-weights", "d.npz"]],
                          ids=["mesh", "npz-weights", "npz-draft-weights"])
 def test_cli_refuses_later_slices(flag, tmp_path, nano_params, capsys):
-    """Tensor-parallel serving is refused with the slice that brings it.
-    .npz checkpoints (the target's or the draft's), refused until the port
+    """Sequence-parallel prefill under --mesh is refused with the slice
+    that brings it (tensor-parallel serving itself is served now:
+    tests/test_torch_tp_layouts.py). .npz checkpoints (the target's or the draft's), refused until the port
     could read them, are served now: greedy tokens from the .npz tree equal
     those from the same weights as a raw checkpoint. A nano model saved
     both ways, with an encoder.json that decodes every id it can emit."""

@@ -99,15 +99,15 @@ def test_npz_interchange_bit_equal(params, tmp_path, tree):
                          ids=["int8-g32", "int4-g64", "int8-no-lm-head", "int4-no-lm-head"])
 def test_quantize_params_options_bit_equal_to_jax(params, mode, group, lm_head):
     """group_size (every linear, the lm_head included) and
-    quantize_lm_head, as the JAX package's quantize_params takes them; a
-    tensor-parallel degree above 1 is refused."""
+    quantize_lm_head, as the JAX package's quantize_params takes them; and
+    the tensor-parallel alignment (tp=2: the c_proj groups divide K/2)."""
     jp, tp = params
     want = jq.quantize_params(jp, mode=mode, group_size=group, quantize_lm_head=lm_head)
     got = tq.quantize_params(tp, mode=mode, group_size=group, quantize_lm_head=lm_head)
     _assert_same_leaves(got, want)
     assert ("lm_head" in got) == lm_head
-    with pytest.raises(ValueError, match="multi-GPU slice"):
-        tq.quantize_params(tp, mode=mode, tp=2)
+    _assert_same_leaves(tq.quantize_params(tp, mode=mode, tp=2),
+                        jq.quantize_params(jp, mode=mode, tp=2))
 
 
 @pytest.mark.parametrize("mode,group", [("int8", None), ("int4", None), ("int4", 16)],
@@ -125,8 +125,12 @@ def test_repack_tools_write_identical_leaves(params, tmp_path, capsys, mode, gro
         for key in a.files:
             assert a[key].dtype == b[key].dtype and a[key].tobytes() == b[key].tobytes(), key
         assert json.loads(bytes(b["__zg2_meta__"])) == {"model": "nano", "mode": mode}
-    with pytest.raises(SystemExit, match="multi-GPU slice"):
-        trepack.main(flags + ["--tp", "2", "--out", str(tmp_path / "tp.npz")])
+    jrepack.main(flags + ["--tp", "2", "--out", str(tmp_path / "jax_tp.npz")])
+    trepack.main(flags + ["--tp", "2", "--out", str(tmp_path / "tp.npz")])
+    with np.load(tmp_path / "jax_tp.npz") as a, np.load(tmp_path / "tp.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype and a[key].tobytes() == b[key].tobytes(), key
 
 
 def test_bf16_leaf_refused_like_jax(tmp_path):

@@ -357,9 +357,10 @@ def test_default_kv_packed_policy(monkeypatch, env, device, n_embed, want):
 def test_packed_layout_raises_where_it_cannot_run(monkeypatch):
     cfg = _tcfg(dataclasses.replace(CFG_EVEN, kv_packed=True))
     monkeypatch.setenv("ZG2_KV_PACKED", "1")
-    assert not tgpt2.default_kv_packed(_tcfg(CFG_EVEN), "cpu", mesh=object())
-    with pytest.raises(ValueError, match="single-device"):
-        tgpt2.default_kv_packed(cfg, "cpu", mesh=object())
+    # Two heads over tp=2: one per rank, odd, so a mesh serves them unpacked.
+    assert not tgpt2.default_kv_packed(_tcfg(CFG_EVEN), "cpu", tp=2)
+    with pytest.raises(ValueError, match="even head count per rank"):
+        tgpt2.default_kv_packed(cfg, "cpu", tp=2)
     narrow = tconfig.GPTConfig(vocab_size=64, context_size=16, n_layers=1, n_heads=2,
                                n_embed=64, kv_packed=True)
     with pytest.raises(ValueError, match="head_dim 64"):
@@ -367,7 +368,7 @@ def test_packed_layout_raises_where_it_cannot_run(monkeypatch):
     monkeypatch.setenv("ZG2_KV_PACKED", "yes")
     with pytest.raises(ValueError, match="ZG2_KV_PACKED"):
         tgpt2.default_kv_packed(_tcfg(CFG_EVEN), "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ContinuousBatcher(cfg, {}, device="cpu", mesh=object())
 
 

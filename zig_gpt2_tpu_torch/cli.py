@@ -2,7 +2,8 @@
 
 Same interface and defaults as ``zig_gpt2_tpu.cli`` (temperature 0.8,
 running to the end of the context window), for what this port serves:
-GPT-2 on one device, float or INT8/INT4 weights, or w8a8 (per-channel INT8
+GPT-2 on one device or over a (data x model) mesh of processes
+(``--mesh DPxTP``), float or INT8/INT4 weights, or w8a8 (per-channel INT8
 weights and per-row INT8 activations) (``--quant``), float or INT8 KV cache
 (``--kv-quant``): one prompt streamed to stdout, or a file of
 prompts served through the continuous batcher (``--batch-file``, one JSON
@@ -23,6 +24,8 @@ Examples::
     python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo \
         --draft-model demo --spec-k 4 --temp 0 "the quick"
     python -m zig_gpt2_tpu_torch.cli --demo --draft-model ngram --batch-file prompts.txt
+    python -m zig_gpt2_tpu_torch.cli --model 1558M --quant int4 --kv-quant --demo \
+        --mesh 1x2 --backend gloo --temp 0 "the quick"
     python -m zig_gpt2_tpu_torch.cli --model 124M --weights models/124M/raw \\
         --encoder-dir models/124M "Hello, my name is"
     python -m zig_gpt2_tpu_torch.cli --model 124M --weights models/124M/int4.npz \\
@@ -32,6 +35,20 @@ Examples::
 a ``.npz`` tree (``tools.repack`` of either package: quantized leaves are
 served as they are, with the padding its meta records). ``--profile DIR``
 writes a ``torch.profiler`` trace of the serving run to ``DIR/trace.json``.
+
+``--mesh DPxTP`` serves tensor- and data-parallel: the CLI starts dp * tp
+processes itself (``torch.multiprocessing``, spawn; rendezvous at a file
+in a temporary directory) unless ``RANK`` and ``WORLD_SIZE`` are set (a
+launcher started it: ``MASTER_ADDR``/``MASTER_PORT`` then name the
+rendezvous). Each rank takes card ``rank % device_count`` (``--device
+cuda``) and the backend ``--backend`` names: ``gloo`` (the default; CPU
+ranks, or several ranks sharing one card) or ``nccl`` (one card per rank:
+NCCL refuses two ranks on one device). Rank 0 prints. Under a mesh the
+float weights are padded for the model degree before ``--quant``
+quantizes them (``parallel.sharding.pad_for_tp``); a ``.npz`` must come
+padded (``tools.repack --tp``). ``--mesh`` with ``--draft-model``,
+``--prefix`` or ``--seq-parallel`` is refused: those wait for slice 12 of
+the port.
 """
 
 from __future__ import annotations
@@ -39,13 +56,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 from pathlib import Path
 
 # Options of the JAX CLI that this port does not serve yet, with the slice
 # of the port that brings each.
 _LATER = {
-    "mesh": "tensor-parallel serving comes with the multi-GPU slice",
+    "seq_parallel": "sequence-parallel prefill comes with slice 12 of the port",
 }
 
 
@@ -105,8 +124,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="quantize the draft's weights")
     p.add_argument("--draft-kv-quant", action="store_true", help="INT8 KV cache for the draft")
     p.add_argument("--spec-k", type=int, default=4, help="draft tokens per speculative round")
-    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default=None, metavar="DPxTP",
+                   help="serve over a data x model mesh of processes, e.g. '1x2'")
+    p.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                   help="--mesh: the process group's backend (nccl needs a card per rank)")
+    p.add_argument("--seq-parallel", action="store_true", help=argparse.SUPPRESS)
     return p
+
+
+def _parse_mesh(text: str):
+    try:
+        dp, tp = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        sys.exit(f"error: --mesh {text!r}: expected DPxTP, e.g. 1x2")
+    if dp < 1 or tp < 1:
+        sys.exit(f"error: --mesh {text!r}: both degrees must be positive")
+    return dp, tp
 
 
 def _load_encoder(args):
@@ -159,13 +192,62 @@ def main(argv=None) -> None:
             sys.exit(f"error: --{name.replace('_', '-')} is not in the PyTorch port yet: {why}")
     if args.prompt is None and args.batch_file is None:
         sys.exit('error: missing prompt (usage: zig-gpt2-torch "<prompt>")')
+    if args.mesh is None:
+        return _serve(args)
+    dp, tp = _parse_mesh(args.mesh)
+    if args.draft_model is not None:
+        sys.exit("error: --draft-model is single-device (no --mesh) in the PyTorch port: "
+                 "speculation under a mesh comes with slice 12")
+    if args.prefix is not None:
+        sys.exit("error: --prefix under --mesh comes with slice 12 of the PyTorch port")
+    if args.device == "cuda":
+        import torch
 
+        if not torch.cuda.is_available():
+            sys.exit("error: no CUDA device (pass --device cpu to run on the CPU)")
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != dp * tp:
+            sys.exit(f"error: --mesh {args.mesh} needs {dp * tp} processes, WORLD_SIZE is "
+                     f"{os.environ['WORLD_SIZE']}")
+        return _mesh_rank(int(os.environ["RANK"]), args, dp, tp, None)
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="zg2_mesh_") as tmp:
+        mp.spawn(_mesh_rank, args=(args, dp, tp, f"file://{tmp}/rendezvous"), nprocs=dp * tp)
+
+
+def _mesh_rank(rank: int, args, dp: int, tp: int, init_method) -> None:
+    """One rank of ``--mesh``: join the group, build the mesh on this
+    rank's device, serve; only rank 0 writes to stdout and stderr."""
+    import torch
+
+    from zig_gpt2_tpu_torch.parallel import distributed as pdist
+    from zig_gpt2_tpu_torch.parallel.mesh import make_mesh
+
+    if rank != 0:
+        sys.stdout = sys.stderr = open(os.devnull, "w")
+    device = args.device
+    if device == "cuda":
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    pdist.initialize(init_method, dp * tp, rank, backend=args.backend)
+    try:
+        _serve(args, make_mesh(dp, tp, device))
+    finally:
+        pdist.shutdown()
+
+
+def _serve(args, mesh=None) -> None:
+    """The CLI's serving body, on one device or as one rank of ``mesh``."""
     import torch
 
     from zig_gpt2_tpu_torch.config import SamplingConfig, get_config
     from zig_gpt2_tpu_torch.runtime.engine import GenerationMetrics, InferenceEngine
     from zig_gpt2_tpu_torch.utils.profiling import profiler_trace
 
+    device = str(mesh.device) if mesh is not None else args.device
+    # Under a mesh the whole tree stays on the host until each rank slices it.
+    load_device = "cpu" if mesh is not None else args.device
     if args.device == "cuda":
         if not torch.cuda.is_available():
             sys.exit("error: no CUDA device (pass --device cpu to run on the CPU)")
@@ -184,18 +266,25 @@ def main(argv=None) -> None:
         from zig_gpt2_tpu_torch.utils import io as zio
 
         if str(args.weights).endswith(".npz"):  # a repacked (quantized) tree, as stored
-            params, meta = zio.load_pytree_npz(args.weights, device=args.device,
+            params, meta = zio.load_pytree_npz(args.weights, device=load_device,
                                                with_meta=True)
             if meta and (meta.get("padded_heads") or meta.get("padded_vocab_size")):
                 # padding baked into the stored layouts (the JAX repacker's --tp)
                 config = dataclasses.replace(config, padded_heads=meta.get("padded_heads"),
                                              padded_vocab_size=meta.get("padded_vocab_size"))
         else:
-            params = zio.load_gpt2_raw(args.weights, config, dtype=dtype, device=args.device)
+            params = zio.load_gpt2_raw(args.weights, config, dtype=dtype, device=load_device)
     if args.quant and "lm_head" not in params:
         from zig_gpt2_tpu_torch.quant.quantize import quantize_params
 
-        params = quantize_params(params, mode="int8" if args.quant == "w8a8" else args.quant)
+        tp = 1
+        if mesh is not None:  # pad first: the quantized layouts are born aligned for tp
+            from zig_gpt2_tpu_torch.parallel.sharding import pad_for_tp
+
+            tp = mesh.tp
+            params, config = pad_for_tp(params, config, tp)
+        params = quantize_params(params, mode="int8" if args.quant == "w8a8" else args.quant,
+                                 tp=tp)
     if args.quant == "w8a8":
         config = dataclasses.replace(config, act_quant=True)
 
@@ -212,7 +301,7 @@ def main(argv=None) -> None:
             stop_tokens = [int(args.stop)]
 
     kv_quant = "int8" if args.kv_quant else None
-    device_name = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    device_name = torch.cuda.get_device_name(device) if args.device == "cuda" else "cpu"
     # --draft-model ngram composes with --batch-file: prompt lookup inside
     # the continuous batcher (one verify extend per round).
     spec_serve = args.draft_model == "ngram" and args.batch_file is not None
@@ -234,7 +323,7 @@ def main(argv=None) -> None:
         batcher = ContinuousBatcher(config, params, batch_size=args.batch_slots,
                                     max_seq=args.max_seq, sampling=sampling, kv_quant=kv_quant,
                                     decode_chunk=1 if spec_serve else (args.decode_chunk or 1),
-                                    device=args.device, **spec_kw)
+                                    device=device, mesh=mesh, **spec_kw)
         if args.prefix:
             batcher.register_prefix(encoder.encode(args.prefix))
         rid_to_prompt = {batcher.submit(encoder.encode(p), args.max_tokens, stop_tokens): p
@@ -251,8 +340,8 @@ def main(argv=None) -> None:
         return
 
     engine = InferenceEngine(config, params, encoder, max_seq=args.max_seq,
-                             decode_chunk=args.decode_chunk, device=args.device,
-                             kv_quant=kv_quant)
+                             decode_chunk=args.decode_chunk, device=device,
+                             kv_quant=kv_quant, mesh=mesh)
     metrics = GenerationMetrics()
     print(args.prompt, end="", flush=True)
     with profiler_trace(args.profile, args.device):

@@ -2,15 +2,19 @@
 
 The port's own copy of ``zig_gpt2_tpu.config``: the same names, fields and
 values, so one configuration describes a model in both packages. Fields
-that only steer the JAX package's mesh sharding (``spmd``, ``mesh``,
+that only steer the JAX package's XLA sharding (``spmd``, ``mesh``,
 ``manual_axis``, ``seq_parallel``) are left out; the fields that change
-results are kept.
+results are kept. Tensor-parallel serving adds one field of its own,
+``model_group``, on ``RankConfig``, a rank's per-shard config
+(``parallel.mesh.local_config``): it carries the model-axis group, and the
+model then inserts its collectives. On ``GPTConfig`` it is a class
+attribute, None, so that a config's fields stay the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +45,8 @@ class GPTConfig:
     # Ring KV cache for continuous batching; the batcher sets it unless
     # ZG2_RING=0.
     ring_cache: bool = False
+    # No model group on one device (see RankConfig).
+    model_group: ClassVar[Optional[object]] = None
 
     @property
     def head_dim(self) -> int:
@@ -64,6 +70,18 @@ class GPTConfig:
                      + E * 4 * E + 4 * E + 4 * E * E + E)
         return (self.vocab_size * E + self.context_size * E
                 + self.n_layers * per_block + 2 * E)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(GPTConfig):
+    """A rank's per-shard config under tensor parallelism
+    (``parallel.mesh.local_config``): ``model_group`` is the model axis's
+    ``parallel.distributed.Collectives``. The shapes are then shards (the
+    attention heads, the column linears' N, the row linears' K, the vocab
+    rows), and ``models.gpt2`` all-reduces after the embedding and each
+    row-parallel linear and masks phantom vocab by global id."""
+
+    model_group: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
 
 
 GPT2_124M = GPTConfig(50257, 1024, 12, 12, 768)

@@ -68,6 +68,18 @@ INT8/INT4 weights, float or INT8 KV cache:
   ``torch.inference_mode``); ``remat=True`` recomputes each block's
   activations in the backward pass (``torch.utils.checkpoint``).
   ``prefill``, ``decode_step`` and ``extend`` never build a graph.
+- Tensor parallelism (a rank's config from ``parallel.mesh.local_config``,
+  which carries ``model_group``): the same code runs on the rank's shards
+  (H/tp heads, the column linears' N/tp, the row linears' K/tp, V/tp vocab
+  rows) with three collective sites, the JAX package's step-level ones:
+  the vocab-parallel embedding (a masked local lookup, then an all-reduce),
+  each row-parallel c_proj (``_row_linear``: the f32 product all-reduced,
+  then cast to x's dtype, then the bias; INT4 all-gathers x and takes the
+  rank's two half-split feature ranges), and the lm_head's phantom-vocab
+  mask by global id. A w8a8 c_proj quantizes each activation row over the
+  rank's K in ``decode_step``, as the JAX step-level body does, and over
+  the whole row in ``prefill``, ``extend`` and ``forward``, as its GSPMD
+  programs do.
 """
 
 from __future__ import annotations
@@ -86,7 +98,8 @@ from zig_gpt2_tpu_torch.ops.attention import (decode_attention_deferred,
                                               pack_heads_rows, pack_heads_seq,
                                               unpack_heads_seq, unpack_pair_scales_seq)
 from zig_gpt2_tpu_torch.quant import kernels
-from zig_gpt2_tpu_torch.quant.quantize import is_quantized, pad_linear, quantized_linear
+from zig_gpt2_tpu_torch.quant.quantize import (is_quantized, pad_linear, quantized_linear,
+                                               quantized_product)
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -96,26 +109,31 @@ KVCache = Dict[str, torch.Tensor]
 # KV cache layout
 # ---------------------------------------------------------------------------
 
-def default_kv_packed(config: GPTConfig, device, mesh=None) -> bool:
+def default_kv_packed(config: GPTConfig, device, tp: Optional[int] = None) -> bool:
     """Whether a runtime on ``device`` serves the head-pair-packed KV cache:
-    the JAX package's rule (``prepare_serving`` on one device) where the
-    port's kernels run. ``ZG2_KV_PACKED``: ``0`` off; ``1`` on wherever the
-    layout is legal (head_dim 64, no mesh); ``auto`` (the default) on where
-    it is legal and the device is a CUDA card. For an INT8 cache the layout
-    changes the results (per-pair scales), so the card serves what the JAX
-    package serves on its chip.
+    the JAX package's rule (``prepare_serving``) where the port's kernels
+    run. ``ZG2_KV_PACKED``: ``0`` off; ``1`` on wherever the layout is legal
+    (head_dim 64, and under a mesh (``tp``, its model-parallel degree; None
+    on one device) an even head count per rank: pairs never straddle ranks,
+    and no phantom head is added); ``auto`` (the default) on
+    where it is legal and the device is a CUDA card. For an INT8 cache the
+    layout changes the results (per-pair scales), so the card serves what
+    the JAX package serves on its chip.
 
     A config that already asks for the packed layout keeps it, and raises
-    where the layout cannot run: a head_dim other than 64, or a mesh."""
+    where the layout cannot run: a head_dim other than 64, or an odd head
+    count per rank."""
+    local_odd = tp is not None and (config.attn_heads // tp) % 2 == 1
     if config.kv_packed:
         _check_packed(config)
-        if mesh is not None:
-            raise ValueError("the packed KV layout is single-device only (mesh given)")
+        if local_odd:
+            raise ValueError(f"the packed KV layout needs an even head count per rank, not "
+                             f"{config.attn_heads} over tp={tp}")
         return True
     opt = os.environ.get("ZG2_KV_PACKED", "auto")
     if opt not in ("0", "1", "auto"):
         raise ValueError(f"ZG2_KV_PACKED={opt!r}: expected 0, 1 or auto")
-    if opt == "0" or config.head_dim != 64 or mesh is not None:
+    if opt == "0" or config.head_dim != 64 or local_odd:
         return False
     return opt == "1" or torch.device(device).type == "cuda"
 
@@ -321,6 +339,43 @@ def _linear(p: Dict[str, torch.Tensor], x: torch.Tensor, config: GPTConfig,
     return ops.linear(x, p["w"], p.get("b"))
 
 
+def _row_linear(p: Dict[str, torch.Tensor], x: torch.Tensor, config: GPTConfig,
+                wmm: bool = False, full_row_scale: bool = True) -> torch.Tensor:
+    """A row-parallel linear (the c_proj pair): ``_linear`` on one device.
+    Under tensor parallelism x is this rank's K slice (the output of the
+    column-parallel linear before it) and the weight holds the matching K
+    rows: the product in f32 (no bias), all-reduced over the model group,
+    then cast to x's dtype, then the replicated bias. An INT4 weight's rows
+    hold two half-split feature ranges, so x is all-gathered and those
+    cut out (``int4_row_shard_slices``). A w8a8 weight quantizes each x row
+    over its whole K when ``full_row_scale`` (``w8a8_row_full_scale``),
+    else over the rank's K. A float 16-bit product is rounded to its dtype
+    once before the sum."""
+    group = config.model_group
+    if group is None:
+        return _linear(p, x, config, wmm)
+    from zig_gpt2_tpu_torch.parallel import shard_kernels
+
+    *lead, k_local = x.shape
+    x2 = x.reshape(-1, k_local)
+    w8a8 = config.act_quant and "qw" in p and p["scale"].shape[-2] == 1
+    if w8a8 and full_row_scale:  # the integer sums are reduced inside
+        y = shard_kernels.w8a8_row_full_scale(x2, p["qw"], p["scale"], group)
+    elif is_quantized(p):
+        q = p
+        if "qw4" in p:
+            x2, scale = shard_kernels.int4_row_shard_slices(
+                group.all_gather_cat(x2, dim=1), p["scale"], group.size, group.index)
+            q = {"qw4": p["qw4"], "scale": scale}
+        y = group.all_reduce(quantized_product(q, x2, config.act_quant).float())
+    elif wmm and x2.shape[0] <= _qmm_cap(config, int4=False):
+        y = group.all_reduce(kernels.wmm(x2.contiguous(), p["w"]))
+    else:
+        y = group.all_reduce(torch.matmul(x2, p["w"]).float())
+    y = y.to(x.dtype).reshape(*lead, y.shape[-1])
+    return y if p.get("b") is None else y + p["b"]
+
+
 def _layer(tree: Params, idx: int) -> Params:
     """Views of every (L, ...) leaf of a stacked subtree at layer idx."""
     return {k: _layer(v, idx) if isinstance(v, dict) else v[idx]
@@ -349,10 +404,10 @@ def _block_prefill(x: torch.Tensor, bp: Params, config: GPTConfig,
     q, k, v = (t.transpose(1, 2) for t in _qkv(bp["attn"], h, config))
     attn = ops.causal_attention(q, k, v, length_mask=length_mask)
     attn = attn.transpose(1, 2).reshape(B, T, -1)
-    x = x + _linear(bp["attn"]["c_proj"], attn, config)
+    x = x + _row_linear(bp["attn"]["c_proj"], attn, config)
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
     h = ops.gelu(_linear(bp["mlp"]["c_fc"], h, config))
-    x = x + _linear(bp["mlp"]["c_proj"], h, config)
+    x = x + _row_linear(bp["mlp"]["c_proj"], h, config)
     return x, k, v
 
 
@@ -399,29 +454,46 @@ def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
                                          layer=idx, start=start, packed=packed)
         _put_row_stacked(caches["k"], k, idx, wpos)
         _put_row_stacked(caches["v"], v, idx, wpos)
-    x = x + _linear(bp["attn"]["c_proj"], attn.reshape(x.shape[0], -1), config, wmm)
+    x = x + _row_linear(bp["attn"]["c_proj"], attn.reshape(x.shape[0], -1), config, wmm,
+                        full_row_scale=False)
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
     h = ops.gelu(_linear(bp["mlp"]["c_fc"], h, config, wmm))
-    return x + _linear(bp["mlp"]["c_proj"], h, config, wmm)
+    return x + _row_linear(bp["mlp"]["c_proj"], h, config, wmm, full_row_scale=False)
 
 
 def _lm_head(params: Params, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
     """logits = x @ wte^T, or ``params["lm_head"]`` (untied, quantized by
     ``quantize_params``; w8a8 under ``config.act_quant``) when present;
-    padded vocab rows are masked."""
+    padded vocab rows are masked (under tensor parallelism the logits are
+    the rank's vocab slice: its ids are offset to global ones first)."""
     if "lm_head" in params:
         logits = _linear(params["lm_head"], x, config)
     else:
         logits = torch.matmul(x, params["wte"].T)
     if config.padded_vocab_size is not None:
-        ids = torch.arange(logits.shape[-1], device=logits.device)
+        vl = logits.shape[-1]
+        first = config.model_group.index * vl if config.model_group is not None else 0
+        ids = torch.arange(first, first + vl, device=logits.device)
         logits = logits.masked_fill(ids >= config.vocab_size, ops.MASK_VALUE)
     return logits
 
 
-def _embed(params: Params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    return (ops.embedding(tokens.long(), params["wte"])
-            + ops.embedding(pos.long(), params["wpe"]))
+def _embed(params: Params, tokens: torch.Tensor, pos: torch.Tensor,
+           config: GPTConfig) -> torch.Tensor:
+    """Token plus position embeddings. Under tensor parallelism wte is the
+    rank's vocab rows: a masked local lookup (zero for ids outside them),
+    all-reduced over the model group (the vocab-parallel embedding)."""
+    wte, group = params["wte"], config.model_group
+    if group is None:
+        tok = ops.embedding(tokens.long(), wte)
+    else:
+        vl = wte.shape[0]
+        local = tokens.long() - group.index * vl
+        ok = (local >= 0) & (local < vl)
+        tok = ops.embedding(local.clamp(0, vl - 1), wte)
+        tok = group.all_reduce(torch.where(ok[..., None], tok, torch.zeros((), dtype=tok.dtype,
+                                                                          device=tok.device)))
+    return tok + ops.embedding(pos.long(), params["wpe"])
 
 
 # ---------------------------------------------------------------------------
@@ -440,7 +512,7 @@ def forward(params: Params, tokens: torch.Tensor, config: GPTConfig,
     recomputed in the backward pass instead of kept: activation memory for
     compute, as the JAX package's ``jax.checkpoint``)."""
     T = tokens.shape[1]
-    x = _embed(params, tokens, torch.arange(T, device=tokens.device))
+    x = _embed(params, tokens, torch.arange(T, device=tokens.device), config)
     recompute = remat and torch.is_grad_enabled()
     for idx in range(config.n_layers):
         bp = _layer(params["blocks"], idx)
@@ -464,7 +536,7 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
     _check_packed_weights(config)
     B, T = tokens.shape
     pos = torch.arange(T, device=tokens.device)
-    x = _embed(params, tokens, pos)
+    x = _embed(params, tokens, pos, config)
     lengths = lengths.to(device=tokens.device, dtype=torch.int32)
     length_mask = pos[None, :] < lengths[:, None]
     for idx in range(config.n_layers):
@@ -498,7 +570,7 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     _check_packed_weights(config)
     pos = cache["length"]
     rows = cache["k"].shape[-2]
-    x = _embed(params, tokens, pos.clamp(max=params["wpe"].shape[0] - 1))
+    x = _embed(params, tokens, pos.clamp(max=params["wpe"].shape[0] - 1), config)
     if config.ring_cache:
         start, wpos = cache["start"], cache["wptr"]
     else:
@@ -556,10 +628,10 @@ def _block_extend(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
         _put_window(caches["v"], v, idx, rows)
         attn = ops.extend_attention(q, cache_at("k"), cache_at("v"), base, valid)
     attn = attn.transpose(1, 2).reshape(B, T, -1)
-    x = x + _linear(bp["attn"]["c_proj"], attn, config, wmm)
+    x = x + _row_linear(bp["attn"]["c_proj"], attn, config, wmm)
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
     h = ops.gelu(_linear(bp["mlp"]["c_fc"], h, config, wmm))
-    return x + _linear(bp["mlp"]["c_proj"], h, config, wmm)
+    return x + _row_linear(bp["mlp"]["c_proj"], h, config, wmm)
 
 
 @torch.no_grad()
@@ -586,7 +658,7 @@ def extend(params: Params, cache: KVCache, tokens: torch.Tensor, valid: torch.Te
     S = cache["k"].shape[-2]
     steps = torch.arange(T, device=tokens.device)
     pos = (base[:, None] + steps[None, :]).clamp(max=params["wpe"].shape[0] - 1)
-    x = _embed(params, tokens, pos)
+    x = _embed(params, tokens, pos, config)
     valid = valid.to(device=tokens.device, dtype=torch.int32)
     rows = (base.clamp(max=S - T)[:, None] + steps[None, :]).long()
     wmm = _use_wmm()

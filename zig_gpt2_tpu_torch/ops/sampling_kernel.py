@@ -105,7 +105,9 @@ def sample_categorical(logits, seeds, temperature: float,
     zmax (B,) f32 the winning z* = max over kept j of logit_j * (1/T) + g_j;
     the ids do not depend on the flag. A CPU tensor runs the plain version; a
     CUDA tensor launches the kernel (one launch per call, the vocab split and
-    its combine inside it: ``sampler_geometry``) or raises."""
+    its combine inside it: ``sampler_geometry``) or raises. Launches count in
+    ``sample_categorical.launches``, those with ``return_max`` also in
+    ``sample_categorical.max_launches``."""
     if logits.device.type == "cpu":
         return sample_categorical_plain(logits, seeds, temperature, thresh, return_max)
     if logits.device.type != "cuda":
@@ -146,7 +148,9 @@ def sample_categorical(logits, seeds, temperature: float,
         _DTYPE_CODES[logits.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "sample_categorical")
     sample_categorical.launches += 1
+    sample_categorical.max_launches += return_max
     return (out, zmax) if return_max else out
 
 
 sample_categorical.launches = 0
+sample_categorical.max_launches = 0  # the launches with return_max (the vocab-sharded draw)

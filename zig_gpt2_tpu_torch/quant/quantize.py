@@ -27,8 +27,12 @@ INT8 linear quantizes its activations per row instead: up to
 ``w8a8_matmul``; grouped INT8 and INT4 stay weight-only. ``ZG2_QMM=0``
 (the JAX package's escape hatch) sends every row count to the plain
 routes instead: ``w8a8_matmul``, the grouped matmul up to GEMV_MAX_ROWS
-rows, dequantize-then-matmul above. The JAX package's tensor-parallel
-layouts (``tp`` > 1) are left out: the port serves one card.
+rows, dequantize-then-matmul above.
+
+Tensor-parallel layouts (``tp`` > 1, the JAX package's): a row-parallel
+linear (c_proj) shards K over tp ranks, so its scale groups must divide
+the per-rank K, and for INT4 also K/2 and K/(2 tp) (``pick_group_size``);
+``quantize_params(tp=)`` applies that to the c_proj linears only.
 """
 
 from __future__ import annotations
@@ -53,13 +57,17 @@ _BLOCK_LINEARS = (
 )
 
 
-def pick_group_size(k: int, mode: str) -> int:
-    """Largest group size that divides K (and K/2 for INT4)."""
-    need = [k, k // 2] if mode == "int4" else [k]
+def pick_group_size(k: int, mode: str, tp: int = 1) -> int:
+    """Largest group size that divides K and K/tp (and, for INT4's
+    half-split packing, K/2 and K/(2 tp)): with ``tp`` > 1 a row-parallel
+    layer's groups then never straddle a rank's K range."""
+    need = [k, k // tp]
+    if mode == "int4":
+        need += [k // 2, k // (2 * tp)]
     for g in _GROUP_CANDIDATES:
         if all(n % g == 0 for n in need):
             return g
-    raise ValueError(f"no valid group size for K={k} ({mode})")
+    raise ValueError(f"no valid group size for K={k} ({mode}, tp={tp})")
 
 
 def is_quantized(p: Dict[str, Any]) -> bool:
@@ -67,15 +75,17 @@ def is_quantized(p: Dict[str, Any]) -> bool:
 
 
 def quantize_linear(p: Dict[str, Any], mode: str = "int8",
-                    group_size: Optional[int] = None) -> Dict[str, Any]:
+                    group_size: Optional[int] = None, tp: int = 1) -> Dict[str, Any]:
     """Quantize one ``{"w": (..., K, N), "b"?}`` linear. INT8 is
-    per-channel unless ``group_size`` is given; INT4 is grouped."""
+    per-channel unless ``group_size`` is given; INT4 is grouped, its group
+    from ``pick_group_size(K, mode, tp)`` unless given (per-channel scales
+    need no alignment: ``tp`` constrains grouped modes only)."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"unknown quantization mode {mode!r}")
     w = p["w"]
     k, n = w.shape[-2], w.shape[-1]
     g = k if group_size is None and mode == "int8" else (
-        group_size or pick_group_size(k, mode))
+        group_size or pick_group_size(k, mode, tp))
     if k % g:
         raise ValueError(f"K={k} not divisible by group_size={g}")
     qmax = 7.0 if mode == "int4" else 127.0
@@ -199,6 +209,29 @@ def _use_qmm() -> bool:
     return opt == "1"
 
 
+def quantized_product(p: Dict[str, Any], x2: torch.Tensor,
+                      act_quant: bool = False) -> torch.Tensor:
+    """(rows, K) x2 @ dequant(p) -> (rows, N), no bias: the routes of
+    ``quantized_linear`` (f32 from the kernel, the w8a8 and grouped plain
+    routes; x2's dtype from the dequantize-then-matmul route above
+    GEMV_MAX_ROWS). The row-parallel linear all-reduces this before the
+    cast and the bias."""
+    int4 = "qw4" in p
+    q = p["qw4"] if int4 else p["qw"]
+    rows = x2.shape[0]
+    w8a8 = act_quant and not int4 and p["scale"].shape[-2] == 1
+    gemv = _use_qmm()
+    if w8a8 and gemv and rows <= kernels.W8A8_MAX_ROWS:
+        return kernels.qmm(x2.contiguous(), q, p["scale"], w8a8=True)
+    if w8a8:
+        return w8a8_matmul(x2, q, p["scale"])
+    if gemv and rows <= kernels.GEMV_MAX_ROWS:
+        return kernels.qmm(x2.contiguous(), q, p["scale"], int4=int4)
+    if rows <= kernels.GEMV_MAX_ROWS:
+        return grouped_matmul(x2, unpack_int4(q) if int4 else q, p["scale"])
+    return torch.matmul(x2, dequantize_linear(p, dtype=x2.dtype)["w"])
+
+
 def quantized_linear(p: Dict[str, Any], x: torch.Tensor,
                      act_quant: bool = False) -> torch.Tensor:
     """y = x @ dequant(p) (+ b), in x's dtype. Up to GEMV_MAX_ROWS rows run
@@ -209,25 +242,9 @@ def quantized_linear(p: Dict[str, Any], x: torch.Tensor,
     ``ZG2_QMM=0`` no row count runs the kernel: w8a8 takes ``w8a8_matmul``
     and up to GEMV_MAX_ROWS rows ``grouped_matmul``. The f32 product is cast
     to x's dtype before the bias is added."""
-    int4 = "qw4" in p
-    q = p["qw4"] if int4 else p["qw"]
     *lead, k_in = x.shape
-    x2 = x.reshape(-1, k_in)
-    n = q.shape[-1]
-    rows = x2.shape[0]
-    w8a8 = act_quant and not int4 and p["scale"].shape[-2] == 1
-    gemv = _use_qmm()
-    if w8a8 and gemv and rows <= kernels.W8A8_MAX_ROWS:
-        y = kernels.qmm(x2.contiguous(), q, p["scale"], w8a8=True)
-    elif w8a8:
-        y = w8a8_matmul(x2, q, p["scale"])
-    elif gemv and rows <= kernels.GEMV_MAX_ROWS:
-        y = kernels.qmm(x2.contiguous(), q, p["scale"], int4=int4)
-    elif rows <= kernels.GEMV_MAX_ROWS:
-        y = grouped_matmul(x2, unpack_int4(q) if int4 else q, p["scale"])
-    else:
-        y = torch.matmul(x2, dequantize_linear(p, dtype=x.dtype)["w"])
-    y = y.to(x.dtype).reshape(*lead, n)
+    y = quantized_product(p, x.reshape(-1, k_in), act_quant)
+    y = y.to(x.dtype).reshape(*lead, y.shape[-1])
     if p.get("b") is not None:
         y = y + p["b"]
     return y
@@ -242,16 +259,15 @@ def quantize_params(params: Dict[str, Any], mode: str = "int8",
     still the embedding table). The lm_head is INT8 even in INT4 mode, as
     in the JAX package; ``group_size`` (None: per-channel INT8, or
     ``pick_group_size`` for INT4) applies to every linear, the lm_head
-    included. ``tp`` > 1 (layouts aligned for tensor parallelism) raises:
-    it comes with the multi-GPU slice of the port."""
-    if tp != 1:
-        raise ValueError(f"tp={tp}: tensor-parallel layouts come with the multi-GPU slice "
-                         f"of the port (tp=1 only)")
+    included. ``tp``: the model-parallel degree the row-parallel c_proj
+    layouts are aligned for (``pick_group_size``); pad the tree for it
+    first (``parallel.sharding.pad_for_tp``)."""
     params = dict(params)
     blocks = dict(params["blocks"])
     for mod, name in _BLOCK_LINEARS:
         sub = dict(blocks[mod])
-        sub[name] = quantize_linear(sub[name], mode, group_size)
+        sub[name] = quantize_linear(sub[name], mode, group_size,
+                                    tp=tp if name == "c_proj" else 1)
         blocks[mod] = sub
     params["blocks"] = blocks
     if quantize_lm_head and "lm_head" not in params:

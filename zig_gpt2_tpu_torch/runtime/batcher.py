@@ -42,8 +42,17 @@ one (B, spec_k + 1) verify extend (``runtime.speculative``), committing 1
 to spec_k + 1 tokens per slot per round, with one host sync per step. Its
 cache is linear and unpacked (it sees prefill and extend only). When the
 committed tokens per live slot-round over a window of steps fall below
-``spec_min_tpr``, the batcher switches to plain decode for good. A device
-mesh (``mesh=``) is not in the port yet.
+``spec_min_tpr``, the batcher switches to plain decode for good.
+
+Tensor- and data-parallel serving (``mesh=``, a ``parallel.mesh.Mesh``):
+every rank runs the same host scheduler over all B slots; data rank d
+holds slots [d B/dp, (d + 1) B/dp) in its cache and prefills only the
+admissions that land there, and each step's (chunk, B/dp) token block is
+gathered over the data group, so that every rank's bookkeeping sees the
+same B lanes. Each decode step runs the per-rank model and the
+vocab-sharded draw ``sampling.sample_manual``. Plain decode serving only,
+on a ring or a linear cache, float or INT8: speculative serving and prefix
+caching under a mesh are left for slice 12 of the port.
 """
 
 from __future__ import annotations
@@ -61,8 +70,9 @@ import torch
 from zig_gpt2_tpu_torch.config import GPTConfig, SamplingConfig
 from zig_gpt2_tpu_torch.models import gpt2
 from zig_gpt2_tpu_torch.runtime import speculative as spec_mod
-from zig_gpt2_tpu_torch.runtime.engine import _bucket, _resolve_device, match_prefix
-from zig_gpt2_tpu_torch.runtime.sampling import sample
+from zig_gpt2_tpu_torch.runtime.engine import (_bucket, _check_mesh, _resolve_device,
+                                               match_prefix)
+from zig_gpt2_tpu_torch.runtime.sampling import data_rank_seed, sample, sample_manual
 from zig_gpt2_tpu_torch.weights import tree_map
 
 
@@ -191,10 +201,15 @@ class ContinuousBatcher:
         proposals from the last ``spec_ngram`` tokens, ``spec_chunk``
         rounds per host sync (decode_chunk must stay 1). ``spec_min_tpr``:
         the auto-off threshold on windowed tokens per round (0 keeps
-        speculation on)."""
+        speculation on).
+
+        ``mesh``: serve over a ``parallel.mesh.Mesh`` (plain decode only);
+        ``params`` are the full weights, batch_size must divide by its dp."""
         if mesh is not None:
-            raise NotImplementedError("serving on a device mesh comes with the "
-                                      "multi-GPU slice")
+            _check_mesh(mesh)
+            if speculative is not None:
+                raise NotImplementedError("speculative serving under a mesh comes with slice "
+                                          "12 of the port")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
         self._spec = None
@@ -209,16 +224,27 @@ class ContinuousBatcher:
                 raise ValueError("spec_k must be >= 1")
             self._spec = (spec_k, max(int(spec_ngram), 1), max(int(spec_chunk), 1))
         self.device = _resolve_device(device)
+        self.mesh = mesh
         # Speculative serving extends and never decode-steps until auto-off:
         # a linear, unpacked cache.
         self._ring = self._spec is None and os.environ.get("ZG2_RING", "1") != "0"
-        params = tree_map(lambda t: t.to(self.device), params)
         config = dataclasses.replace(config, ring_cache=self._ring)
-        if self._spec is None:
-            self.params, self.config = gpt2.prepare_serving(params, config, self.device)
+        # This rank's slots: [_first, _first + _lanes) of the batch.
+        self._lanes, self._first = batch_size, 0
+        if mesh is not None:
+            from zig_gpt2_tpu_torch.parallel.mesh import prepare_serving
+
+            self.params, self.config = prepare_serving(params, config, mesh, batch_size,
+                                                       self.device)
+            self._lanes = batch_size // mesh.dp
+            self._first = mesh.data_index * self._lanes
         else:
-            self.params = gpt2.fuse_qkv_if_enabled(params)
-            self.config = dataclasses.replace(config, kv_packed=False)
+            params = tree_map(lambda t: t.to(self.device), params)
+            if self._spec is None:
+                self.params, self.config = gpt2.prepare_serving(params, config, self.device)
+            else:
+                self.params = gpt2.fuse_qkv_if_enabled(params)
+                self.config = dataclasses.replace(config, kv_packed=False)
         self.batch_size = batch_size
         self.max_seq = max_seq or config.context_size
         self.sampling = sampling
@@ -249,10 +275,12 @@ class ContinuousBatcher:
             cache_rows = self.max_seq + self.decode_chunk - 1 + (1 if self._ring else 0)
         self._cache_rows = cache_rows
         self._cache_dtype = cache_dtype or self.params["wte"].dtype
-        self.cache = gpt2.init_kv_cache(self.config, batch_size, cache_rows,
+        self.cache = gpt2.init_kv_cache(self.config, self._lanes, cache_rows,
                                         dtype=self._cache_dtype, device=self.device,
                                         quant=kv_quant)
-        self._generator = torch.Generator(device=self.device).manual_seed(sampling.seed)
+        seed = sampling.seed if mesh is None else data_rank_seed(sampling.seed,
+                                                                 mesh.data_index, mesh.dp)
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.metrics = BatcherMetrics()
         # Prefix cache: [(token tuple, stored B=1 linear cache)], longest first.
         self._prefixes: List[tuple] = []
@@ -271,7 +299,7 @@ class ContinuousBatcher:
         self._next_rid = 0
         # Next feed token per slot, on the device: admissions write into it
         # and each chunk returns the next one, so a step costs one sync.
-        self._tokens = torch.zeros((batch_size,), dtype=torch.int32, device=self.device)
+        self._tokens = torch.zeros((self._lanes,), dtype=torch.int32, device=self.device)
 
     # -- client API -----------------------------------------------------------
 
@@ -303,6 +331,9 @@ class ContinuousBatcher:
         from the stored rows and compute only their suffix (one extend).
         Memory: one slot's cache per registered prefix. Output is
         unchanged."""
+        if self.mesh is not None:
+            raise NotImplementedError("prefix caching under a mesh comes with slice 12 of "
+                                      "the port")
         prefix_ids = [int(t) for t in prefix_ids]
         if not prefix_ids:
             raise ValueError("prefix must contain at least one token")
@@ -346,7 +377,10 @@ class ContinuousBatcher:
                                                   self.config)
             token = self._sample(logits)
         self._tokens = token
-        block = torch.stack(consumed).cpu().numpy()  # (chunk, B): the one host sync
+        block = torch.stack(consumed)
+        if self.mesh is not None and self.mesh.dp > 1:  # (dp, chunk, B/dp) -> (chunk, B)
+            block = self.mesh.data.all_gather(block).permute(1, 0, 2).reshape(len(consumed), -1)
+        block = block.cpu().numpy()  # (chunk, B): the one host sync
         dt = time.perf_counter() - t0
         self.metrics.decode_s += dt
         self.metrics.sync_ms.append(dt * 1000.0)
@@ -374,6 +408,9 @@ class ContinuousBatcher:
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         s = self.sampling
+        if self.mesh is not None:
+            return sample_manual(logits, self._generator, s.temperature, s.top_k, s.top_p,
+                                 self.mesh.model)
         return sample(logits, self._generator, s.temperature, s.top_k, s.top_p)
 
     def _consume(self, i: int, req: Request, toks: List[int],
@@ -509,21 +546,27 @@ class ContinuousBatcher:
     def _admit_group(self, bucket: int, group: List[tuple]) -> None:
         """One prefill of k prompts padded to ``bucket`` into a linear k-lane
         cache, its rows spliced into the shared cache at the slots' batch
-        indices, and each lane's first token sampled into the feed vector."""
+        indices, and each lane's first token sampled into the feed vector.
+        Under a mesh a rank prefills the group's slots it holds."""
         t0 = time.perf_counter()
         k = len(group)
-        toks = np.zeros((k, bucket), np.int32)
-        lens = np.zeros((k,), np.int32)
-        idxs = np.zeros((k,), np.int64)
-        for j, (i, req) in enumerate(group):
-            toks[j, :len(req.prompt_ids)] = req.prompt_ids
-            lens[j] = len(req.prompt_ids)
-            idxs[j] = i
-        toks, lens, idxs = self._to_device(toks), self._to_device(lens), self._to_device(idxs)
-        lanes = gpt2.init_kv_cache(self.config, k, bucket, dtype=self.cache["k"].dtype,
-                                   device=self.device, quant=self.kv_quant, ring=False)
-        lanes, logits = gpt2.prefill(self.params, lanes, toks, lens, self.config)
-        self._admit_epilogue(lanes, logits, idxs, toks, lens)
+        mine = [(i - self._first, req) for i, req in group
+                if self._first <= i < self._first + self._lanes]
+        if mine:
+            toks = np.zeros((len(mine), bucket), np.int32)
+            lens = np.zeros((len(mine),), np.int32)
+            idxs = np.zeros((len(mine),), np.int64)
+            for j, (i, req) in enumerate(mine):
+                toks[j, :len(req.prompt_ids)] = req.prompt_ids
+                lens[j] = len(req.prompt_ids)
+                idxs[j] = i
+            toks, lens = self._to_device(toks), self._to_device(lens)
+            idxs = self._to_device(idxs)
+            lanes = gpt2.init_kv_cache(self.config, len(mine), bucket,
+                                       dtype=self.cache["k"].dtype, device=self.device,
+                                       quant=self.kv_quant, ring=False)
+            lanes, logits = gpt2.prefill(self.params, lanes, toks, lens, self.config)
+            self._admit_epilogue(lanes, logits, idxs, toks, lens)
         for i, req in group:
             self._seat(i, req)
         self.metrics.prefills += k

@@ -18,6 +18,15 @@ prefix are computed once and kept; a later prompt that starts with it
 (``match_prefix``: the longest usable overlap) copies the stored rows and
 runs only its suffix, as one ``gpt2.extend`` window. The stored cache is
 never written by a hit.
+
+Tensor- and data-parallel serving (``mesh=``, a ``parallel.mesh.Mesh``):
+every rank of the mesh builds the engine from the same full weights and
+keeps its shard (``parallel.mesh.prepare_serving``); each data rank holds
+batch_size / dp lanes, each model rank the per-shard tensors, and every
+step runs the per-rank model (its collectives on the model group) and the
+vocab-sharded draw ``sampling.sample_manual``. Every rank returns the same
+tokens: a rank's lanes are gathered over the data group. Prefix caching
+under a mesh is left for slice 12 of the port.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import torch
 
 from zig_gpt2_tpu_torch.config import GPTConfig, SamplingConfig
 from zig_gpt2_tpu_torch.models import gpt2
-from zig_gpt2_tpu_torch.runtime.sampling import sample
+from zig_gpt2_tpu_torch.runtime.sampling import data_rank_seed, sample, sample_manual
 from zig_gpt2_tpu_torch.weights import tree_map
 
 
@@ -142,6 +151,14 @@ def match_prefix(prefixes, prompt, buckets, cache_rows):
     return best
 
 
+def _check_mesh(mesh) -> None:
+    from zig_gpt2_tpu_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), not "
+                        f"{type(mesh).__name__}")
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -166,6 +183,7 @@ class InferenceEngine:
         device="cuda",
         kv_quant: Optional[str] = None,
         cache_dtype: Optional[torch.dtype] = None,
+        mesh=None,
     ):
         """``decode_chunk``: decode steps run per host sync in the streaming
         path. Stop and budget checks happen per chunk and overshoot is
@@ -176,13 +194,27 @@ class InferenceEngine:
         ``kv_quant``: None for a float KV cache in ``cache_dtype`` (default
         the weights' (wte's) dtype), or "int8" for int8 rows with f32 scales
         per (token, head), or per (token, head pair) in the packed layout.
-        ``params`` may be float or quantized (``quant.quantize_params``)."""
+        ``params`` may be float or quantized (``quant.quantize_params``).
+
+        ``mesh``: serve over a ``parallel.mesh.Mesh``; ``params`` are the
+        full weights (a quantized tree already padded and aligned for the
+        mesh's tp), batch_size must divide by its dp."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
         self.device = _resolve_device(device)
         self.kv_quant = kv_quant
-        self.params, self.config = gpt2.prepare_serving(
-            tree_map(lambda t: t.to(self.device), params), config, self.device)
+        self.mesh = mesh
+        if mesh is None:
+            self.params, self.config = gpt2.prepare_serving(
+                tree_map(lambda t: t.to(self.device), params), config, self.device)
+            self._lanes = batch_size
+        else:
+            from zig_gpt2_tpu_torch.parallel.mesh import prepare_serving
+
+            _check_mesh(mesh)
+            self.params, self.config = prepare_serving(params, config, mesh, batch_size,
+                                                       self.device)
+            self._lanes = batch_size // mesh.dp
         self.cache_dtype = cache_dtype or self.params["wte"].dtype
         self.encoder = encoder
         self.batch_size = batch_size
@@ -197,7 +229,7 @@ class InferenceEngine:
         self._prefixes: List[tuple] = []
 
     def new_cache(self) -> gpt2.KVCache:
-        return gpt2.init_kv_cache(self.config, self.batch_size, self._cache_rows,
+        return gpt2.init_kv_cache(self.config, self._lanes, self._cache_rows,
                                   dtype=self.cache_dtype, device=self.device,
                                   quant=self.kv_quant)
 
@@ -209,6 +241,9 @@ class InferenceEngine:
         if self.batch_size != 1:
             raise ValueError("register_prefix is single-sequence (batch_size == 1); "
                              "use ContinuousBatcher")
+        if self.mesh is not None:
+            raise NotImplementedError("prefix caching under a mesh comes with slice 12 of "
+                                      "the port")
         prefix_ids = [int(t) for t in prefix_ids]
         if not prefix_ids:
             raise ValueError("prefix must contain at least one token")
@@ -245,13 +280,26 @@ class InferenceEngine:
         toks = []
         for _ in range(n):
             cache, logits = gpt2.decode_step(self.params, cache, token, self.config)
-            token = sample(logits, generator, sampling.temperature,
-                           sampling.top_k, sampling.top_p)
+            token = self._draw(logits, generator, sampling)
             toks.append(token)
         return torch.stack(toks), token
 
+    def _draw(self, logits, generator, sampling: SamplingConfig) -> torch.Tensor:
+        """(lanes,) next tokens: ``sample``, or under a mesh the
+        vocab-sharded ``sample_manual`` over the model group."""
+        if self.mesh is None:
+            return sample(logits, generator, sampling.temperature, sampling.top_k,
+                          sampling.top_p)
+        return sample_manual(logits, generator, sampling.temperature, sampling.top_k,
+                             sampling.top_p, self.mesh.model)
+
     def _generator(self, sampling: SamplingConfig) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(sampling.seed)
+        """The draw's generator: seeded from ``sampling.seed``, per data rank
+        under a mesh (``data_rank_seed``)."""
+        seed = sampling.seed
+        if self.mesh is not None:
+            seed = data_rank_seed(seed, self.mesh.data_index, self.mesh.dp)
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     # -- streaming generation -------------------------------------------------
 
@@ -304,8 +352,7 @@ class InferenceEngine:
             tokens[0, :n] = prompt_ids
             cache, logits = self._prefill(tokens, [n])
         generator = self._generator(sampling)
-        token = sample(logits, generator, sampling.temperature, sampling.top_k,
-                       sampling.top_p)
+        token = self._draw(logits, generator, sampling)
         first = int(token[0])  # one sync: prefill time includes the first draw
         metrics.prefill_ms = (time.perf_counter() - t0) * 1000.0
 
@@ -318,8 +365,7 @@ class InferenceEngine:
                 if tok_host in stops:
                     break
                 cache, logits = gpt2.decode_step(self.params, cache, token, self.config)
-                token = sample(logits, generator, sampling.temperature,
-                               sampling.top_k, sampling.top_p)
+                token = self._draw(logits, generator, sampling)
                 nxt = int(token[0])  # one host sync per token
                 metrics.generated_tokens += 1
                 metrics.per_token_ms.append((time.perf_counter() - t1) * 1000.0)
@@ -383,10 +429,18 @@ class InferenceEngine:
         Returns (B, n_steps) ids: the tokens sampled after each of the
         n_steps decode steps (the token drawn from the prefill logits
         feeds the first step and is not among them, as in the JAX engine).
+        Under a mesh each data rank runs its B / dp rows and every rank
+        returns all B.
         """
-        cache, logits = self._prefill(np.asarray(prompt_ids), lengths)
+        prompt_ids, lengths = np.asarray(prompt_ids), np.asarray(lengths)
+        if self.mesh is not None:
+            rows = slice(self.mesh.data_index * self._lanes,
+                         (self.mesh.data_index + 1) * self._lanes)
+            prompt_ids, lengths = prompt_ids[rows], lengths[rows]
+        cache, logits = self._prefill(prompt_ids, lengths)
         generator = self._generator(sampling)
-        token = sample(logits, generator, sampling.temperature, sampling.top_k,
-                       sampling.top_p)
+        token = self._draw(logits, generator, sampling)
         toks, _ = self._run_chunk(n_steps, cache, token, generator, sampling)
+        if self.mesh is not None and self.mesh.dp > 1:  # (dp, n, B/dp) -> (n, B)
+            toks = self.mesh.data.all_gather(toks).permute(1, 0, 2).reshape(n_steps, -1)
         return toks.T.cpu().numpy()

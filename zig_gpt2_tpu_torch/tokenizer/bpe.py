@@ -10,6 +10,13 @@ number characters such as '²', '½' and 'Ⅻ'. Whitespace is the ``regex``
 module's ``\\s``, which unlike ``re``'s leaves out U+001C..U+001F. The two
 agree wherever the interpreter's Unicode tables and the ``regex`` module's
 agree (characters assigned only in a newer Unicode version may differ).
+
+``Encoder(native=True)`` (the default) runs the merge loop in the C++ core
+of ``zig_gpt2_tpu_torch.native`` where that loads, as the JAX package's
+encoder does: only for ``mode="bpe"`` with contiguous ids, one native call
+per new pre-token (its ids cached), and the Python core for a pre-token
+holding a piece the vocab lacks. The ids are the same either way;
+``native_active`` says which core runs.
 """
 
 from __future__ import annotations
@@ -88,11 +95,12 @@ def _merge(word: Tuple[str, ...], a: str, b: str) -> Tuple[str, ...]:
 
 class Encoder:
     """Byte-level BPE encoder/decoder (merge-rank BPE, or the reference's
-    greedy longest-prefix match with ``mode="greedy"``)."""
+    greedy longest-prefix match with ``mode="greedy"``). ``native``: use
+    the C++ merge core where it loads (see the module docstring)."""
 
     def __init__(self, vocab: Dict[str, int],
                  merges: Optional[Sequence[Tuple[str, str]]] = None,
-                 mode: str = "bpe"):
+                 mode: str = "bpe", native: bool = True):
         if mode not in ("bpe", "greedy"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode == "bpe" and merges is None:
@@ -104,6 +112,36 @@ class Encoder:
         self.byte_to_unicode = bytes_to_unicode()
         self.unicode_to_byte = {v: k for k, v in self.byte_to_unicode.items()}
         self._bpe_cache: Dict[str, Tuple[str, ...]] = {}
+        self._native = self._init_native() if native and mode == "bpe" else None
+        self._native_ids: Dict[str, List[int]] = {}
+
+    @property
+    def native_active(self) -> bool:
+        """Whether the C++ merge core encodes (and decodes) for this encoder."""
+        return self._native is not None
+
+    def _to_bytes(self, token: str) -> Optional[bytes]:
+        """A unicode-space token's bytes (None if a character is unmapped)."""
+        try:
+            return bytes(self.unicode_to_byte[ch] for ch in token)
+        except KeyError:
+            return None
+
+    def _init_native(self):
+        """The C++ core over this vocab, or None: ids that are not
+        0..len-1 (the core indexes tokens by id), an unmapped token, or no
+        library."""
+        from zig_gpt2_tpu_torch.native import NativeBPE, load_bpe
+
+        if sorted(self.vocab.values()) != list(range(len(self.vocab))):
+            return None
+        vocab_bytes = [self._to_bytes(t) for t in sorted(self.vocab, key=self.vocab.get)]
+        merge_bytes = [(self._to_bytes(a), self._to_bytes(b))
+                       for a, b in sorted(self.merge_ranks, key=self.merge_ranks.get)]
+        if (any(t is None for t in vocab_bytes)
+                or any(a is None or b is None for a, b in merge_bytes) or load_bpe() is None):
+            return None
+        return NativeBPE(vocab_bytes, merge_bytes)
 
     @classmethod
     def from_files(cls, encoder_json, vocab_bpe=None, mode: str = "bpe") -> "Encoder":
@@ -148,6 +186,16 @@ class Encoder:
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
         for pre in pretokenize_pattern().findall(text):
+            if self._native is not None:
+                cached = self._native_ids.get(pre)
+                if cached is None:
+                    cached = self._native.encode_words([pre.encode("utf-8")])
+                    if cached is None:  # a piece the vocab lacks: the Python core
+                        cached = [self.vocab[p] for p in self._bpe(
+                            "".join(self.byte_to_unicode[b] for b in pre.encode("utf-8")))]
+                    self._native_ids[pre] = cached
+                ids.extend(cached)
+                continue
             mapped = "".join(self.byte_to_unicode[b] for b in pre.encode("utf-8"))
             pieces = self._bpe(mapped) if self.mode == "bpe" else self._greedy(mapped)
             ids.extend(self.vocab[p] for p in pieces)
@@ -158,6 +206,11 @@ class Encoder:
 
     def decode_bytes(self, ids: Iterable[int]) -> bytes:
         """Lossless byte decode (a stream decoder buffers partial UTF-8)."""
+        ids = list(ids)
+        if self._native is not None:
+            out = self._native.decode(ids)
+            if out is not None:
+                return out
         text = "".join(self.inv_vocab[i] for i in ids)
         return bytes(self.unicode_to_byte[ch] for ch in text)
 
