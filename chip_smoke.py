@@ -242,9 +242,14 @@ prints no result line:
                ``InferenceEngine(mesh=)``: two greedy requests x 32 tokens
                and one at T=0.8 top-k 40 x 16; then
                ``ContinuousBatcher(batch_size=4, mesh=)``, ring cache: 6
-               greedy and 2 sampled requests, each ending at its budget; then
-               a 124M fp32 engine (6 heads per rank: packed), 16 greedy
-               tokens. Each rank's launches per kernel (``return_max`` draws
+               greedy and 2 sampled requests, each ending at its budget; the
+               mesh paths: a 256-id prefill with and without
+               ``seq_parallel`` (bit-equal), a 64-id prefix on the engine
+               and the batcher, the B=4 ngram batcher (k=4, 8 x 32) against
+               one card, its switch to plain decode (``spec_min_tpr`` above
+               the ceiling, 4 x 88), three AdamW steps of the 124M tree
+               against one card; then a 124M fp32 engine (6 heads per rank:
+               packed), 16 greedy tokens. Each rank's launches per kernel (``return_max`` draws
                apart) and collectives equal what the steps imply; each kernel
                at the rank's shapes (qmm per shard linear, INT8 attention
                over 13 heads and its ring, the sampler with ``return_max``
@@ -2507,9 +2512,7 @@ def train_phase(pkg, torch, encoder, card: str) -> None:
     config = config_mod.get_config("124M")
     g = torch.Generator(device="cuda").manual_seed(11)
     base = gpt2.init_params(config, g, torch.float32)
-    text = encoder.encode(DEMO_TEXT)
-    stream = text * (-(-(8 * 37 + 1025) // len(text)))
-    tokens = torch.tensor([stream[37 * r:37 * r + 1025] for r in range(8)], device="cuda")
+    tokens = train_tokens(encoder, torch, "cuda", 8, 1024)
     params = weights.tree_map(lambda t: t.clone(), base)
     opt = train.make_optimizer(params)
     step = train.make_train_step(config)
@@ -3138,6 +3141,21 @@ TP_BATCH = 4
 # the head-pair-packed layout, Hp=3 per rank), random weights drawn on the
 # CPU from this seed by the parent and by each rank alike.
 TP_124M_SEED, TP_124M_PROMPT, TP_124M_TOKENS = 3, "the quick brown fox", 16
+# qmm rows checked per rank: decode, the B=4 batcher, the speculative
+# verify window (B x (k + 1)) and the sequence-parallel prefill's 256.
+TP_SPEC_K = 4
+TP_QMM_ROWS = (1, 4, TP_BATCH * (TP_SPEC_K + 1), 256)
+# The mesh paths beyond plain decode: sequence-parallel prefill of one
+# prompt, a 64-id prefix on the engine and the batcher, prompt-lookup
+# speculation at B=4, and three AdamW steps of the 124M float tree.
+TP_SP_PROMPT = 256
+TP_PREFIX, TP_PREFIX_TOKENS = 64, 8
+TP_SPEC_REQUESTS, TP_SPEC_TOKENS = 8, 32
+# Speculation's auto-off: the first TP_BATCH speculative prompts at a budget
+# past the 16 rounds of 5 tokens that fill the switch's window (8 syncs of
+# 2 rounds over 4 live slots), so that plain decode follows.
+TP_AUTO_OFF_TOKENS = 88
+TP_TRAIN_B, TP_TRAIN_T, TP_TRAIN_STEPS = 4, 256, 3
 
 
 def build_tp_124m(config_mod, gpt2, vocab_size: int, torch):
@@ -3177,10 +3195,14 @@ def tp_collective_counts(config, passes: int, draws: int, thresholded: int) -> d
 def tp_check_kernels(rank: int, engine, att, sk, qk, quantize, torch, card: str) -> list:
     """This rank's kernels against their plain versions at its per-shard
     shapes, a few calls each: qmm on its layer-0 and last-layer linears
-    (rows 1 and 4; the INT4 c_proj fed its two half-split feature ranges),
-    the INT8 decode attention over its heads (B=1, and the ring at B=4),
-    the sampler with return_max over its vocab slice. Returns the qmm
-    shapes (label, qw, scale, int4, calls per step) for the timings."""
+    (rows 1 and 4, the speculative verify window's B x (k + 1) = 20 and
+    the sequence-parallel prefill's 256; the INT4 c_proj fed its two
+    half-split feature ranges), the INT8 decode attention over its heads
+    (B=1 and B=4 linear: the engine after a prefix hit and the speculative
+    batcher after auto-off; the ring at B=4), the float packed attention of
+    the 124M run (Hp=3), the sampler with return_max over its vocab slice.
+    Returns the qmm shapes (label, qw, scale, int4, calls per step) for the
+    timings."""
     from zig_gpt2_tpu_torch.ops import layers as ops
     from zig_gpt2_tpu_torch.parallel.shard_kernels import int4_row_shard_slices
 
@@ -3200,7 +3222,7 @@ def tp_check_kernels(rank: int, engine, att, sk, qk, quantize, torch, card: str)
     for name, layers, int4, _ in shapes:
         for qw, scale in (layers[0], layers[-1]):
             k = qw.shape[0] * (2 if int4 else 1)
-            for rows in (1, 4):
+            for rows in TP_QMM_ROWS:
                 x = (torch.randn(rows, k, device="cuda", generator=g)).to(torch.bfloat16)
                 sc = scale
                 if int4 and name.endswith("c_proj"):  # the rank's two feature ranges
@@ -3211,10 +3233,11 @@ def tp_check_kernels(rank: int, engine, att, sk, qk, quantize, torch, card: str)
                     qk.qmm(x, qw, sc, int4=int4), qk.qmm_plain(x, qw, sc, int4=int4),
                     *QMM_TOL, torch))
     log(f"serve-tp rank {rank}: qmm at {[(n, l[0][0].shape[0] * (2 if i4 else 1), l[0][0].shape[1]) for n, l, i4, _ in shapes]} "
-        f"(K, N per shard) rows 1 and 4, layers 0 and {L - 1}: max_abs_err={worst:.3e} vs plain")
+        f"(K, N per shard) rows {TP_QMM_ROWS}, layers 0 and {L - 1}: max_abs_err={worst:.3e} "
+        f"vs plain")
     H = engine.config.attn_heads
     S = engine.new_cache()["k"].shape[-2]
-    for B, ring in ((1, False), (TP_BATCH, True)):
+    for B, ring in ((1, False), (TP_BATCH, False), (TP_BATCH, True)):
         R = 257 if ring else S
         args = int8_attention_inputs(ops, torch, g, L, B, H, R, 64, torch.bfloat16)
         kw = {}
@@ -3222,7 +3245,7 @@ def tp_check_kernels(rank: int, engine, att, sk, qk, quantize, torch, card: str)
             start, length = ring_lanes(B, R, (0, 1, 17, 255), torch)
             kw["start"] = start
         else:
-            length = torch.tensor([17], dtype=torch.int32, device="cuda")
+            length = torch.full((B,), 17, dtype=torch.int32, device="cuda")
         for layer in (0, L - 1):
             err = check_close(f"serve-tp rank {rank} attention-int8 B={B}",
                               att.decode_attention_quant_deferred(*args, length, layer=layer, **kw),
@@ -3231,6 +3254,18 @@ def tp_check_kernels(rank: int, engine, att, sk, qk, quantize, torch, card: str)
                               *ATTN_TOL["bfloat16"], torch)
         log(f"serve-tp rank {rank}: INT8 decode attention{' ring' if ring else ''} H={H} B={B} "
             f"{'R' if ring else 'S'}={R}: max_abs_err={err:.3e} vs plain")
+    from zig_gpt2_tpu_torch.ops import layers as ops_layers
+
+    args, _ = packed_inputs(ops_layers, torch, g, 12, 1, 3, 1024, torch.float32, False)
+    length = torch.tensor([1023], dtype=torch.int32, device="cuda")
+    for layer in (0, 11):
+        err = check_close(f"serve-tp rank {rank} attention packed float Hp=3",
+                          att.decode_attention_deferred(*args, length, layer=layer, packed=True),
+                          att.decode_attention_deferred_plain(*args, length, layer=layer,
+                                                              packed=True),
+                          *ATTN_TOL["float32"], torch)
+    log(f"serve-tp rank {rank}: float packed decode attention (124M rank shape) Hp=3 B=1 S=1024: "
+        f"max_abs_err={err:.3e} vs plain")
     V = p["lm_head"]["qw"].shape[1]
     for B in (1, TP_BATCH):
         logits = (torch.randn(B, V, device="cuda", generator=g) * 3).float()
@@ -3246,20 +3281,11 @@ def tp_check_kernels(rank: int, engine, att, sk, qk, quantize, torch, card: str)
     return shapes
 
 
-def tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch, counts: dict, card: str):
-    """Rank 0's kernels at its per-shard shapes, by CUDA-graph replay, with
-    their plain versions, bounds and library calls, as phase ``times``
-    does: qmm per rank-step at rows 1 (289 calls, each on another layer's
-    weight), the INT8 attention over 13 heads at B=1 (1023 old rows of a
-    1024-row cache) and its ring at B=4 (R=257), the sampler with
-    return_max over the 25152-id slice at B=1. The other rank waits."""
-    import torch.nn.functional as F
-
-    from zig_gpt2_tpu_torch.ops import layers as ops
-
-    g = torch.Generator(device="cuda").manual_seed(7)
-    L = engine.config.n_layers
-    entries = []
+def tp_time_qmm_step(shapes, rows: int, qk, quantize, torch, g, label: str, card: str):
+    """qmm per rank-step at ``rows`` bf16 rows (289 calls, each on another
+    layer's weight; rank 0's INT4 c_proj scales cut to its two feature
+    ranges): kernel, plain, torch.matmul on the weights dequantized ahead of
+    time, and the bound. Returns the step's entry (launches set later)."""
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
     errs = []
     for name, layers, int4, calls in shapes:
@@ -3270,7 +3296,7 @@ def tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch, counts: dict, 
                                      s[s.shape[0] // 2:s.shape[0] // 2 + s.shape[0] // (2 * TP)]]))
                       for w, s in layers]  # rank 0's two feature ranges of the scales
             scale = layers[0][1]
-        x = torch.randn(1, k, device="cuda", generator=g).to(torch.bfloat16)
+        x = torch.randn(rows, k, device="cuda", generator=g).to(torch.bfloat16)
         dq = [quantize.dequantize_linear({"qw4" if int4 else "qw": w, "scale": s},
                                          torch.bfloat16)["w"] for w, s in layers]
         nl = len(layers)
@@ -3279,25 +3305,49 @@ def tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch, counts: dict, 
         ms = time_ms(lambda i: qk.qmm(x, *layers[i % nl], int4=int4), max(4 * nl, 64))
         plain_ms = time_ms(lambda i: qk.qmm_plain(x, *layers[i % nl], int4=int4), max(nl, 8))
         lib_ms = time_ms(lambda i: torch.matmul(x, dq[i % nl]), max(4 * nl, 64))
-        nbytes, nops = qmm_work(qw, scale, int4, 1, 2)
-        bms, by = bound_ms(nbytes, nops)
+        nbytes, nops = qmm_work(qw, scale, int4, rows, 2)
+        bms, by = bound_ms(nbytes, nops, PEAK_OPS_PER_S if rows == 1 else PEAK_BF16_OPS_PER_S)
         log(f"time serve-tp qmm {name} per shard K={k} N={qw.shape[1]} "
-            f"{'int4' if int4 else 'int8'} groups={scale.shape[0]} rows=1 bf16: kernel "
+            f"{'int4' if int4 else 'int8'} groups={scale.shape[0]} rows={rows} bf16: kernel "
             f"{ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, "
             f"torch.matmul on a pre-dequantized bf16 weight {lib_ms * 1e3:.2f} us ({card})")
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bytes", nbytes), ("ops", nops)):
             step[key] += calls * val
         del dq
-    bms, by = bound_ms(step["bytes"], step["ops"])
-    log(f"time serve-tp qmm per rank-step (289 calls, rows=1, bf16, tp={TP}): kernel "
+    bms, by = bound_ms(step["bytes"], step["ops"],
+                       PEAK_OPS_PER_S if rows == 1 else PEAK_BF16_OPS_PER_S)
+    log(f"time serve-tp qmm per rank-step (289 calls, rows={rows}, bf16, tp={TP}): kernel "
         f"{step['ms']:.4f} ms, bound {bms:.4f} ms ({by}), plain {step['plain_ms']:.4f} ms, "
         f"torch.matmul {step['library_ms']:.4f} ms ({card})")
-    entries.append({"name": f"qmm_tp{TP}_rank_step", "route": "cuda",
-                    "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
-                    "replaces": "zig_gpt2_tpu/quant/kernels.py:256", "launches": counts["qmm"],
-                    "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
-                    "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]})
+    return {"name": label, "route": "cuda", "source": "zig_gpt2_tpu_torch/ops/csrc/qmm.cu",
+            "replaces": "zig_gpt2_tpu/quant/kernels.py:256", "launches": None,
+            "max_abs_err": max(errs), "ms": step["ms"], "plain_ms": step["plain_ms"],
+            "bound_ms": bms, "bound_by": by, "library_ms": step["library_ms"]}
+
+
+def tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch, card: str):
+    """Rank 0's kernels at its per-shard shapes, by CUDA-graph replay, with
+    their plain versions, bounds and library calls, as phase ``times``
+    does: qmm per rank-step at rows 1 and at the speculative verify
+    window's 20, the INT8 attention over 13 heads at B=1 (1023 old rows of
+    a 1024-row cache) and its ring at B=4 (R=257), the float packed
+    attention of the 124M run at its rank shape (Hp=3, B=1, 1023 old rows),
+    the sampler with return_max over the 25152-id slice at B=1. The other
+    rank waits. Each entry's ``launches`` key names its counter in the
+    ranks' counts (the parent sums both ranks'; ``qmm_verify_rows``: the
+    qmm launches at the verify window's rows, by ``qmm.by_shape``)."""
+    import torch.nn.functional as F
+
+    from zig_gpt2_tpu_torch.ops import layers as ops
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    L = engine.config.n_layers
+    entries = [dict(tp_time_qmm_step(shapes, 1, qk, quantize, torch, g,
+                                     f"qmm_tp{TP}_rank_step", card), launches="qmm"),
+               dict(tp_time_qmm_step(shapes, TP_BATCH * (TP_SPEC_K + 1), qk, quantize, torch, g,
+                                     f"qmm_tp{TP}_verify_rank_step", card),
+                    launches="qmm_verify_rows")]
     H = engine.config.attn_heads
     for name, B, ring in ((f"decode_attention_quant_deferred_tp{TP}", 1, False),
                           (f"decode_attention_quant_deferred_ring_tp{TP}", TP_BATCH, True)):
@@ -3323,13 +3373,33 @@ def tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch, counts: dict, 
                 return F.scaled_dot_product_attention(q4, kd[layer], vd[layer])
         nbytes, nops = attention_work([*args, length] + ([kw["start"]] if ring else []), n, S,
                                       L, True)
-        entries.append(time_attention(
-            name, ":928", counts["attention_int8_ring" if ring else "attention_int8"],
+        entries.append(dict(time_attention(
+            name, ":928", None,
             att.decode_attention_quant_deferred, att.decode_attention_quant_deferred_plain,
             [*args, length], L, lib, nbytes, nops,
             f"serve-tp rank 0 shard: INT8, bf16 q, B={B}, H={H}, {'R' if ring else 'S'}={S}, "
             f"{n} old rows{', ring' if ring else ''}; library: SDPA over the rows dequantized "
-            f"ahead of time", card, **kw))
+            f"ahead of time", card, **kw), launches="attention_int8_ring" if ring
+            else "attention_int8"))
+    # Row 1c at the 124M run's rank shape: f32, 6 heads per rank packed (Hp=3).
+    args, _ = packed_inputs(ops, torch, g, 12, 1, 3, 1024, torch.float32, False)
+    n = 1023
+    length = torch.full((1,), n, dtype=torch.int32, device="cuda")
+    kd = att.unpack_heads_seq(args[3])[..., :n + 1, :]
+    vd = att.unpack_heads_seq(args[4])[..., :n + 1, :]
+    q4 = att.unpack_heads_rows(args[0])[:, :, None, :]
+
+    def lib_packed(layer):
+        return F.scaled_dot_product_attention(q4, kd[layer], vd[layer])
+
+    nbytes, nops = attention_work([*args, length], n, 1024, 12, False)
+    entries.append(dict(time_attention(
+        f"decode_attention_deferred_packed_tp{TP}", ":913", None,
+        att.decode_attention_deferred, att.decode_attention_deferred_plain, [*args, length], 12,
+        lib_packed, nbytes, nops,
+        "serve-tp rank 0 shard of the 124M run: f32, B=1, Hp=3 (6 heads), S=1024, 1023 old "
+        "rows; library: SDPA over the unpacked rows", card, packed=True),
+        launches="attention_packed"))
     V = engine.params["lm_head"]["qw"].shape[1]
     logits = torch.randn(1, V, device="cuda", generator=g)
     seeds = torch.randint(0, 2**31 - 1, (1,), device="cuda", dtype=torch.int32, generator=g)
@@ -3348,19 +3418,299 @@ def tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch, counts: dict, 
     entries.append({"name": f"sample_categorical_return_max_tp{TP}", "route": "cuda",
                     "source": "zig_gpt2_tpu_torch/ops/csrc/sampling.cu",
                     "replaces": "zig_gpt2_tpu/ops/sampling_kernel.py:37",
-                    "launches": counts["sampler_max"], "max_abs_err": err, "ms": ms,
+                    "launches": "sampler_max", "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
     return entries
+
+
+def tp_inputs(vocab: int) -> dict:
+    """The mesh paths' inputs, drawn alike in the parent and in each rank:
+    the 256-id prompt of the sequence-parallel prefill; the 64-id prefix
+    with the engine's prompt (the prefix plus 8 ids) and the batcher's four
+    requests (two hits, two fresh prompts); the speculative requests (a
+    3-id pattern six times each)."""
+    import numpy as np
+
+    rng = np.random.default_rng(64)
+
+    def ids(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    prefix = ids(TP_PREFIX)
+    return {"sp_prompt": ids(TP_SP_PROMPT), "prefix": prefix,
+            "engine_prompts": [prefix + ids(8)],
+            "batch": [(prefix + ids(8), TP_PREFIX_TOKENS), (ids(12), TP_PREFIX_TOKENS),
+                      (prefix + ids(16), TP_PREFIX_TOKENS), (ids(20), TP_PREFIX_TOKENS)],
+            "spec": [(ids(3) * 6, TP_SPEC_TOKENS) for _ in range(TP_SPEC_REQUESTS)]}
+
+
+def train_tokens(encoder, torch, device, B: int = TP_TRAIN_B, T: int = TP_TRAIN_T):
+    """(B, T + 1) ids: the demo text encoded and repeated, each row from
+    another offset (phases train and serve-tp)."""
+    text = encoder.encode(DEMO_TEXT)
+    stream = text * (-(-(B * 37 + T + 1) // len(text)))
+    return torch.tensor([stream[37 * r:37 * r + T + 1] for r in range(B)], device=device)
+
+
+def model_collectives(mesh, before: dict) -> dict:
+    """The model group's collectives since ``before`` (a counts copy)."""
+    return {op: n - before.get(op, 0) for op, n in mesh.model.counts.items()
+            if n != before.get(op, 0)}
+
+
+def expect_collectives(label: str, got: dict, want: dict) -> None:
+    log(f"{label} collectives {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{label}: collectives {got} vs {want}")
+
+
+def tp_seq_parallel(rank: int, engine, mesh, gpt2, att, sk, qk, torch, prompt, card) -> dict:
+    """The 1.5B prefill of one 256-id prompt on this rank's engine, with and
+    without ``seq_parallel``: logits and every cache leaf bit-equal; one
+    reduce-scatter for the embedding and two per layer where the plain
+    prefill all-reduces, and one all-gather before each column-parallel
+    stage and the lm_head; qmm at 256 rows. Returns the host-clock ms of
+    each and the collectives."""
+    L = engine.config.n_layers
+    toks = torch.tensor([prompt], dtype=torch.int32, device=TP_DEVICE)
+    lens = torch.tensor([len(prompt)], dtype=torch.int32, device=TP_DEVICE)
+    runs = {}
+    reset_counts(att, sk, qk)
+    for name, conf in (("plain", engine.config),
+                       ("seq_parallel", dataclasses.replace(engine.config, seq_parallel=True))):
+        before = dict(mesh.model.counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = gpt2.prefill(engine.params, engine.new_cache(), toks, lens, conf)
+        torch.cuda.synchronize()
+        runs[name] = (cache, logits, model_collectives(mesh, before),
+                      (time.perf_counter() - t0) * 1e3)
+    expect_counts(f"serve-tp rank {rank} prefill", read_counts(att, sk, qk, torch),
+                  {"qmm": 2 * QMM_PER_PASS_1P5B})
+    (c0, l0, n0, ms0), (c1, l1, n1, ms1) = runs["plain"], runs["seq_parallel"]
+    equal = {k: torch.equal(c0[k], c1[k]) for k in c0}
+    equal["logits"] = torch.equal(l0, l1)
+    staged = mesh.model.host_staged.get("reduce_scatter")
+    log(f"serve-tp rank {rank} prefill of {len(prompt)} ids, plain {ms0:.1f} ms, sequence-parallel "
+        f"{ms1:.1f} ms (host clock, {card}); bit-equal {equal}; reduce-scatters "
+        f"{n1.get('reduce_scatter')} ({'host-staged' if staged else 'direct'})")
+    if not all(equal.values()):
+        raise AssertionError(f"serve-tp rank {rank}: the sequence-parallel prefill differs from "
+                             f"the plain one: {equal}")
+    expect_collectives(f"serve-tp rank {rank} plain prefill", n0,
+                       {"all_reduce": 1 + 2 * L, "all_gather": 2 * L})
+    expect_collectives(f"serve-tp rank {rank} sequence-parallel prefill", n1,
+                       {"reduce_scatter": 1 + 2 * L, "all_gather": 2 * L + 1 + 2 * L})
+    return {"ms": (ms0, ms1), "collectives": (n0, n1)}
+
+
+def tp_prefix(rank: int, engine, config, params, encoder, mesh, plain_batcher, mods, torch,
+              inputs, card) -> dict:
+    """A 64-id prefix on a mesh engine (B=1) and a B=4 ring batcher: the
+    engine's prompt, 8 greedy tokens, and the batcher's four
+    requests, against ``engine`` and ``plain_batcher`` (the same mesh
+    without the prefix; the parent judges any divergence). Launch counts and
+    collectives per pass and draw are gated; every hit reuses the whole
+    prefix."""
+    engine_mod, batcher_mod, config_mod, gpt2, att, sk, qk = mods
+    L = config.n_layers
+    greedy = config_mod.SamplingConfig(temperature=0.0)
+    cached = engine_mod.InferenceEngine(config, params, encoder, kv_quant="int8",
+                                        device=TP_DEVICE, mesh=mesh)
+    cached.register_prefix(inputs["prefix"])
+    before = dict(mesh.model.counts)
+    reset_counts(att, sk, qk)
+    hits = []
+    for ids in inputs["engine_prompts"]:
+        m = engine_mod.GenerationMetrics()
+        hits.append((cached.generate(ids, TP_PREFIX_TOKENS, greedy, metrics=m), m))
+    counts = engine_counts = read_counts(att, sk, qk, torch)
+    n = len(hits)
+    steps = sum(m.generated_tokens for _, m in hits)
+    expect_counts(f"serve-tp rank {rank} prefix engine", counts,
+                  {"qmm": QMM_PER_PASS_1P5B * (steps + n), "attention_int8": L * steps})
+    expect_collectives(f"serve-tp rank {rank} prefix engine", model_collectives(mesh, before),
+                       tp_collective_counts(config, steps + n, steps + n, 0))
+    if any(m.prefix_tokens_reused != TP_PREFIX for _, m in hits):
+        raise AssertionError(f"serve-tp rank {rank}: a prompt was not served from the prefix")
+    plain = [engine.generate(ids, TP_PREFIX_TOKENS, greedy) for ids in inputs["engine_prompts"]]
+    for (toks, m), ids in zip(hits, inputs["engine_prompts"]):
+        log(f"serve-tp rank {rank} prefix engine: prompt of {len(ids)}, prefill_ms "
+            f"{m.prefill_ms:.3f} (a hit: one extend of the suffix), prefix_tokens_reused "
+            f"{m.prefix_tokens_reused} ({card})")
+    del cached
+    b = batcher_mod.ContinuousBatcher(config, params, batch_size=TP_BATCH, max_seq=256,
+                                      kv_quant="int8", device=TP_DEVICE, mesh=mesh,
+                                      sampling=greedy)
+    b.register_prefix(inputs["prefix"])
+    before = dict(mesh.model.counts)
+    with recording(gpt2, {"prefill": [], "extend": []}) as calls:
+        reset_counts(att, sk, qk)
+        served = serve_batch(b, inputs["batch"], f"serve-tp rank {rank} prefix batcher")
+        counts = read_counts(att, sk, qk, torch)
+    steps, admissions = b.metrics.steps, len(calls["prefill"]) + len(calls["extend"])
+    expect_counts(f"serve-tp rank {rank} prefix batcher", counts,
+                  {"attention_int8_ring": L * steps,
+                   "qmm": QMM_PER_PASS_1P5B * steps + window_qmm(config, calls)})
+    expect_collectives(f"serve-tp rank {rank} prefix batcher", model_collectives(mesh, before),
+                       tp_collective_counts(config, steps + admissions, steps + admissions, 0))
+    d = b.metrics.as_dict(TP_BATCH)
+    log(f"serve-tp rank {rank} prefix batcher metrics {json.dumps(d)} (INT4, INT8 KV ring, "
+        f"B={TP_BATCH}, tp={TP}, {card})")
+    if d.get("prefix_hits") != 2 or d.get("prefill_tokens_saved") != 2 * TP_PREFIX:
+        raise AssertionError(f"serve-tp rank {rank}: prefix hits {d.get('prefix_hits')}, "
+                             f"saved {d.get('prefill_tokens_saved')}")
+    plain_batcher.sampling = greedy
+    plain_served = serve_batch(plain_batcher, inputs["batch"],
+                               f"serve-tp rank {rank} batcher without the prefix")
+    return {"engine": ([t for t, _ in hits], plain), "batcher": (served, plain_served),
+            "prefix_hits": d["prefix_hits"],
+            "counts": {k: engine_counts[k] + counts[k] for k in counts}}
+
+
+def tp_spec(rank: int, config, params, mesh, mods, torch, inputs, card) -> dict:
+    """Prompt-lookup speculation on the mesh: a B=4 batcher,
+    ``speculative="ngram"``, k=4, spec_min_tpr 0 (speculation held on),
+    INT4 + INT8 KV (linear, unpacked), the eight repetitive requests, 32
+    greedy tokens each. Every verify window is (4, 5), one qmm per linear
+    per round at 20 rows; per round one pass's collectives and the
+    all-gather of the verify logits. Returns the tokens and metrics."""
+    _, batcher_mod, config_mod, gpt2, att, sk, qk = mods
+    L = config.n_layers
+    b = batcher_mod.ContinuousBatcher(config, params, batch_size=TP_BATCH, max_seq=256,
+                                      kv_quant="int8", device=TP_DEVICE, mesh=mesh,
+                                      sampling=config_mod.SamplingConfig(temperature=0.0),
+                                      speculative="ngram", spec_k=TP_SPEC_K, spec_min_tpr=0.0)
+    before = dict(mesh.model.counts)
+    t0 = time.perf_counter()
+    with recording(gpt2, {"prefill": [], "extend": []}) as calls:
+        reset_counts(att, sk, qk)
+        served = serve_batch(b, inputs["spec"], f"serve-tp rank {rank} speculative batcher")
+        counts = read_counts(att, sk, qk, torch)
+    secs = time.perf_counter() - t0
+    rounds, prefills = b.metrics.spec_rounds, len(calls["prefill"])
+    if window_shapes(calls["extend"]) != [(TP_BATCH, TP_SPEC_K + 1)] * rounds:
+        raise AssertionError(f"serve-tp rank {rank}: verify windows "
+                             f"{sorted(set(window_shapes(calls['extend'])))}")
+    expect_counts(f"serve-tp rank {rank} speculative batcher", counts,
+                  {"qmm": window_qmm(config, calls)})
+    verify_rows = TP_BATCH * (TP_SPEC_K + 1)
+    verify = sum(n for (_, _, _, rows), n in qk.qmm.by_shape.items() if rows == verify_rows)
+    if verify != QMM_PER_PASS_1P5B * rounds:
+        raise AssertionError(f"serve-tp rank {rank}: {verify} qmm launches at the verify "
+                             f"window's {verify_rows} rows for {rounds} rounds")
+    want = tp_collective_counts(config, rounds + prefills, prefills, 0)
+    want["all_gather"] += rounds  # the verify logits, gathered for the acceptance
+    expect_collectives(f"serve-tp rank {rank} speculative batcher",
+                       model_collectives(mesh, before), want)
+    tokens = sum(len(t) for t in served)
+    log(f"serve-tp rank {rank} speculative batcher: {rounds} rounds, tokens_per_round "
+        f"{b.metrics.tokens_per_round:.4f}, {1e3 * secs / tokens:.3f} ms per committed token "
+        f"({tokens} tokens in {secs:.1f} s, host clock); metrics "
+        f"{json.dumps(b.metrics.as_dict(TP_BATCH))} (INT4 + INT8 KV, B={TP_BATCH}, "
+        f"k={TP_SPEC_K}, tp={TP}, {card})")
+    return {"served": served, "tokens_per_round": b.metrics.tokens_per_round,
+            "ms_per_token": 1e3 * secs / tokens, "counts": counts, "verify_launches": verify}
+
+
+def tp_spec_auto_off(rank: int, config, params, mesh, mods, torch, inputs, card) -> dict:
+    """Speculation's switch to plain decode on the mesh: the B=4 ngram
+    batcher with ``spec_min_tpr`` above the k + 1 ceiling and two rounds per
+    sync, so that it switches once its window is full (16 rounds), on the
+    first four speculative prompts at TP_AUTO_OFF_TOKENS each. The rounds
+    launch qmm at the verify window's rows; the plain steps after the
+    switch launch the INT8 decode attention (linear, B=4) and qmm at 4
+    rows. Returns the tokens, the switch's step and the counts."""
+    _, batcher_mod, config_mod, gpt2, att, sk, qk = mods
+    L = config.n_layers
+    b = batcher_mod.ContinuousBatcher(config, params, batch_size=TP_BATCH, max_seq=256,
+                                      kv_quant="int8", device=TP_DEVICE, mesh=mesh,
+                                      sampling=config_mod.SamplingConfig(temperature=0.0),
+                                      speculative="ngram", spec_k=TP_SPEC_K,
+                                      spec_min_tpr=TP_SPEC_K + 2.0, spec_chunk=2)
+    requests = [(ids, TP_AUTO_OFF_TOKENS) for ids, _ in inputs["spec"][:TP_BATCH]]
+    before = dict(mesh.model.counts)
+    t0 = time.perf_counter()
+    with recording(gpt2, {"prefill": [], "extend": []}) as calls:
+        reset_counts(att, sk, qk)
+        served = serve_batch(b, requests, f"serve-tp rank {rank} speculative auto-off")
+        counts = read_counts(att, sk, qk, torch)
+    secs = time.perf_counter() - t0
+    m = b.metrics
+    rounds, prefills = m.spec_rounds, len(calls["prefill"])
+    plain = m.steps - rounds
+    if m.spec_auto_off_step is None or plain < 1:
+        raise AssertionError(f"serve-tp rank {rank}: speculation did not switch off "
+                             f"({rounds} rounds, {plain} plain steps)")
+    expect_counts(f"serve-tp rank {rank} speculative auto-off", counts,
+                  {"qmm": window_qmm(config, calls) + QMM_PER_PASS_1P5B * plain,
+                   "attention_int8": L * plain})
+    want = tp_collective_counts(config, rounds + prefills + plain, prefills + plain, 0)
+    want["all_gather"] += rounds
+    expect_collectives(f"serve-tp rank {rank} speculative auto-off",
+                       model_collectives(mesh, before), want)
+    log(f"serve-tp rank {rank} speculative auto-off: switched at step {m.spec_auto_off_step} "
+        f"after {rounds} rounds (tokens_per_round {m.tokens_per_round:.4f}), then {plain} plain "
+        f"decode steps; {secs:.1f} s (host clock; INT4 + INT8 KV, B={TP_BATCH}, "
+        f"k={TP_SPEC_K}, tp={TP}, {card})")
+    return {"served": served, "requests": requests, "switched_at": m.spec_auto_off_step,
+            "plain_steps": plain, "counts": counts}
+
+
+def tp_train(rank: int, encoder, mesh, mods, torch, card) -> dict:
+    """Three AdamW steps (lr TRAIN_LR) of the 124M fp32 tree over the mesh
+    (the tree padded for tp=2 and sliced: 6 heads and 25152 vocab rows per
+    rank), B=4, T=256: the losses (the parent holds them to one card's),
+    tokens/s and the peak memory of this rank's process. No kernel of the
+    port runs; per step 4L + 2 all-reduces (forward: the embedding and the
+    row-parallel outputs; backward: each column-parallel input and the
+    lm_head's) and one all-gather of the logits."""
+    from zig_gpt2_tpu_torch import train
+    from zig_gpt2_tpu_torch.parallel.mesh import local_config, prepare_params
+
+    _, _, config_mod, gpt2, att, sk, qk = mods
+    small_cfg, small = build_tp_124m(config_mod, gpt2, len(encoder.vocab), torch)
+    params, padded = prepare_params(small, small_cfg, mesh, TP_DEVICE)
+    conf = local_config(padded, mesh)
+    opt = train.make_optimizer(params, learning_rate=TRAIN_LR)
+    step = train.make_train_step(conf, mesh=mesh)
+    tokens = train_tokens(encoder, torch, TP_DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = dict(mesh.model.counts)
+    reset_counts(att, sk, qk)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TP_TRAIN_STEPS):
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(loss.item())
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    expect_counts(f"serve-tp rank {rank} train", read_counts(att, sk, qk, torch), {})
+    L = small_cfg.n_layers
+    expect_collectives(f"serve-tp rank {rank} train", model_collectives(mesh, before),
+                       {"all_reduce": TP_TRAIN_STEPS * (4 * L + 2),
+                        "all_gather": TP_TRAIN_STEPS})
+    rate = TP_TRAIN_STEPS * TP_TRAIN_B * TP_TRAIN_T / secs
+    log(f"serve-tp rank {rank} train: losses {losses}, {rate:.1f} tokens/s ({secs:.2f} s for "
+        f"{TP_TRAIN_STEPS} steps), peak memory {peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB "
+        f"allocated before) (124M fp32, B={TP_TRAIN_B}, T={TP_TRAIN_T}, tp={TP}, AdamW lr "
+        f"{TRAIN_LR}, host clock, {card})")
+    return {"losses": losses, "tokens_per_s": rate, "peak_gib": peak / 2**30}
 
 
 def tp_rank(rank: int, init: str, tree_path: str, cfg_fields: dict, vocab, merges,
             out_path: str, card: str) -> None:
     """One rank of serve-tp (a spawned process on the one card): join the
-    gloo group, serve the engine's requests and then the batcher's over the
-    1 x 2 mesh, hold each kernel against its plain version at the shard's
-    shapes, and count every launch and collective. Rank 0 also times the
-    kernels and the host-staged collectives (rank 1 waits) and writes the
-    results for the parent."""
+    gloo group; over the 1 x 2 mesh serve the engine's requests, prefill one
+    prompt with and without sequence parallelism, serve a prefix on the
+    engine, the batcher's requests, a prefix on the batcher, prompt-lookup
+    speculation in the batcher, the packed 124M engine, and train the 124M
+    tree three steps; hold each kernel against its plain version at the
+    shard's shapes, and count every launch and collective. Rank 0 also
+    times the kernels (rank 1 waits) and the collectives (both take part);
+    each rank writes its results for the parent."""
     import torch
     import torch.distributed as dist
 
@@ -3419,20 +3769,30 @@ def tp_rank(rank: int, init: str, tree_path: str, cfg_fields: dict, vocab, merge
         expect_counts(f"serve-tp rank {rank} engine", counts,
                       {"qmm": (6 * L + 1) * (steps + len(TP_REQUESTS)), "attention_int8": L * steps,
                        "sampler": sampled, "sampler_max": sampled})
-        got = {op: mesh.model.counts[op] - before.get(op, 0) for op in mesh.model.counts}
-        want = tp_collective_counts(config, steps + len(TP_REQUESTS),
-                                    steps + len(TP_REQUESTS), sampled)
-        log(f"serve-tp rank {rank} engine collectives {got} (expected {want}); host-staged "
-            f"so far {dict(mesh.model.host_staged)}")
-        if got != want:
-            raise AssertionError(f"serve-tp rank {rank}: collectives {got} vs {want}")
+        expect_collectives(f"serve-tp rank {rank} engine", model_collectives(mesh, before),
+                           tp_collective_counts(config, steps + len(TP_REQUESTS),
+                                                steps + len(TP_REQUESTS), sampled))
+        log(f"serve-tp rank {rank} host-staged so far {dict(mesh.model.host_staged)}")
         total = dict(counts)
+        inputs = tp_inputs(config.vocab_size)
+        mods = (engine_mod, batcher_mod, config_mod, gpt2, att, sk, qk)
+        t_part = time.perf_counter()
+
+        def part_done(name: str) -> None:
+            nonlocal t_part
+            if rank == 0:
+                log(f"serve-tp rank 0 {name}: {time.perf_counter() - t_part:.1f} s")
+            t_part = time.perf_counter()
+
+        out["seq_parallel"] = tp_seq_parallel(rank, engine, mesh, gpt2, att, sk, qk, torch,
+                                              inputs["sp_prompt"], card)
+        total["qmm"] += 2 * QMM_PER_PASS_1P5B
+        part_done("sequence-parallel prefill")
 
         greedy = config_mod.SamplingConfig(temperature=0.0)
         b = batcher_mod.ContinuousBatcher(config, params, batch_size=TP_BATCH, max_seq=256,
                                           kv_quant="int8", device=TP_DEVICE, mesh=mesh,
                                           sampling=greedy)
-        del params
         serve_batch(b, [([1, 2, 3], 4), ([4, 5], 4)], f"serve-tp rank {rank} batcher warm-up")
         b.metrics = batcher_mod.BatcherMetrics()
         requests = batch_requests(61, 6, config.vocab_size, (8, 40), (8, 16))
@@ -3456,7 +3816,19 @@ def tp_rank(rank: int, init: str, tree_path: str, cfg_fields: dict, vocab, merge
             f"(INT4, INT8 KV ring, B={TP_BATCH}, tp={TP}, {card})")
         out["batcher"] = (requests, served)
         total = {k: total[k] + counts[k] for k in total}
+        part_done("batcher")
+        out["prefix"] = tp_prefix(rank, engine, config, params, encoder, mesh, b, mods, torch,
+                                  inputs, card)
         del b
+        part_done("prefix engine and batcher")
+        out["spec"] = tp_spec(rank, config, params, mesh, mods, torch, inputs, card)
+        part_done("speculative batcher")
+        out["auto_off"] = tp_spec_auto_off(rank, config, params, mesh, mods, torch, inputs,
+                                           card)
+        part_done("speculative auto-off")
+        del params
+        for part in ("prefix", "spec", "auto_off"):
+            total = {k: total[k] + out[part]["counts"][k] for k in total}
 
         small_cfg, small = build_tp_124m(config_mod, gpt2, config.vocab_size, torch)
         small = engine_mod.InferenceEngine(small_cfg, small, encoder, device=TP_DEVICE,
@@ -3472,13 +3844,21 @@ def tp_rank(rank: int, init: str, tree_path: str, cfg_fields: dict, vocab, merge
             f"{encoder.decode(out['packed_124m'])!r}")
         total = {k: total[k] + counts[k] for k in total}
         del small
+        torch.cuda.empty_cache()
+        part_done("packed 124M")
+        out["train"] = tp_train(rank, encoder, mesh, mods, torch, card)
+        part_done("train")
 
         shapes = tp_check_kernels(rank, engine, att, sk, qk, quantize, torch, card)
+        part_done("kernel checks")
         dist.barrier()
         x = torch.randn(1, config.n_embed, device=TP_DEVICE)
         idx = torch.zeros(1, dtype=torch.int32, device=TP_DEVICE)
+        xs = torch.randn(1, TP_SP_PROMPT, config.n_embed, device=TP_DEVICE)
         for label, fn in (("all_reduce (1, 1600) f32", lambda: mesh.model.all_reduce(x)),
-                          ("all_gather (1,) int32", lambda: mesh.model.all_gather(idx))):
+                          ("all_gather (1,) int32", lambda: mesh.model.all_gather(idx)),
+                          ("reduce_scatter (1, 256, 1600) f32 over T",
+                           lambda: mesh.model.reduce_scatter(xs, 1))):
             for _ in range(10):  # both ranks take part in every call
                 fn()
             t0 = time.perf_counter()
@@ -3486,15 +3866,17 @@ def tp_rank(rank: int, init: str, tree_path: str, cfg_fields: dict, vocab, merge
                 fn()
             torch.cuda.synchronize()
             if rank == 0:
-                log(f"time serve-tp collective {label} on cuda over gloo "
-                    f"({'direct' if mesh.model.direct[label.split()[0]] else 'host-staged'}): "
+                op = label.split()[0]
+                how = "direct" if mesh.model.direct[op] else "host-staged"
+                log(f"time serve-tp collective {label} on cuda over gloo ({how}): "
                     f"{(time.perf_counter() - t0) / 200 * 1e3:.3f} ms per call, host clock, "
                     f"two ranks on one card ({card})")
+        part_done("collective timings")
         if rank == 0:
-            out["entries"] = tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch,
-                                             total, card)
+            out["entries"] = tp_time_kernels(engine, shapes, att, sk, qk, quantize, torch, card)
+        part_done("kernel timings")
         dist.barrier()
-        out["counts"] = total
+        out["counts"] = dict(total, qmm_verify_rows=out["spec"]["verify_launches"])
         out["collectives"] = dict(mesh.model.counts)
         out["host_staged"] = dict(mesh.model.host_staged)
         out["direct"] = dict(mesh.model.direct)
@@ -3509,9 +3891,19 @@ def serve_tp_phase(pkg, torch, encoder, vocab, merges, floor: float, tmp: str, c
     padded from 25, 50304 vocab rows), INT4 weights quantized for tp=2, the
     INT8 lm_head, an INT8 KV cache (13 heads per rank: odd, so unpacked).
     The parent builds the tree once, serves the greedy requests on one
-    device (unpacked, the same weights) for the near-tie check, and starts
-    the ranks. Returns (each rank's launch counts summed, kernel entries)."""
+    device (unpacked, the same weights) for the near-tie checks, runs the
+    one-card references of the mesh paths (the speculative batcher on the
+    same weights, the 124M training steps on the same padded tree), and
+    starts the ranks (``tp_rank``). Afterwards: the ranks' tokens agree; the
+    tp=2 engine, the prefix runs against the same mesh without the prefix,
+    and the speculative batcher against one card, equal up to a near-tie;
+    the training losses within 1e-5 relative of one card's. Returns (each
+    rank's launch counts summed, kernel entries)."""
     import torch.multiprocessing as mp
+
+    from zig_gpt2_tpu_torch import train
+    from zig_gpt2_tpu_torch.parallel.sharding import pad_for_tp
+    from zig_gpt2_tpu_torch.runtime import batcher as batcher_mod
 
     config_mod, gpt2, engine_mod, att, sk, qk, weights, quantize = pkg
     t0 = time.perf_counter()
@@ -3528,13 +3920,34 @@ def serve_tp_phase(pkg, torch, encoder, vocab, merges, floor: float, tmp: str, c
     with env_setting("ZG2_KV_PACKED", "0"):  # 13 heads per rank: the ranks serve unpacked
         single = engine_mod.InferenceEngine(config, params, encoder, kv_quant="int8",
                                             device="cuda")
-    del params
     wants, rates = [], []
     for name, prompt, kw, n in TP_REQUESTS:
         if kw["temperature"] == 0.0:
             m = engine_mod.GenerationMetrics()
             wants.append(single.generate(encoder.encode(prompt), n, greedy, metrics=m))
             rates.append(m.tokens_per_sec)
+    inputs = tp_inputs(config.vocab_size)
+    t0 = time.perf_counter()
+    one_card = batcher_mod.ContinuousBatcher(config, params, batch_size=TP_BATCH, max_seq=256,
+                                             kv_quant="int8", device="cuda", sampling=greedy,
+                                             speculative="ngram", spec_k=TP_SPEC_K,
+                                             spec_min_tpr=0.0)
+    spec_want = serve_batch(one_card, inputs["spec"], "serve-tp one-card speculative batcher")
+    log(f"serve-tp one-card speculative batcher: tokens_per_round "
+        f"{one_card.metrics.tokens_per_round:.4f}, "
+        f"{1e3 * (time.perf_counter() - t0) / sum(map(len, spec_want)):.3f} ms per committed "
+        f"token (host clock, with its warm-up; {card})")
+    del one_card, params
+    small_cfg, small = build_tp_124m(config_mod, gpt2, config.vocab_size, torch)
+    small, small_cfg = pad_for_tp(small, small_cfg, TP)
+    small = weights.tree_map(lambda t: t.to("cuda"), small)
+    opt = train.make_optimizer(small, learning_rate=TRAIN_LR)
+    step = train.make_train_step(small_cfg)
+    tokens = train_tokens(encoder, torch, "cuda")
+    train_want = [step(small, opt, tokens)[2].item() for _ in range(TP_TRAIN_STEPS)]
+    log(f"serve-tp one-card train on the padded 124M tree: losses {train_want}")
+    del small, opt
+    torch.cuda.empty_cache()
     fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config_mod.GPTConfig)}
     t0 = time.perf_counter()
     mp.start_processes(tp_rank, args=(f"file://{tmp}/tp_rendezvous", tree_path, fields, vocab,
@@ -3545,8 +3958,13 @@ def serve_tp_phase(pkg, torch, encoder, vocab, merges, floor: float, tmp: str, c
     for r in ranks[1:]:
         if ([e[2] for e in r["engine"]] != [e[2] for e in ranks[0]["engine"]]
                 or r["batcher"][1] != ranks[0]["batcher"][1]
-                or r["packed_124m"] != ranks[0]["packed_124m"]):
-            raise AssertionError("serve-tp: the ranks returned different tokens")
+                or r["packed_124m"] != ranks[0]["packed_124m"]
+                or r["prefix"]["engine"] != ranks[0]["prefix"]["engine"]
+                or r["prefix"]["batcher"] != ranks[0]["prefix"]["batcher"]
+                or r["spec"]["served"] != ranks[0]["spec"]["served"]
+                or r["auto_off"]["served"] != ranks[0]["auto_off"]["served"]
+                or r["train"]["losses"] != ranks[0]["train"]["losses"]):
+            raise AssertionError("serve-tp: the ranks returned different tokens or losses")
     engine_runs = [(ids, toks) for name, ids, toks, _, _ in ranks[0]["engine"]
                    if name == "greedy"]
     tp_rate = [tps for name, _, _, _, tps in ranks[0]["engine"] if name == "greedy"]
@@ -3555,6 +3973,33 @@ def serve_tp_phase(pkg, torch, encoder, vocab, merges, floor: float, tmp: str, c
     near_tie_check("serve-tp against one device", gpt2, single,
                    [(ids, len(t)) for ids, t in engine_runs], [t for _, t in engine_runs],
                    max(E2E_ATOL, 3 * floor), torch, wants=wants)
+    ids, toks = engine_runs[0]
+    tol = max(E2E_ATOL, 3 * floor,
+              3 * bf16_floor(gpt2, weights, single, ids, toks[:16], torch, "serve-tp"))
+    hits, plain = ranks[0]["prefix"]["engine"]
+    near_tie_pair("serve-tp prefix engine against the mesh without the prefix", gpt2, single,
+                  [(p, TP_PREFIX_TOKENS) for p in inputs["engine_prompts"]], hits, plain, tol,
+                  torch)
+    with_prefix, without = ranks[0]["prefix"]["batcher"]
+    near_tie_pair("serve-tp prefix batcher against the mesh without the prefix", gpt2, single,
+                  inputs["batch"], with_prefix, without, tol, torch)
+    near_tie_pair("serve-tp speculative batcher against one card", gpt2, single, inputs["spec"],
+                  ranks[0]["spec"]["served"], spec_want, tol, torch)
+    auto_off = ranks[0]["auto_off"]
+    near_tie_pair("serve-tp speculative auto-off against the speculative batcher", gpt2,
+                  single, inputs["spec"][:TP_BATCH], [t[:TP_SPEC_TOKENS] for t in
+                                                      auto_off["served"]],
+                  ranks[0]["spec"]["served"][:TP_BATCH], tol, torch)
+    near_tie_check("serve-tp speculative auto-off against one device", gpt2, single,
+                   auto_off["requests"][:1], auto_off["served"][:1], tol, torch)
+    got = ranks[0]["train"]["losses"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, train_want))
+    log(f"serve-tp train tp={TP}: losses {got} against one card's {train_want}: largest "
+        f"relative gap {gap:.3e} (tolerance 1e-5); tokens/s per rank "
+        f"{[round(r['train']['tokens_per_s'], 1) for r in ranks]}, peak memory per rank "
+        f"{[round(r['train']['peak_gib'], 3) for r in ranks]} GiB ({card})")
+    if gap > 1e-5:
+        raise AssertionError("serve-tp: the mesh's training losses are not one card's")
     del single
     small_cfg, small = build_tp_124m(config_mod, gpt2, config.vocab_size, torch)
     small = engine_mod.InferenceEngine(small_cfg, small, encoder, device="cuda")
@@ -3568,9 +4013,8 @@ def serve_tp_phase(pkg, torch, encoder, vocab, merges, floor: float, tmp: str, c
         f"{[r['host_staged'] for r in ranks]}, gloo direct on cuda {ranks[0]['direct']}")
     counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
     entries = ranks[0]["entries"]
-    for entry, key in zip(entries, ("qmm", "attention_int8", "attention_int8_ring",
-                                    "sampler_max")):
-        entry["launches"] = counts[key]  # both ranks' launches
+    for entry in entries:
+        entry["launches"] = counts[entry["launches"]]  # both ranks' launches
     return counts, entries
 
 

@@ -202,8 +202,10 @@ def test_spec_serve_constructor_guards(params):
         _port(params, batch_size=2, speculative="124M")
     with pytest.raises(ValueError, match="spec_k"):
         _port(params, batch_size=2, speculative="ngram", spec_k=0)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        _port(params, batch_size=2, speculative="ngram", mesh=make_mesh(1, 1))
+    # Served under a mesh (tests/test_torch_tp_spec.py): the rank's config
+    # follows the JAX op-level program, its cache unpacked.
+    served = _port(params, batch_size=2, speculative="ngram", mesh=make_mesh(1, 1, "cpu"))
+    assert served.config.op_level and not served.config.kv_packed
 
 
 def test_cli_batch_file_ngram_speculation(tmp_path, capsys):

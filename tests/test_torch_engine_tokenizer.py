@@ -190,13 +190,14 @@ def test_cli_demo_cpu(capsys):
                                   ["--weights", "raw", "--draft-model", "nano",
                                    "--draft-weights", "d.npz"]],
                          ids=["mesh", "npz-weights", "npz-draft-weights"])
-def test_cli_refuses_later_slices(flag, tmp_path, nano_params, capsys):
-    """Sequence-parallel prefill under --mesh is refused with the slice
-    that brings it (tensor-parallel serving itself is served now:
-    tests/test_torch_tp_layouts.py). .npz checkpoints (the target's or the draft's), refused until the port
-    could read them, are served now: greedy tokens from the .npz tree equal
-    those from the same weights as a raw checkpoint. A nano model saved
-    both ways, with an encoder.json that decodes every id it can emit."""
+def test_cli_refuses_later_slices(flag, tmp_path, nano_params, capfd):
+    """Options the port once refused are served. Sequence-parallel
+    prefill under --mesh (two ranks spawned by the CLI itself) prints the
+    one-device engine's greedy text. .npz checkpoints (the target's or the
+    draft's), refused until the port could read them:
+    greedy tokens from the .npz tree equal those from the same weights as
+    a raw checkpoint. A nano model saved both ways, with an encoder.json
+    that decodes every id it can emit."""
     rng = np.random.default_rng(0)
     words = ("".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), int(rng.integers(2, 8))))
              for _ in range(400))
@@ -207,15 +208,15 @@ def test_cli_refuses_later_slices(flag, tmp_path, nano_params, capsys):
         tio.save_pytree_npz(nano_params[1], tmp_path / name)
     flag = [str(tmp_path / f) if f in ("raw", "w.npz", "d.npz") else f for f in flag]
     argv = ["--model", "nano", "--encoder-dir", str(tmp_path), "--device", "cpu", *flag]
-    if "--mesh" in flag:
-        with pytest.raises(SystemExit, match="not in the PyTorch port yet"):
-            tcli.main([*argv, "hi"])
-        return
     served = []
-    as_raw = [str(tmp_path / "raw") if f.endswith(".npz") else f for f in argv]
-    for args in (argv, as_raw):
+    if "--mesh" in flag:
+        other = [f for f in argv if f not in ("--mesh", "1x2", "--seq-parallel")]
+    else:
+        other = [str(tmp_path / "raw") if f.endswith(".npz") else f for f in argv]
+    capfd.readouterr()
+    for args in (argv, other):
         tcli.main([*args, "--dtype", "fp32", "--temp", "0", "--max-tokens", "5", "ab cd"])
-        served.append(capsys.readouterr().out)
+        served.append(capfd.readouterr().out)
     assert served[0].startswith("ab cd") and served[0] == served[1]
 
 

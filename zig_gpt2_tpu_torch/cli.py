@@ -46,9 +46,11 @@ ranks, or several ranks sharing one card) or ``nccl`` (one card per rank:
 NCCL refuses two ranks on one device). Rank 0 prints. Under a mesh the
 float weights are padded for the model degree before ``--quant``
 quantizes them (``parallel.sharding.pad_for_tp``); a ``.npz`` must come
-padded (``tools.repack --tp``). ``--mesh`` with ``--draft-model``,
-``--prefix`` or ``--seq-parallel`` is refused: those wait for slice 12 of
-the port.
+padded (``tools.repack --tp``). Everything the JAX CLI serves under a mesh
+is served: ``--seq-parallel`` (sequence-parallel prefill), ``--prefix``
+and ``--draft-model ngram`` with ``--batch-file``. A draft model, or
+``ngram`` on one prompt, is refused under ``--mesh`` with the JAX CLI's
+reason: single-prompt speculation is single-device.
 """
 
 from __future__ import annotations
@@ -60,13 +62,6 @@ import os
 import sys
 import tempfile
 from pathlib import Path
-
-# Options of the JAX CLI that this port does not serve yet, with the slice
-# of the port that brings each.
-_LATER = {
-    "seq_parallel": "sequence-parallel prefill comes with slice 12 of the port",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="zig-gpt2-torch", description=__doc__,
@@ -128,7 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve over a data x model mesh of processes, e.g. '1x2'")
     p.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
                    help="--mesh: the process group's backend (nccl needs a card per rank)")
-    p.add_argument("--seq-parallel", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--seq-parallel", action="store_true",
+                   help="--mesh: sequence-parallel prefill (the residual stream between the "
+                        "linears split over the model ranks by position)")
     return p
 
 
@@ -187,19 +184,14 @@ def _layout(config) -> str:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    for name, why in _LATER.items():
-        if getattr(args, name):
-            sys.exit(f"error: --{name.replace('_', '-')} is not in the PyTorch port yet: {why}")
     if args.prompt is None and args.batch_file is None:
         sys.exit('error: missing prompt (usage: zig-gpt2-torch "<prompt>")')
     if args.mesh is None:
         return _serve(args)
     dp, tp = _parse_mesh(args.mesh)
-    if args.draft_model is not None:
-        sys.exit("error: --draft-model is single-device (no --mesh) in the PyTorch port: "
-                 "speculation under a mesh comes with slice 12")
-    if args.prefix is not None:
-        sys.exit("error: --prefix under --mesh comes with slice 12 of the PyTorch port")
+    if args.draft_model is not None and not _spec_serve(args):
+        sys.exit("error: --draft-model is single-prompt (only 'ngram' composes with "
+                 "--batch-file) and single-device: no --mesh")
     if args.device == "cuda":
         import torch
 
@@ -216,10 +208,18 @@ def main(argv=None) -> None:
         mp.spawn(_mesh_rank, args=(args, dp, tp, f"file://{tmp}/rendezvous"), nprocs=dp * tp)
 
 
+def _spec_serve(args) -> bool:
+    """--draft-model ngram with --batch-file: prompt lookup inside the
+    continuous batcher (one verify extend per round)."""
+    return args.draft_model == "ngram" and args.batch_file is not None
+
+
 def _mesh_rank(rank: int, args, dp: int, tp: int, init_method) -> None:
-    """One rank of ``--mesh``: join the group, build the mesh on this
-    rank's device, serve; only rank 0 writes to stdout and stderr."""
+    """One rank of ``--mesh``: join the group (unless the process has
+    joined one already, which it then leaves as it is), build the mesh on
+    this rank's device, serve; only rank 0 writes to stdout and stderr."""
     import torch
+    import torch.distributed as dist
 
     from zig_gpt2_tpu_torch.parallel import distributed as pdist
     from zig_gpt2_tpu_torch.parallel.mesh import make_mesh
@@ -230,11 +230,13 @@ def _mesh_rank(rank: int, args, dp: int, tp: int, init_method) -> None:
     if device == "cuda":
         device = f"cuda:{rank % torch.cuda.device_count()}"
         torch.cuda.set_device(device)
+    joined_here = not dist.is_initialized()
     pdist.initialize(init_method, dp * tp, rank, backend=args.backend)
     try:
         _serve(args, make_mesh(dp, tp, device))
     finally:
-        pdist.shutdown()
+        if joined_here:
+            pdist.shutdown()
 
 
 def _serve(args, mesh=None) -> None:
@@ -287,6 +289,8 @@ def _serve(args, mesh=None) -> None:
                                  tp=tp)
     if args.quant == "w8a8":
         config = dataclasses.replace(config, act_quant=True)
+    if args.seq_parallel and mesh is not None:
+        config = dataclasses.replace(config, seq_parallel=True)
 
     sampling = SamplingConfig(temperature=args.temp, top_k=args.top_k,
                               top_p=args.top_p, seed=args.seed)
@@ -302,9 +306,7 @@ def _serve(args, mesh=None) -> None:
 
     kv_quant = "int8" if args.kv_quant else None
     device_name = torch.cuda.get_device_name(device) if args.device == "cuda" else "cpu"
-    # --draft-model ngram composes with --batch-file: prompt lookup inside
-    # the continuous batcher (one verify extend per round).
-    spec_serve = args.draft_model == "ngram" and args.batch_file is not None
+    spec_serve = _spec_serve(args)
     if args.draft_model is not None and not spec_serve:
         if args.batch_file is not None:
             sys.exit("error: --draft-model is single-prompt (only 'ngram' composes with "

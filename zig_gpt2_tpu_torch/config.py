@@ -3,12 +3,14 @@
 The port's own copy of ``zig_gpt2_tpu.config``: the same names, fields and
 values, so one configuration describes a model in both packages. Fields
 that only steer the JAX package's XLA sharding (``spmd``, ``mesh``,
-``manual_axis``, ``seq_parallel``) are left out; the fields that change
-results are kept. Tensor-parallel serving adds one field of its own,
-``model_group``, on ``RankConfig``, a rank's per-shard config
-(``parallel.mesh.local_config``): it carries the model-axis group, and the
-model then inserts its collectives. On ``GPTConfig`` it is a class
-attribute, None, so that a config's fields stay the JAX package's.
+``manual_axis``) are left out; the fields that change results are kept,
+and ``seq_parallel``, which the port serves under a mesh. Tensor-parallel
+serving adds fields of its own on ``RankConfig``, a rank's per-shard
+config (``parallel.mesh.local_config``): ``model_group`` carries the
+model-axis group, and the model then inserts its collectives; ``op_level``
+picks which of the JAX package's two mesh programs a decode step follows.
+On ``GPTConfig`` both are class attributes, so that a config's fields stay
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -45,8 +47,14 @@ class GPTConfig:
     # Ring KV cache for continuous batching; the batcher sets it unless
     # ZG2_RING=0.
     ring_cache: bool = False
+    # Sequence-parallel prefill (and forward) under a mesh: the residual
+    # stream between the linears is split over the model ranks by sequence
+    # position (models.gpt2); no effect on one device. Results are the
+    # plain tensor-parallel ones.
+    seq_parallel: bool = False
     # No model group on one device (see RankConfig).
     model_group: ClassVar[Optional[object]] = None
+    op_level: ClassVar[bool] = False
 
     @property
     def head_dim(self) -> int:
@@ -79,9 +87,16 @@ class RankConfig(GPTConfig):
     ``parallel.distributed.Collectives``. The shapes are then shards (the
     attention heads, the column linears' N, the row linears' K, the vocab
     rows), and ``models.gpt2`` all-reduces after the embedding and each
-    row-parallel linear and masks phantom vocab by global id."""
+    row-parallel linear and masks phantom vocab by global id.
+
+    ``op_level``: ``decode_step`` follows the JAX package's op-level
+    (GSPMD) mesh program, which quantizes a w8a8 c_proj row over its whole
+    K, instead of its step-level body (over the rank's K, the default).
+    The speculative batcher sets it under a mesh, where the JAX batcher
+    takes the op-level placement."""
 
     model_group: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
+    op_level: bool = False
 
 
 GPT2_124M = GPTConfig(50257, 1024, 12, 12, 768)

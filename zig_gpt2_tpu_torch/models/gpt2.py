@@ -77,9 +77,25 @@ INT8/INT4 weights, float or INT8 KV cache:
   then cast to x's dtype, then the bias; INT4 all-gathers x and takes the
   rank's two half-split feature ranges), and the lm_head's phantom-vocab
   mask by global id. A w8a8 c_proj quantizes each activation row over the
-  rank's K in ``decode_step``, as the JAX step-level body does, and over
-  the whole row in ``prefill``, ``extend`` and ``forward``, as its GSPMD
-  programs do.
+  rank's K in ``decode_step``, as the JAX step-level body does (or over
+  the whole row under ``config.op_level``), and over the whole row in
+  ``prefill``, ``extend`` and ``forward``, as its GSPMD programs do. Under
+  autograd (``forward``) the input of each column-parallel linear and of
+  the lm_head sums its gradient over the model group
+  (``Collectives.sum_grad``), Megatron's conjugate of the row-parallel
+  all-reduce.
+- Sequence parallelism (``config.seq_parallel`` on a rank's config: the
+  JAX package's (data, model, None) constraint on the prefill residual
+  stream, in Megatron-SP's per-rank form) in ``prefill`` and ``forward``:
+  the residual stream and the LayerNorms run on the rank's T/tp rows (T
+  padded with zero rows up to a multiple of tp; the length mask already
+  hides them); the embedding and each row-parallel c_proj reduce-scatter
+  over the sequence instead of all-reducing; each column-parallel linear's
+  input is all-gathered over the sequence and cut back to the T rows, so
+  every product, the attention and the K/V written to the cache see the
+  plain tensor-parallel shapes. At tp=2 the logits and the cache are bit
+  for bit the plain tensor-parallel ones (a sum of two is the same either
+  way round).
 """
 
 from __future__ import annotations
@@ -89,6 +105,7 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from zig_gpt2_tpu_torch.config import GPTConfig
@@ -339,8 +356,48 @@ def _linear(p: Dict[str, torch.Tensor], x: torch.Tensor, config: GPTConfig,
     return ops.linear(x, p["w"], p.get("b"))
 
 
+def _seq_parallel(config: GPTConfig) -> bool:
+    """Whether ``prefill``/``forward`` run sequence-parallel: a rank's config
+    with ``seq_parallel`` over more than one model rank."""
+    group = config.model_group
+    return config.seq_parallel and group is not None and group.size > 1
+
+
+def _seq_pad(t: torch.Tensor, tp: int, value: float = 0.0) -> torch.Tensor:
+    """(B, T, ...) -> (B, Tp, ...): T padded with ``value`` rows up to a
+    multiple of tp."""
+    extra = -t.shape[1] % tp
+    if not extra:
+        return t
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, extra), value=value)
+
+
+def _seq_slice(t: torch.Tensor, group, value: float = 0.0) -> torch.Tensor:
+    """This rank's rows of a (B, T, ...) tensor that every rank holds whole,
+    T padded first (``_seq_pad``)."""
+    t = _seq_pad(t, group.size, value)
+    n = t.shape[1] // group.size
+    return t[:, group.index * n:(group.index + 1) * n]
+
+
+def _col_in(h: torch.Tensor, config: GPTConfig, T: int) -> torch.Tensor:
+    """The input of a column-parallel linear (or the lm_head) in ``prefill``
+    and ``forward``. Under tensor parallelism its gradient is summed over
+    the model group; under sequence parallelism the rank's rows are
+    all-gathered over the sequence (the gradient reduce-scattered) and cut
+    back to the true T rows."""
+    group = config.model_group
+    if group is None:
+        return h
+    if not _seq_parallel(config):
+        return group.sum_grad(h)
+    h = group.gather_seq(h, 1)
+    return h if h.shape[1] == T else h[:, :T].contiguous()
+
+
 def _row_linear(p: Dict[str, torch.Tensor], x: torch.Tensor, config: GPTConfig,
-                wmm: bool = False, full_row_scale: bool = True) -> torch.Tensor:
+                wmm: bool = False, full_row_scale: bool = True,
+                scatter: bool = False) -> torch.Tensor:
     """A row-parallel linear (the c_proj pair): ``_linear`` on one device.
     Under tensor parallelism x is this rank's K slice (the output of the
     column-parallel linear before it) and the weight holds the matching K
@@ -348,9 +405,12 @@ def _row_linear(p: Dict[str, torch.Tensor], x: torch.Tensor, config: GPTConfig,
     then cast to x's dtype, then the replicated bias. An INT4 weight's rows
     hold two half-split feature ranges, so x is all-gathered and those
     cut out (``int4_row_shard_slices``). A w8a8 weight quantizes each x row
-    over its whole K when ``full_row_scale`` (``w8a8_row_full_scale``),
-    else over the rank's K. A float 16-bit product is rounded to its dtype
-    once before the sum."""
+    over its whole K when ``full_row_scale`` (``w8a8_row_full_partial``:
+    the exact integer sums are reduced, then scaled), else over the rank's
+    K. A float 16-bit product is rounded to its dtype once before the sum.
+    ``scatter`` (sequence parallelism, x (B, T, K)): the sum is
+    reduce-scattered over the sequence instead, and the result is this
+    rank's (B, Tp / tp, N) rows."""
     group = config.model_group
     if group is None:
         return _linear(p, x, config, wmm)
@@ -358,20 +418,31 @@ def _row_linear(p: Dict[str, torch.Tensor], x: torch.Tensor, config: GPTConfig,
 
     *lead, k_local = x.shape
     x2 = x.reshape(-1, k_local)
+    sx = None
     w8a8 = config.act_quant and "qw" in p and p["scale"].shape[-2] == 1
-    if w8a8 and full_row_scale:  # the integer sums are reduced inside
-        y = shard_kernels.w8a8_row_full_scale(x2, p["qw"], p["scale"], group)
+    if w8a8 and full_row_scale:  # the exact integer sums are reduced
+        y, sx = shard_kernels.w8a8_row_full_partial(x2, p["qw"], group)
     elif is_quantized(p):
         q = p
         if "qw4" in p:
             x2, scale = shard_kernels.int4_row_shard_slices(
                 group.all_gather_cat(x2, dim=1), p["scale"], group.size, group.index)
             q = {"qw4": p["qw4"], "scale": scale}
-        y = group.all_reduce(quantized_product(q, x2, config.act_quant).float())
+        y = quantized_product(q, x2, config.act_quant).float()
     elif wmm and x2.shape[0] <= _qmm_cap(config, int4=False):
-        y = group.all_reduce(kernels.wmm(x2.contiguous(), p["w"]))
+        y = kernels.wmm(x2.contiguous(), p["w"])
     else:
-        y = group.all_reduce(torch.matmul(x2, p["w"]).float())
+        y = torch.matmul(x2, p["w"]).float()
+    if scatter:
+        y = group.reduce_scatter(_seq_pad(y.reshape(*lead, -1), group.size), 1)
+        lead = y.shape[:-1]
+        y = y.reshape(-1, y.shape[-1])
+        if sx is not None:
+            sx = _seq_slice(sx.reshape(lead[0], -1), group, 1.0).reshape(-1)
+    else:
+        y = group.all_reduce(y)
+    if sx is not None:
+        y = kernels.w8a8_tail(y, sx, p["scale"])
     y = y.to(x.dtype).reshape(*lead, y.shape[-1])
     return y if p.get("b") is None else y + p["b"]
 
@@ -397,17 +468,21 @@ def _qkv(attn_p: Params, h: torch.Tensor, config: GPTConfig, wmm: bool = False
 
 
 def _block_prefill(x: torch.Tensor, bp: Params, config: GPTConfig,
-                   length_mask: Optional[torch.Tensor]):
-    """One block over a full sequence: returns (x, k, v), k/v (B, H, T, D)."""
-    B, T, _ = x.shape
+                   length_mask: Optional[torch.Tensor], T: int):
+    """One block over a full sequence of T positions: returns (x, k, v), k/v
+    (B, H, T, D). Under sequence parallelism x is the rank's (B, Tp / tp,
+    E) rows of the residual stream (``_seq_parallel``)."""
+    sp = _seq_parallel(config)
     h = ops.layer_norm(x, bp["ln_1"]["w"], bp["ln_1"]["b"], config.layer_norm_eps)
+    h = _col_in(h, config, T)
+    B = h.shape[0]
     q, k, v = (t.transpose(1, 2) for t in _qkv(bp["attn"], h, config))
     attn = ops.causal_attention(q, k, v, length_mask=length_mask)
     attn = attn.transpose(1, 2).reshape(B, T, -1)
-    x = x + _row_linear(bp["attn"]["c_proj"], attn, config)
+    x = x + _row_linear(bp["attn"]["c_proj"], attn, config, scatter=sp)
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
-    h = ops.gelu(_linear(bp["mlp"]["c_fc"], h, config))
-    x = x + _row_linear(bp["mlp"]["c_proj"], h, config)
+    h = ops.gelu(_linear(bp["mlp"]["c_fc"], _col_in(h, config, T), config))
+    x = x + _row_linear(bp["mlp"]["c_proj"], h, config, scatter=sp)
     return x, k, v
 
 
@@ -455,10 +530,11 @@ def _block_decode(x: torch.Tensor, blocks: Params, idx: int, caches: KVCache,
         _put_row_stacked(caches["k"], k, idx, wpos)
         _put_row_stacked(caches["v"], v, idx, wpos)
     x = x + _row_linear(bp["attn"]["c_proj"], attn.reshape(x.shape[0], -1), config, wmm,
-                        full_row_scale=False)
+                        full_row_scale=config.op_level)
     h = ops.layer_norm(x, bp["ln_2"]["w"], bp["ln_2"]["b"], config.layer_norm_eps)
     h = ops.gelu(_linear(bp["mlp"]["c_fc"], h, config, wmm))
-    return x + _row_linear(bp["mlp"]["c_proj"], h, config, wmm, full_row_scale=False)
+    return x + _row_linear(bp["mlp"]["c_proj"], h, config, wmm,
+                           full_row_scale=config.op_level)
 
 
 def _lm_head(params: Params, x: torch.Tensor, config: GPTConfig) -> torch.Tensor:
@@ -479,29 +555,35 @@ def _lm_head(params: Params, x: torch.Tensor, config: GPTConfig) -> torch.Tensor
 
 
 def _embed(params: Params, tokens: torch.Tensor, pos: torch.Tensor,
-           config: GPTConfig) -> torch.Tensor:
+           config: GPTConfig, scatter: bool = False) -> torch.Tensor:
     """Token plus position embeddings. Under tensor parallelism wte is the
     rank's vocab rows: a masked local lookup (zero for ids outside them),
-    all-reduced over the model group (the vocab-parallel embedding)."""
+    all-reduced over the model group (the vocab-parallel embedding); with
+    ``scatter`` (sequence parallelism: tokens (B, T), pos (T,))
+    reduce-scattered over the sequence instead, plus the rank's rows of the
+    position embeddings."""
     wte, group = params["wte"], config.model_group
     if group is None:
         tok = ops.embedding(tokens.long(), wte)
-    else:
-        vl = wte.shape[0]
-        local = tokens.long() - group.index * vl
-        ok = (local >= 0) & (local < vl)
-        tok = ops.embedding(local.clamp(0, vl - 1), wte)
-        tok = group.all_reduce(torch.where(ok[..., None], tok, torch.zeros((), dtype=tok.dtype,
-                                                                          device=tok.device)))
-    return tok + ops.embedding(pos.long(), params["wpe"])
+        return tok + ops.embedding(pos.long(), params["wpe"])
+    vl = wte.shape[0]
+    local = tokens.long() - group.index * vl
+    ok = (local >= 0) & (local < vl)
+    tok = ops.embedding(local.clamp(0, vl - 1), wte)
+    tok = torch.where(ok[..., None], tok, torch.zeros((), dtype=tok.dtype, device=tok.device))
+    if not scatter:
+        return group.all_reduce(tok) + ops.embedding(pos.long(), params["wpe"])
+    pos = _seq_slice(pos.expand(tokens.shape)[..., None], group)[..., 0]  # padding: row 0
+    return (group.reduce_scatter(_seq_pad(tok, group.size), 1)
+            + ops.embedding(pos.long(), params["wpe"]))
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
-def _block_forward(x: torch.Tensor, bp: Params, config: GPTConfig) -> torch.Tensor:
-    return _block_prefill(x, bp, config, None)[0]
+def _block_forward(x: torch.Tensor, bp: Params, config: GPTConfig, T: int) -> torch.Tensor:
+    return _block_prefill(x, bp, config, None, T)[0]
 
 
 def forward(params: Params, tokens: torch.Tensor, config: GPTConfig,
@@ -510,19 +592,21 @@ def forward(params: Params, tokens: torch.Tensor, config: GPTConfig,
     perplexity and training; it differentiates when grad is enabled.
     ``remat``: under grad, checkpoint each block (its activations are
     recomputed in the backward pass instead of kept: activation memory for
-    compute, as the JAX package's ``jax.checkpoint``)."""
+    compute, as the JAX package's ``jax.checkpoint``). Under tensor
+    parallelism the logits are the rank's vocab slice."""
     T = tokens.shape[1]
-    x = _embed(params, tokens, torch.arange(T, device=tokens.device), config)
+    x = _embed(params, tokens, torch.arange(T, device=tokens.device), config,
+               _seq_parallel(config))
     recompute = remat and torch.is_grad_enabled()
     for idx in range(config.n_layers):
         bp = _layer(params["blocks"], idx)
         if recompute:
-            x = torch.utils.checkpoint.checkpoint(_block_forward, x, bp, config,
+            x = torch.utils.checkpoint.checkpoint(_block_forward, x, bp, config, T,
                                                   use_reentrant=False)
         else:
-            x = _block_forward(x, bp, config)
+            x = _block_forward(x, bp, config, T)
     x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
-    return _lm_head(params, x, config)
+    return _lm_head(params, _col_in(x, config, T), config)
 
 
 @torch.no_grad()
@@ -536,11 +620,11 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
     _check_packed_weights(config)
     B, T = tokens.shape
     pos = torch.arange(T, device=tokens.device)
-    x = _embed(params, tokens, pos, config)
+    x = _embed(params, tokens, pos, config, _seq_parallel(config))
     lengths = lengths.to(device=tokens.device, dtype=torch.int32)
     length_mask = pos[None, :] < lengths[:, None]
     for idx in range(config.n_layers):
-        x, k, v = _block_prefill(x, _layer(params["blocks"], idx), config, length_mask)
+        x, k, v = _block_prefill(x, _layer(params["blocks"], idx), config, length_mask, T)
         if config.kv_packed:  # pack, and only then quantize (per pair)
             k, v = pack_heads_seq(k), pack_heads_seq(v)
         if "k_scale" in cache:  # INT8 cache: quantize on append
@@ -550,6 +634,7 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
         cache["k"][idx, :, :, :T] = k.to(cache["k"].dtype)
         cache["v"][idx, :, :, :T] = v.to(cache["v"].dtype)
     x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
+    x = _col_in(x, config, T)
     last = x[torch.arange(B, device=x.device), lengths.long() - 1]
     cache["length"] = lengths.clone()
     return cache, _lm_head(params, last, config)

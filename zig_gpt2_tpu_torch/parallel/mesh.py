@@ -39,6 +39,7 @@ import torch.distributed as dist
 from zig_gpt2_tpu_torch.config import GPTConfig, RankConfig
 from zig_gpt2_tpu_torch.parallel.distributed import Collectives
 from zig_gpt2_tpu_torch.parallel.sharding import pad_for_tp
+from zig_gpt2_tpu_torch.utils.device import resolve_device
 
 _LINEARS = (("attn", "wq", "col"), ("attn", "wk", "col"), ("attn", "wv", "col"),
             ("attn", "c_proj", "row"), ("mlp", "c_fc", "col"), ("mlp", "c_proj", "row"))
@@ -66,13 +67,17 @@ class Mesh:
         return self.rank % self.tp
 
 
-def make_mesh(dp: int = 1, tp: int = 1, device="cpu") -> Mesh:
+def make_mesh(dp: int = 1, tp: int = 1, device="cuda") -> Mesh:
     """This rank's (data, model) mesh over the joined process group
     (``distributed.initialize``), whose size must be dp * tp; a 1 x 1 mesh
-    needs no group. Every rank makes the groups, in the same order."""
+    needs no group. Every rank makes the groups, in the same order. The
+    mesh's tensors live on ``device``: the card unless the caller asks for
+    the CPU (``device="cpu"``), and RuntimeError without a card, the
+    engine's rule; the engine and the batcher refuse a mesh on a device
+    other than theirs."""
     if dp < 1 or tp < 1:
         raise ValueError(f"mesh {dp}x{tp}: both degrees must be positive")
-    device = torch.device(device)
+    device = resolve_device(device)
     if dp * tp == 1:
         return Mesh(1, 1, 0, device, Collectives([0], 0, device), Collectives([0], 0, device))
     if not dist.is_initialized():

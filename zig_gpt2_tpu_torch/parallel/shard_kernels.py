@@ -12,9 +12,9 @@ wrappers apply:
 - ``decorrelate_seeds`` and ``combine_shards``: the vocab-sharded
   Gumbel-max draw (each rank draws its own noise; the cross-rank argmax of
   the winning perturbed values is the global draw);
-- ``w8a8_row_full_scale``: a row-parallel w8a8 product whose activations
-  are quantized over the whole row, as the JAX package's GSPMD prefill
-  quantizes them.
+- ``w8a8_row_full_partial``: a row-parallel w8a8 product whose
+  activations are quantized over the whole row, as the JAX package's GSPMD
+  programs quantize them.
 """
 
 from __future__ import annotations
@@ -64,19 +64,18 @@ def combine_shards(z_all: torch.Tensor, idx_all: torch.Tensor, vl: int) -> torch
     return (win * vl + local).to(torch.int32)
 
 
-def w8a8_row_full_scale(x2: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-                        group) -> torch.Tensor:
-    """(rows, N) f32 of a K-sharded per-channel INT8 w8a8 linear with each
-    activation row quantized over its whole K: the row is gathered, its
-    scale taken over all of it, this rank's slice of the int8 row
-    multiplied with its K rows, and the exact integer sums added over the
-    group (in f64: |sum| < 2^53) before the f32 tail. Bit for bit the
-    single-device ``w8a8_matmul`` over the whole row."""
+def w8a8_row_full_partial(x2: torch.Tensor, qw: torch.Tensor, group):
+    """This rank's part of a K-sharded per-channel INT8 w8a8 linear with
+    each activation row quantized over its whole K: the row is gathered,
+    its scale taken over all of it, and this rank's slice of the int8 row
+    multiplied with its K rows. Returns ((rows, N) exact integer sums in
+    f64, (rows,) f32 row scales). The caller sums the parts over the group
+    (in f64 the sum stays exact: |sum| < 2^53) and takes
+    ``kernels.w8a8_tail`` of the sum: bit for bit the single-device
+    ``w8a8_matmul`` over the whole row."""
     kl = x2.shape[1]
     xq, sx = kernels.quantize_rows(group.all_gather_cat(x2, dim=1))
     xq = xq[:, group.index * kl:(group.index + 1) * kl].contiguous()
     if xq.device.type == "cpu" or _int_mm_takes(xq, qw):
-        acc = torch._int_mm(xq, qw).double()
-    else:
-        acc = xq.double() @ qw.double()
-    return kernels.w8a8_tail(group.all_reduce(acc), sx, scale)
+        return torch._int_mm(xq, qw).double(), sx
+    return xq.double() @ qw.double(), sx

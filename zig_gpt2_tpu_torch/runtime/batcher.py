@@ -50,9 +50,18 @@ holds slots [d B/dp, (d + 1) B/dp) in its cache and prefills only the
 admissions that land there, and each step's (chunk, B/dp) token block is
 gathered over the data group, so that every rank's bookkeeping sees the
 same B lanes. Each decode step runs the per-rank model and the
-vocab-sharded draw ``sampling.sample_manual``. Plain decode serving only,
-on a ring or a linear cache, float or INT8: speculative serving and prefix
-caching under a mesh are left for slice 12 of the port.
+vocab-sharded draw ``sampling.sample_manual``, on a ring or a linear
+cache, float or INT8. A registered prefix is stored by every rank (the
+rows of its own heads, the same on every data rank), and each data rank
+admits the hits that land in its slots. Speculative serving keeps each
+slot's history on the data rank that holds the slot; a round's verify
+logits are all-gathered over the model group before the acceptance, so
+that every rank of the group takes the same accept counts from the same
+inputs and one generator kept in step, and the round's (B/dp, ...) block
+is gathered over the data group with the step's one host read. The JAX
+batcher takes its op-level mesh program there, and so does a rank's
+config (``op_level``): after auto-off, a w8a8 decode step quantizes each
+row over its whole K. The mesh must live on the batcher's device.
 """
 
 from __future__ import annotations
@@ -70,9 +79,9 @@ import torch
 from zig_gpt2_tpu_torch.config import GPTConfig, SamplingConfig
 from zig_gpt2_tpu_torch.models import gpt2
 from zig_gpt2_tpu_torch.runtime import speculative as spec_mod
-from zig_gpt2_tpu_torch.runtime.engine import (_bucket, _check_mesh, _resolve_device,
-                                               match_prefix)
+from zig_gpt2_tpu_torch.runtime.engine import _bucket, _check_mesh, match_prefix
 from zig_gpt2_tpu_torch.runtime.sampling import data_rank_seed, sample, sample_manual
+from zig_gpt2_tpu_torch.utils.device import resolve_device
 from zig_gpt2_tpu_torch.weights import tree_map
 
 
@@ -203,13 +212,8 @@ class ContinuousBatcher:
         the auto-off threshold on windowed tokens per round (0 keeps
         speculation on).
 
-        ``mesh``: serve over a ``parallel.mesh.Mesh`` (plain decode only);
-        ``params`` are the full weights, batch_size must divide by its dp."""
-        if mesh is not None:
-            _check_mesh(mesh)
-            if speculative is not None:
-                raise NotImplementedError("speculative serving under a mesh comes with slice "
-                                          "12 of the port")
+        ``mesh``: serve over a ``parallel.mesh.Mesh``; ``params`` are the
+        full weights, batch_size must divide by its dp."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
         self._spec = None
@@ -223,7 +227,9 @@ class ContinuousBatcher:
             if spec_k < 1:
                 raise ValueError("spec_k must be >= 1")
             self._spec = (spec_k, max(int(spec_ngram), 1), max(int(spec_chunk), 1))
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
+        if mesh is not None:
+            _check_mesh(mesh, self.device)
         self.mesh = mesh
         # Speculative serving extends and never decode-steps until auto-off:
         # a linear, unpacked cache.
@@ -236,6 +242,8 @@ class ContinuousBatcher:
 
             self.params, self.config = prepare_serving(params, config, mesh, batch_size,
                                                        self.device)
+            if self._spec is not None:  # the JAX op-level program, its cache unpacked
+                self.config = dataclasses.replace(self.config, kv_packed=False, op_level=True)
             self._lanes = batch_size // mesh.dp
             self._first = mesh.data_index * self._lanes
         else:
@@ -262,10 +270,11 @@ class ContinuousBatcher:
             sk, _, sr = self._spec
             cache_rows = self._hist_cap = self.max_seq + (sr + 1) * (sk + 1)
             self._len_cap = self._hist_len_cap = cache_rows - (sk + 1)
-            # Each slot's committed tokens, the feed token at _hist_len - 1.
-            self._hist = torch.zeros((batch_size, self._hist_cap), dtype=torch.int32,
+            # Each of this rank's slots' committed tokens, the feed token at
+            # _hist_len - 1.
+            self._hist = torch.zeros((self._lanes, self._hist_cap), dtype=torch.int32,
                                      device=self.device)
-            self._hist_len = torch.zeros((batch_size,), dtype=torch.int32, device=self.device)
+            self._hist_len = torch.zeros((self._lanes,), dtype=torch.int32, device=self.device)
         else:
             # decode_chunk - 1 headroom rows: a slot that hits its budget
             # mid-chunk keeps writing rows until the chunk ends. One more
@@ -329,11 +338,8 @@ class ContinuousBatcher:
         """Compute and keep the KV rows of a shared prompt prefix (a system
         prompt): later submissions that share leading tokens with it admit
         from the stored rows and compute only their suffix (one extend).
-        Memory: one slot's cache per registered prefix. Output is
-        unchanged."""
-        if self.mesh is not None:
-            raise NotImplementedError("prefix caching under a mesh comes with slice 12 of "
-                                      "the port")
+        Memory: one slot's cache per registered prefix (under a mesh, the
+        rows of this rank's heads). Output is unchanged."""
         prefix_ids = [int(t) for t in prefix_ids]
         if not prefix_ids:
             raise ValueError("prefix must contain at least one token")
@@ -456,16 +462,21 @@ class ContinuousBatcher:
     def _step_spec(self, active) -> Dict[int, List[int]]:
         """One speculative step: ``spec_chunk`` rounds, one host sync. A
         slot's first step also emits the prefill's token (the plain path
-        emits it as the first one consumed)."""
+        emits it as the first one consumed). Under a mesh the rank's block
+        is gathered over the data group first."""
         t0 = time.perf_counter()
         consumed0 = self._tokens
         rounds = [self._spec_round() for _ in range(self._spec[2])]
-        B = self.batch_size
-        flat = torch.cat([consumed0] + [t.reshape(-1) for r in rounds for t in r])
-        host = flat.cpu().numpy()  # the one host sync
-        consumed0, host = host[:B], host[B:].reshape(len(rounds), -1)
-        emits = host[:, :-B].reshape(len(rounds), B, -1)
-        ns = host[:, -B:]
+        # (lanes, 1 + rounds * (k + 2)): the first feed token, then each
+        # round's k + 1 emit slots and its count.
+        block = torch.cat([consumed0[:, None]] + [t for emit, n in rounds
+                                                  for t in (emit, n[:, None])], dim=1)
+        if self.mesh is not None and self.mesh.dp > 1:  # (dp, B/dp, w) -> (B, w)
+            block = self.mesh.data.all_gather(block).reshape(self.batch_size, -1)
+        host = block.cpu().numpy()  # the one host sync
+        consumed0 = host[:, 0]
+        per_round = host[:, 1:].reshape(self.batch_size, len(rounds), -1)
+        emits, ns = per_round[:, :, :-1], per_round[:, :, -1]  # (B, rounds, k + 1), (B, rounds)
         dt = time.perf_counter() - t0
         self.metrics.decode_s += dt
         self.metrics.sync_ms.append(dt * 1000.0)
@@ -485,12 +496,12 @@ class ContinuousBatcher:
             for r in range(len(rounds)):
                 if req.done:
                     break
-                n = int(ns[r, i])
+                n = int(ns[i, r])
                 self.metrics.spec_slot_rounds += 1
                 self.metrics.spec_committed += n
                 sync_rounds += 1
                 sync_committed += n
-                self._consume(i, req, emits[r, i, :n].tolist(), emitted)
+                self._consume(i, req, emits[i, r, :n].tolist(), emitted)
         # Auto-off: once the window holds enough evidence, a rate below
         # spec_min_tpr moves the batcher to plain decode for good.
         if self._spec_min_tpr > 0.0 and not self._spec_off:
@@ -580,14 +591,31 @@ class ContinuousBatcher:
         suffix position. The stored rows are never written."""
         t0 = time.perf_counter()
         k = len(group)
+        mine = [(i - self._first, req, usable) for i, req, usable in group
+                if self._first <= i < self._first + self._lanes]
+        if mine:
+            self._extend_prefix_lanes(self._prefixes[pidx][1], sb, mine)
+        for i, req, usable in group:
+            self._seat(i, req)
+            self.metrics.prefix_hits += 1
+            self.metrics.prefill_tokens_saved += usable
+        self.metrics.prefills += k
+        self.metrics.prefill_s += time.perf_counter() - t0
+
+    def _extend_prefix_lanes(self, pre, sb: int, mine: List[tuple]) -> None:
+        """The device half of a prefix admission, on this rank's hits
+        (local slot, request, usable rows): the stored rows copied to one
+        lane each at its base, the (k, sb) suffix windows extended, the
+        lanes spliced in and each first token drawn from its last suffix
+        position."""
+        k = len(mine)
         toks = np.zeros((k, sb), np.int32)
         bases, slens = np.zeros((k,), np.int32), np.zeros((k,), np.int32)
         idxs = np.zeros((k,), np.int64)
-        for j, (i, req, usable) in enumerate(group):
+        for j, (i, req, usable) in enumerate(mine):
             suffix = req.prompt_ids[usable:]
             toks[j, :len(suffix)] = suffix
             bases[j], slens[j], idxs[j] = usable, len(suffix), i
-        pre = self._prefixes[pidx][1]
         lanes = {name: t.repeat(1, k, *([1] * (t.dim() - 2)))
                  for name, t in pre.items() if name != "length"}
         lanes["length"] = self._to_device(bases)
@@ -597,17 +625,11 @@ class ContinuousBatcher:
         last = logits[torch.arange(k, device=self.device), slens_d.long() - 1]
         prows = lens = None
         if self._spec is not None:  # the history holds the whole prompt
-            prows = np.zeros((k, max(len(r.prompt_ids) for _, r, _ in group)), np.int32)
-            for j, (_, req, _) in enumerate(group):
+            prows = np.zeros((k, max(len(r.prompt_ids) for _, r, _ in mine)), np.int32)
+            for j, (_, req, _) in enumerate(mine):
                 prows[j, :len(req.prompt_ids)] = req.prompt_ids
             prows, lens = self._to_device(prows), lanes["length"]
         self._admit_epilogue(lanes, last, idxs, prows, lens)
-        for i, req, usable in group:
-            self._seat(i, req)
-            self.metrics.prefix_hits += 1
-            self.metrics.prefill_tokens_saved += usable
-        self.metrics.prefills += k
-        self.metrics.prefill_s += time.perf_counter() - t0
 
     def _admit_epilogue(self, lanes, logits, idxs: torch.Tensor, hist_tokens, hist_lens) -> None:
         """The shared tail of both admissions: splice the k lanes in, sample

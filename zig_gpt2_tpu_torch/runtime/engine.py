@@ -26,7 +26,11 @@ batch_size / dp lanes, each model rank the per-shard tensors, and every
 step runs the per-rank model (its collectives on the model group) and the
 vocab-sharded draw ``sampling.sample_manual``. Every rank returns the same
 tokens: a rank's lanes are gathered over the data group. Prefix caching
-under a mesh is left for slice 12 of the port.
+serves under a mesh too (batch_size 1, so dp 1, as in the JAX package):
+each rank stores the prefix rows of its own heads, and a hit's suffix
+extend runs through the per-rank collective sites. A config with
+``seq_parallel`` prefills sequence-parallel over the model group
+(``models.gpt2``). The mesh must live on the engine's device.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 from zig_gpt2_tpu_torch.config import GPTConfig, SamplingConfig
 from zig_gpt2_tpu_torch.models import gpt2
 from zig_gpt2_tpu_torch.runtime.sampling import data_rank_seed, sample, sample_manual
+from zig_gpt2_tpu_torch.utils.device import device_key, resolve_device
 from zig_gpt2_tpu_torch.weights import tree_map
 
 
@@ -151,21 +156,17 @@ def match_prefix(prefixes, prompt, buckets, cache_rows):
     return best
 
 
-def _check_mesh(mesh) -> None:
+def _check_mesh(mesh, device: torch.device) -> None:
+    """A runtime's mesh: a ``parallel.mesh.Mesh`` (TypeError) whose tensors
+    live on the runtime's device (ValueError)."""
     from zig_gpt2_tpu_torch.parallel.mesh import Mesh
 
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), not "
                         f"{type(mesh).__name__}")
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+    if device_key(mesh.device) != device_key(device):
+        raise ValueError(f"the mesh lives on {mesh.device}, the runtime on {device}: make the "
+                         f"mesh on the runtime's device (make_mesh(..., device=))")
 
 
 class InferenceEngine:
@@ -201,7 +202,7 @@ class InferenceEngine:
         mesh's tp), batch_size must divide by its dp."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown KV quantization {kv_quant!r} (None or 'int8')")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.kv_quant = kv_quant
         self.mesh = mesh
         if mesh is None:
@@ -211,7 +212,7 @@ class InferenceEngine:
         else:
             from zig_gpt2_tpu_torch.parallel.mesh import prepare_serving
 
-            _check_mesh(mesh)
+            _check_mesh(mesh, self.device)
             self.params, self.config = prepare_serving(params, config, mesh, batch_size,
                                                        self.device)
             self._lanes = batch_size // mesh.dp
@@ -237,13 +238,11 @@ class InferenceEngine:
         """Compute and keep the KV rows of a shared prompt prefix (a system
         prompt): a later prompt that shares leading tokens with it starts
         from the stored rows and runs only its suffix. Output is unchanged.
-        Single-sequence (batch_size 1; the batcher has its own)."""
+        Single-sequence (batch_size 1; the batcher has its own). Under a
+        mesh each rank keeps the rows of its own heads."""
         if self.batch_size != 1:
             raise ValueError("register_prefix is single-sequence (batch_size == 1); "
                              "use ContinuousBatcher")
-        if self.mesh is not None:
-            raise NotImplementedError("prefix caching under a mesh comes with slice 12 of "
-                                      "the port")
         prefix_ids = [int(t) for t in prefix_ids]
         if not prefix_ids:
             raise ValueError("prefix must contain at least one token")

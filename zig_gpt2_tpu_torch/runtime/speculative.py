@@ -32,10 +32,15 @@ tokens match it in distribution only. Greedy tokens match bit for bit on
 the CPU. The round loop runs eagerly on the device with one host read per
 round (whether every lane has its tokens; the streaming path's tokens).
 
-Single device. The target's cache is unpacked (it only ever sees
-``extend``); the draft's is packed only under ``ZG2_SPEC_DRAFT_PACKED=1``
-where ``gpt2.default_kv_packed`` allows it, its odd head count then padded
-with the phantom head.
+``SpeculativeEngine`` is single-device, as the JAX package's is (its
+scope): a rank's config is refused. The target's cache is
+unpacked (it only ever sees ``extend``); the draft's is packed only under
+``ZG2_SPEC_DRAFT_PACKED=1`` where ``gpt2.default_kv_packed`` allows it, its
+odd head count then padded with the phantom head. The target's side of a
+round (``_verify_accept_commit``) also serves the batcher's prompt lookup
+over a mesh: on a rank's config it all-gathers the verify logits over the
+model group first, so that every rank of the group decides from the same
+full-vocab distributions.
 """
 
 from __future__ import annotations
@@ -52,15 +57,21 @@ from zig_gpt2_tpu_torch.config import GPTConfig, SamplingConfig
 from zig_gpt2_tpu_torch.models import gpt2
 from zig_gpt2_tpu_torch.ops.layers import divide
 from zig_gpt2_tpu_torch.runtime.engine import (GenerationMetrics, StreamDecoder, _bucket,
-                                               _drain_stream, _resolve_device)
+                                               _drain_stream)
 from zig_gpt2_tpu_torch.runtime.sampling import _mask_logits
+from zig_gpt2_tpu_torch.utils.device import resolve_device
 from zig_gpt2_tpu_torch.weights import tree_map
 
 
 def _single_device_config(config: GPTConfig, extend_only: bool, device) -> GPTConfig:
     """The cache layout of one model of the engine: the target's
     (``extend_only``) always unpacked; the draft's packed only under
-    ``ZG2_SPEC_DRAFT_PACKED=1`` and where ``default_kv_packed`` allows it."""
+    ``ZG2_SPEC_DRAFT_PACKED=1`` and where ``default_kv_packed`` allows it.
+    A rank's config (``model_group``) raises ValueError: single-device."""
+    if config.model_group is not None:
+        raise ValueError("SpeculativeEngine is single-device, as the JAX package's: pass "
+                         "unsharded params and configs (prompt lookup serves under a mesh "
+                         "through ContinuousBatcher(speculative='ngram'))")
     want = False
     if not extend_only and os.environ.get("ZG2_SPEC_DRAFT_PACKED") == "1":
         want = gpt2.default_kv_packed(dataclasses.replace(config, kv_packed=False), device)
@@ -120,13 +131,18 @@ def _verify_accept_commit(params_t, conf_t: GPTConfig, cache_t, tok: torch.Tenso
     (B, k, V) distributions, or None for a deterministic proposal (one-hot).
     Returns (cache_t, emit (B, k + 1), a (B,), nxt (B,)): emit holds
     d_1..d_a then nxt at slot a, zeros after; the cache's length is rewound
-    to base + 1 + a."""
+    to base + 1 + a. On a rank's config (``model_group``) the extend's
+    vocab slice is all-gathered over the group first: every rank of it
+    then decides from the same inputs (its ``generator`` kept in step with
+    theirs) and commits the same tokens."""
     B = tok.shape[0]
     m_t = cache_t["length"]
     window = torch.cat([tok[:, None], ds], dim=1)
     cache_t, lt = gpt2.extend(params_t, cache_t, window,
                               torch.full((B,), k + 1, dtype=torch.int32, device=tok.device),
                               conf_t)
+    if conf_t.model_group is not None:
+        lt = conf_t.model_group.all_gather_cat(lt, dim=-1)
     if greedy:
         tgt = torch.argmax(lt, dim=-1).to(torch.int32)  # (B, k + 1)
         acc = tgt[:, :k] == ds
@@ -195,7 +211,7 @@ class SpeculativeEngine:
         for q in (kv_quant, draft_kv_quant):
             if q not in (None, "int8"):
                 raise ValueError(f"unknown KV quantization {q!r} (None or 'int8')")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.config = _single_device_config(config, True, self.device)
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.k = k
