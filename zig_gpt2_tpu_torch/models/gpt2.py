@@ -96,6 +96,10 @@ INT8/INT4 weights, float or INT8 KV cache:
   plain tensor-parallel shapes. At tp=2 the logits and the cache are bit
   for bit the plain tensor-parallel ones (a sum of two is the same either
   way round).
+- ``prefill``, ``extend`` and ``decode_step`` each run inside a
+  ``model.prefill`` / ``model.extend`` / ``model.decode_step`` span
+  (``utils.profiling.span``, with the batch ``B`` and window ``T``), kept
+  only while a ``torch.profiler`` session is active.
 """
 
 from __future__ import annotations
@@ -117,6 +121,7 @@ from zig_gpt2_tpu_torch.ops.attention import (decode_attention_deferred,
 from zig_gpt2_tpu_torch.quant import kernels
 from zig_gpt2_tpu_torch.quant.quantize import (is_quantized, pad_linear, quantized_linear,
                                                quantized_product)
+from zig_gpt2_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 KVCache = Dict[str, torch.Tensor]
@@ -619,25 +624,26 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
     each lane's last prompt position)."""
     _check_packed_weights(config)
     B, T = tokens.shape
-    pos = torch.arange(T, device=tokens.device)
-    x = _embed(params, tokens, pos, config, _seq_parallel(config))
-    lengths = lengths.to(device=tokens.device, dtype=torch.int32)
-    length_mask = pos[None, :] < lengths[:, None]
-    for idx in range(config.n_layers):
-        x, k, v = _block_prefill(x, _layer(params["blocks"], idx), config, length_mask, T)
-        if config.kv_packed:  # pack, and only then quantize (per pair)
-            k, v = pack_heads_seq(k), pack_heads_seq(v)
-        if "k_scale" in cache:  # INT8 cache: quantize on append
-            (k, ks), (v, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
-            cache["k_scale"][idx, :, :, :T] = ks
-            cache["v_scale"][idx, :, :, :T] = vs
-        cache["k"][idx, :, :, :T] = k.to(cache["k"].dtype)
-        cache["v"][idx, :, :, :T] = v.to(cache["v"].dtype)
-    x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
-    x = _col_in(x, config, T)
-    last = x[torch.arange(B, device=x.device), lengths.long() - 1]
-    cache["length"] = lengths.clone()
-    return cache, _lm_head(params, last, config)
+    with span("model.prefill", B=B, T=T):
+        pos = torch.arange(T, device=tokens.device)
+        x = _embed(params, tokens, pos, config, _seq_parallel(config))
+        lengths = lengths.to(device=tokens.device, dtype=torch.int32)
+        length_mask = pos[None, :] < lengths[:, None]
+        for idx in range(config.n_layers):
+            x, k, v = _block_prefill(x, _layer(params["blocks"], idx), config, length_mask, T)
+            if config.kv_packed:  # pack, and only then quantize (per pair)
+                k, v = pack_heads_seq(k), pack_heads_seq(v)
+            if "k_scale" in cache:  # INT8 cache: quantize on append
+                (k, ks), (v, vs) = ops.quantize_kv(k), ops.quantize_kv(v)
+                cache["k_scale"][idx, :, :, :T] = ks
+                cache["v_scale"][idx, :, :, :T] = vs
+            cache["k"][idx, :, :, :T] = k.to(cache["k"].dtype)
+            cache["v"][idx, :, :, :T] = v.to(cache["v"].dtype)
+        x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
+        x = _col_in(x, config, T)
+        last = x[torch.arange(B, device=x.device), lengths.long() - 1]
+        cache["length"] = lengths.clone()
+        return cache, _lm_head(params, last, config)
 
 
 @torch.no_grad()
@@ -653,23 +659,24 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     clamps. Under the ring the length clamps at rows - 1, so an interval
     never reaches the write row, and ``wptr`` advances by one."""
     _check_packed_weights(config)
-    pos = cache["length"]
-    rows = cache["k"].shape[-2]
-    x = _embed(params, tokens, pos.clamp(max=params["wpe"].shape[0] - 1), config)
-    if config.ring_cache:
-        start, wpos = cache["start"], cache["wptr"]
-    else:
-        start, wpos = None, pos.clamp(max=rows - 1)
-    wmm = _use_wmm()
-    for idx in range(config.n_layers):
-        x = _block_decode(x, params["blocks"], idx, cache, pos, start, wpos, config, wmm)
-    x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
-    if config.ring_cache:
-        cache["length"] = (pos + 1).clamp(max=rows - 1)
-        cache["wptr"] = (wpos + 1) % rows
-    else:
-        cache["length"] = pos + 1
-    return cache, _lm_head(params, x, config)
+    with span("model.decode_step", B=tokens.shape[0], T=1):
+        pos = cache["length"]
+        rows = cache["k"].shape[-2]
+        x = _embed(params, tokens, pos.clamp(max=params["wpe"].shape[0] - 1), config)
+        if config.ring_cache:
+            start, wpos = cache["start"], cache["wptr"]
+        else:
+            start, wpos = None, pos.clamp(max=rows - 1)
+        wmm = _use_wmm()
+        for idx in range(config.n_layers):
+            x = _block_decode(x, params["blocks"], idx, cache, pos, start, wpos, config, wmm)
+        x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
+        if config.ring_cache:
+            cache["length"] = (pos + 1).clamp(max=rows - 1)
+            cache["wptr"] = (wpos + 1) % rows
+        else:
+            cache["length"] = pos + 1
+        return cache, _lm_head(params, x, config)
 
 
 def _put_window(stack: torch.Tensor, win: torch.Tensor, idx: int, rows: torch.Tensor) -> None:
@@ -740,15 +747,16 @@ def extend(params: Params, cache: KVCache, tokens: torch.Tensor, valid: torch.Te
     _check_packed_weights(config)
     base = cache["length"]
     B, T = tokens.shape
-    S = cache["k"].shape[-2]
-    steps = torch.arange(T, device=tokens.device)
-    pos = (base[:, None] + steps[None, :]).clamp(max=params["wpe"].shape[0] - 1)
-    x = _embed(params, tokens, pos, config)
-    valid = valid.to(device=tokens.device, dtype=torch.int32)
-    rows = (base.clamp(max=S - T)[:, None] + steps[None, :]).long()
-    wmm = _use_wmm()
-    for idx in range(config.n_layers):
-        x = _block_extend(x, params["blocks"], idx, cache, base, valid, rows, config, wmm)
-    x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
-    cache["length"] = base + valid
-    return cache, _lm_head(params, x, config)
+    with span("model.extend", B=B, T=T):
+        S = cache["k"].shape[-2]
+        steps = torch.arange(T, device=tokens.device)
+        pos = (base[:, None] + steps[None, :]).clamp(max=params["wpe"].shape[0] - 1)
+        x = _embed(params, tokens, pos, config)
+        valid = valid.to(device=tokens.device, dtype=torch.int32)
+        rows = (base.clamp(max=S - T)[:, None] + steps[None, :]).long()
+        wmm = _use_wmm()
+        for idx in range(config.n_layers):
+            x = _block_extend(x, params["blocks"], idx, cache, base, valid, rows, config, wmm)
+        x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
+        cache["length"] = base + valid
+        return cache, _lm_head(params, x, config)

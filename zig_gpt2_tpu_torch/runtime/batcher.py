@@ -62,6 +62,21 @@ is gathered over the data group with the step's one host read. The JAX
 batcher takes its op-level mesh program there, and so does a rank's
 config (``op_level``): after auto-off, a w8a8 decode step quantizes each
 row over its whole K. The mesh must live on the batcher's device.
+
+Spans (``utils.profiling.span``, kept only while a ``torch.profiler``
+session is active): ``batcher.step`` holds ``batcher.admit`` (with one
+``batcher.admit_group`` or ``batcher.admit_prefix`` per admission: its
+lanes ``k``, ``bucket``, prompt ``rows``, ``padded`` rows (k x bucket -
+rows, on this rank's lanes) and ``rids``; a prefix hit also its reused
+``prefix_rows``), ``batcher.decode`` (the chunk's dispatch: live
+``lanes``, ``kv_rows_live``, the cache rows that hold their tokens, and
+``kv_rows_reserved``, lanes x cache rows), ``batcher.sync`` (the one host
+read) and ``batcher.consume`` (the bookkeeping and ``on_token``:
+``tokens`` emitted, requests ``retired``). ``batcher.splice`` and every
+draw's ``batcher.sample`` sit inside admissions and the decode dispatch,
+the model's ``model.*`` spans inside those. A retired request leaves a
+``request`` span from its submit to its retirement (``rid``,
+``prompt_rows``, ``tokens``).
 """
 
 from __future__ import annotations
@@ -82,6 +97,7 @@ from zig_gpt2_tpu_torch.runtime import speculative as spec_mod
 from zig_gpt2_tpu_torch.runtime.engine import _bucket, _check_mesh, match_prefix
 from zig_gpt2_tpu_torch.runtime.sampling import data_rank_seed, sample, sample_manual
 from zig_gpt2_tpu_torch.utils.device import resolve_device
+from zig_gpt2_tpu_torch.utils.profiling import record, span
 from zig_gpt2_tpu_torch.weights import tree_map
 
 
@@ -368,25 +384,35 @@ class ContinuousBatcher:
         """Admit queued requests, run one batched decode chunk (or
         ``spec_chunk`` speculative rounds) and return {rid: [tokens]}
         emitted this step."""
-        self._admit()
+        with span("batcher.step"):
+            return self._step()
+
+    def _step(self) -> Dict[int, List[int]]:
+        with span("batcher.admit"):
+            self._admit()
         active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return {}
         if self._spec is not None and not self._spec_off:
             return self._step_spec(active)
         t0 = time.perf_counter()
-        consumed = []
-        token = self._tokens
-        for _ in range(self.decode_chunk):
-            consumed.append(token)  # emit the token each sub-step consumes
-            self.cache, logits = gpt2.decode_step(self.params, self.cache, token,
-                                                  self.config)
-            token = self._sample(logits)
-        self._tokens = token
-        block = torch.stack(consumed)
-        if self.mesh is not None and self.mesh.dp > 1:  # (dp, chunk, B/dp) -> (chunk, B)
-            block = self.mesh.data.all_gather(block).permute(1, 0, 2).reshape(len(consumed), -1)
-        block = block.cpu().numpy()  # (chunk, B): the one host sync
+        with span("batcher.decode") as a:
+            if a is not None:
+                a.update(self._kv_rows())
+            consumed = []
+            token = self._tokens
+            for _ in range(self.decode_chunk):
+                consumed.append(token)  # emit the token each sub-step consumes
+                self.cache, logits = gpt2.decode_step(self.params, self.cache, token,
+                                                      self.config)
+                token = self._sample(logits)
+            self._tokens = token
+            block = torch.stack(consumed)
+            if self.mesh is not None and self.mesh.dp > 1:  # (dp, chunk, B/dp) -> (chunk, B)
+                block = self.mesh.data.all_gather(block).permute(1, 0, 2).reshape(
+                    len(consumed), -1)
+        with span("batcher.sync"):
+            block = block.cpu().numpy()  # (chunk, B): the one host sync
         dt = time.perf_counter() - t0
         self.metrics.decode_s += dt
         self.metrics.sync_ms.append(dt * 1000.0)
@@ -394,13 +420,27 @@ class ContinuousBatcher:
         self.metrics.occupied_slot_steps += len(active) * self.decode_chunk
 
         emitted: Dict[int, List[int]] = {}
-        for i, req in active:
-            toks = block[:, i].tolist()
-            if self._refeed[i]:  # after auto-off: the feed token was emitted already
-                self._refeed[i] = False
-                toks = toks[1:]
-            self._consume(i, req, toks, emitted)
+        with span("batcher.consume") as a:
+            tokens0, retired0 = self.metrics.tokens_emitted, self.metrics.requests_finished
+            for i, req in active:
+                toks = block[:, i].tolist()
+                if self._refeed[i]:  # after auto-off: the feed token was emitted already
+                    self._refeed[i] = False
+                    toks = toks[1:]
+                self._consume(i, req, toks, emitted)
+            if a is not None:
+                a["tokens"] = self.metrics.tokens_emitted - tokens0
+                a["retired"] = self.metrics.requests_finished - retired0
         return emitted
+
+    def _kv_rows(self) -> Dict[str, int]:
+        """This rank's live lanes, the cache rows that hold their tokens (a
+        live lane's cache holds its prompt and every token it has emitted;
+        the next feed token is not yet written) and the rows reserved."""
+        live = [r for r in self.slots[self._first:self._first + self._lanes] if r is not None]
+        return {"lanes": len(live),
+                "kv_rows_live": sum(len(r.prompt_ids) + len(r.generated) for r in live),
+                "kv_rows_reserved": self._lanes * self._cache_rows}
 
     def run(self) -> List[Request]:
         """Drain queue and slots to completion; returns the finished
@@ -414,10 +454,11 @@ class ContinuousBatcher:
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         s = self.sampling
-        if self.mesh is not None:
-            return sample_manual(logits, self._generator, s.temperature, s.top_k, s.top_p,
-                                 self.mesh.model)
-        return sample(logits, self._generator, s.temperature, s.top_k, s.top_p)
+        with span("batcher.sample"):
+            if self.mesh is not None:
+                return sample_manual(logits, self._generator, s.temperature, s.top_k,
+                                     s.top_p, self.mesh.model)
+            return sample(logits, self._generator, s.temperature, s.top_k, s.top_p)
 
     def _consume(self, i: int, req: Request, toks: List[int],
                  emitted: Dict[int, List[int]]) -> None:
@@ -473,7 +514,8 @@ class ContinuousBatcher:
                                                   for t in (emit, n[:, None])], dim=1)
         if self.mesh is not None and self.mesh.dp > 1:  # (dp, B/dp, w) -> (B, w)
             block = self.mesh.data.all_gather(block).reshape(self.batch_size, -1)
-        host = block.cpu().numpy()  # the one host sync
+        with span("batcher.sync"):
+            host = block.cpu().numpy()  # the one host sync
         consumed0 = host[:, 0]
         per_round = host[:, 1:].reshape(self.batch_size, len(rounds), -1)
         emits, ns = per_round[:, :, :-1], per_round[:, :, -1]  # (B, rounds, k + 1), (B, rounds)
@@ -563,23 +605,28 @@ class ContinuousBatcher:
         k = len(group)
         mine = [(i - self._first, req) for i, req in group
                 if self._first <= i < self._first + self._lanes]
-        if mine:
-            toks = np.zeros((len(mine), bucket), np.int32)
-            lens = np.zeros((len(mine),), np.int32)
-            idxs = np.zeros((len(mine),), np.int64)
-            for j, (i, req) in enumerate(mine):
-                toks[j, :len(req.prompt_ids)] = req.prompt_ids
-                lens[j] = len(req.prompt_ids)
-                idxs[j] = i
-            toks, lens = self._to_device(toks), self._to_device(lens)
-            idxs = self._to_device(idxs)
-            lanes = gpt2.init_kv_cache(self.config, len(mine), bucket,
-                                       dtype=self.cache["k"].dtype, device=self.device,
-                                       quant=self.kv_quant, ring=False)
-            lanes, logits = gpt2.prefill(self.params, lanes, toks, lens, self.config)
-            self._admit_epilogue(lanes, logits, idxs, toks, lens)
-        for i, req in group:
-            self._seat(i, req)
+        with span("batcher.admit_group") as a:
+            if a is not None:
+                rows = sum(len(req.prompt_ids) for _, req in mine)
+                a.update(k=len(mine), bucket=bucket, rows=rows,
+                         padded=len(mine) * bucket - rows, rids=[req.rid for _, req in group])
+            if mine:
+                toks = np.zeros((len(mine), bucket), np.int32)
+                lens = np.zeros((len(mine),), np.int32)
+                idxs = np.zeros((len(mine),), np.int64)
+                for j, (i, req) in enumerate(mine):
+                    toks[j, :len(req.prompt_ids)] = req.prompt_ids
+                    lens[j] = len(req.prompt_ids)
+                    idxs[j] = i
+                toks, lens = self._to_device(toks), self._to_device(lens)
+                idxs = self._to_device(idxs)
+                lanes = gpt2.init_kv_cache(self.config, len(mine), bucket,
+                                           dtype=self.cache["k"].dtype, device=self.device,
+                                           quant=self.kv_quant, ring=False)
+                lanes, logits = gpt2.prefill(self.params, lanes, toks, lens, self.config)
+                self._admit_epilogue(lanes, logits, idxs, toks, lens)
+            for i, req in group:
+                self._seat(i, req)
         self.metrics.prefills += k
         self.metrics.prefill_s += time.perf_counter() - t0
 
@@ -593,12 +640,18 @@ class ContinuousBatcher:
         k = len(group)
         mine = [(i - self._first, req, usable) for i, req, usable in group
                 if self._first <= i < self._first + self._lanes]
-        if mine:
-            self._extend_prefix_lanes(self._prefixes[pidx][1], sb, mine)
-        for i, req, usable in group:
-            self._seat(i, req)
-            self.metrics.prefix_hits += 1
-            self.metrics.prefill_tokens_saved += usable
+        with span("batcher.admit_prefix") as a:
+            if a is not None:
+                rows = sum(len(req.prompt_ids) - usable for _, req, usable in mine)
+                a.update(k=len(mine), bucket=sb, rows=rows, padded=len(mine) * sb - rows,
+                         prefix_rows=sum(usable for _, _, usable in mine),
+                         rids=[req.rid for _, req, _ in group])
+            if mine:
+                self._extend_prefix_lanes(self._prefixes[pidx][1], sb, mine)
+            for i, req, usable in group:
+                self._seat(i, req)
+                self.metrics.prefix_hits += 1
+                self.metrics.prefill_tokens_saved += usable
         self.metrics.prefills += k
         self.metrics.prefill_s += time.perf_counter() - t0
 
@@ -636,7 +689,8 @@ class ContinuousBatcher:
         each first token into the feed vector and, when speculating, seed
         each slot's history with [prompt..., first] (``hist_tokens`` (k, T)
         right-padded, ``hist_lens`` (k,))."""
-        self._splice(lanes, idxs, lanes["length"])
+        with span("batcher.splice"):
+            self._splice(lanes, idxs, lanes["length"])
         first = self._sample(logits)
         self._tokens[idxs] = first
         if self._spec is None:
@@ -683,7 +737,10 @@ class ContinuousBatcher:
         self.slots[slot] = None
         self.metrics.requests_finished += 1
         if req.submitted_at:
-            self.metrics.request_latency_s.append(time.perf_counter() - req.submitted_at)
+            now = time.perf_counter()
+            self.metrics.request_latency_s.append(now - req.submitted_at)
+            record("request", req.submitted_at, now, rid=req.rid,
+                   prompt_rows=len(req.prompt_ids), tokens=len(req.generated))
         self.finished.append(req)
 
 
