@@ -265,6 +265,15 @@ there a near-tie within max(1e-3, 3 x the INT8 floor, 3 x the bf16 floor:
 the served engine's teacher-forced logits against the same weights' with
 f32 float leaves, as phase 22 holds its bf16 batcher).
 
+Every single-card batcher phase (9, 13, 16, 18, 20, 22, 25, 29's
+batcher, and 27 after its auto-off) replays its plain decode
+step from one CUDA graph (``runtime.decode_graph``): the phase also holds
+the graph's replays to its plain decode steps, and counts on the device
+the kernels of marked replayed steps (``replayed_kernels``): each kernel
+family (attention, qmm, its w8a8 body, wmm, the sampler) as many times in
+every step, and as many in all as the wrappers' launch counts rose by,
+so the counts a replay adds to them are the kernels it ran.
+
 Phases 7-14 serve the unpacked layout (``ZG2_KV_PACKED=0``), phases 16-25
 the packed one, which the card picks by itself at head_dim 64; the
 speculative target's cache and the speculative batcher's stay unpacked,
@@ -1252,8 +1261,10 @@ def serve_batcher_124m(pkg, batcher_mod, torch, engine, card: str,
     if gpt2._use_wmm():
         expected["wmm"] = 6 * engine.config.n_layers * steps
     expect_counts(label, counts, expected)
+    expect_replays(label, b)
     log(f"{label} metrics {json.dumps(b.metrics.as_dict(8))} "
         f"(fp32, B=8, ring, {layout_name(b.config)}, greedy, {card})")
+    replayed_kernels(label, b, att, sk, qk, torch)
     near_tie_check(label, gpt2, engine, requests[:2], served[:2], E2E_ATOL, torch)
     return counts
 
@@ -1288,8 +1299,10 @@ def serve_batcher_wmm_bf16(pkg, batcher_mod, torch, engine, card: str) -> dict:
         steps, L = b.metrics.steps, ref.config.n_layers
         key = "attention_packed_ring" if b.config.kv_packed else "attention_ring"
         expect_counts(label, counts, {key: L * steps, "wmm": 6 * L * steps})
+        expect_replays(label, b)
         log(f"{label} metrics {json.dumps(b.metrics.as_dict(8))} (bf16, B=8, ring, "
             f"{layout_name(b.config)}, greedy, wmm, {card})")
+        replayed_kernels(label, b, att, sk, qk, torch)
         os.environ["ZG2_RING"] = "0"
         try:
             linear = batcher_mod.ContinuousBatcher(ref.config, ref.params, **kw)
@@ -1363,8 +1376,10 @@ def serve_batcher_1p5b(pkg, batcher_mod, torch, config, params, floor: float, ca
         f"wptr now {int(b.cache['wptr'])}")
     if sampled_half and steps + 2 < rows:  # the warm-up took 2 steps
         raise AssertionError("the write pointer did not wrap")
+    expect_replays(label, b)
     log(f"{label} metrics {json.dumps(b.metrics.as_dict(16))} ({weights_name(config)}, INT8 "
         f"KV cache, {layout_name(b.config)}, bf16 activations, B=16, ring, {card})")
+    replayed_kernels(label, b, att, sk, qk, torch)
 
     os.environ["ZG2_RING"] = "0"
     try:
@@ -1410,6 +1425,87 @@ def marked_steps(prof) -> list:
         elif steps:
             steps[-1].append((name, ns / 1e3))
     return steps
+
+
+# Device kernel names by family, the first substring that matches, beside
+# the read_counts keys whose launches the family's kernels are.
+KERNEL_FAMILIES = (("decode_attention_kernel", tuple(key for key, _, _ in COUNTERS)),
+                   ("qmm_w8a8", ("qmm_w8a8",)), ("qmm_", ("qmm",)), ("wmm_", ("wmm",)),
+                   ("sample_categorical_kernel", ("sampler",)))
+
+
+def expect_replays(label: str, b) -> None:
+    """A single-card batcher replays its decode graph once per plain
+    decode sub-step (its speculative rounds apart) and captures it at most
+    once in a window."""
+    m = b.metrics
+    plain = m.steps - m.spec_rounds
+    log(f"{label} decode graph: {m.decode_graph_captures} captures, "
+        f"{m.decode_graph_replays} replays, {plain} plain decode steps")
+    if b._graph is None or m.decode_graph_replays != plain or m.decode_graph_captures > 1:
+        raise AssertionError(f"{label}: {m.decode_graph_replays} graph replays and "
+                             f"{m.decode_graph_captures} captures for {plain} plain decode "
+                             "steps, expected one replay a step")
+
+
+def replayed_kernels(label: str, batcher, att, sk, qk, torch, steps: int = 4,
+                     pad: int = 2) -> dict:
+    """The kernels of a batcher's replayed decode steps, counted on the
+    device. Every slot gets a request that outlasts the window, admitted
+    by one step; then one profiler window of ``pad`` untraced steps (a
+    window loses its first kernels) and ``steps`` steps each opened by a
+    marker kernel (``marked_steps``). Each marked step must replay the
+    graph ``decode_chunk`` times and capture nothing; each kernel family
+    must run as many times in every marked step, and as many in all as the
+    wrappers' launch counts (``read_counts``) rose by over those steps;
+    the attention kernel must run. The requests are then served to their
+    ends. Returns the family counts of one step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = batcher.metrics
+    budget = 8 + (pad + steps + 1) * batcher.decode_chunk
+    for ids, _ in batch_requests(43, batcher.batch_size, batcher.config.vocab_size, (4, 32),
+                                 (budget, budget)):
+        batcher.submit(ids, budget)
+    batcher.step()  # admits every slot: the marked steps admit and retire nothing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            batcher.step()
+        before = read_counts(att, sk, qk, torch)
+        graph0 = (m.decode_graph_captures, m.decode_graph_replays)
+        for _ in range(steps):
+            torch.cuda._sleep(1000)  # the step's marker
+            batcher.step()
+        after = read_counts(att, sk, qk, torch)
+    active = sum(r is not None for r in batcher.slots)
+    replays = m.decode_graph_replays - graph0[1]
+    batcher.run()
+    per_step = []
+    for step in marked_steps(prof):
+        seen = collections.Counter()
+        for name, _ in step:
+            seen[next((f for f, _ in KERNEL_FAMILIES if f in name), "other")] += 1
+        per_step.append(seen)
+    tallied = {f: sum(after[k] - before[k] for k in keys) for f, keys in KERNEL_FAMILIES}
+    one = {f: per_step[0][f] for f, _ in KERNEL_FAMILIES} if per_step else {}
+    log(f"{label} replayed steps on the device: kernels per step {one}, the launch counts "
+        f"rose by {tallied} over {len(per_step)} marked steps, {replays} replays, "
+        f"{active} of {batcher.batch_size} slots")
+    if len(per_step) != steps or active != batcher.batch_size:
+        raise AssertionError(f"{label}: {len(per_step)} marked steps of {steps}, {active} of "
+                             f"{batcher.batch_size} slots busy")
+    if m.decode_graph_captures != graph0[0] or replays != steps * batcher.decode_chunk:
+        raise AssertionError(f"{label}: {replays} replays and "
+                             f"{m.decode_graph_captures - graph0[0]} captures in {steps} "
+                             f"marked steps of {batcher.decode_chunk} sub-steps")
+    for f, _ in KERNEL_FAMILIES:
+        counts = [seen[f] for seen in per_step]
+        if len(set(counts)) != 1 or sum(counts) != tallied[f]:
+            raise AssertionError(f"{label}: {f} kernels per replayed step {counts} on the "
+                                 f"device, the launch counts rose by {tallied[f]}")
+    if not one["decode_attention_kernel"]:
+        raise AssertionError(f"{label}: no attention kernel in a replayed step")
+    return one
 
 
 def trace_batcher(batcher, config_mod, torch, card: str, label: str = "trace-batcher",
@@ -1879,11 +1975,13 @@ def serve_batcher_prefix_1p5b(pkg, batcher_mod, torch, config, params, engine, f
             f"KV, {layout_name(b.config)}, B=16, ring, greedy, {card})")
         if steps + 2 < rows:  # the warm-up took 2 steps
             raise AssertionError(f"{label} {name}: the write pointer did not wrap")
+        expect_replays(f"{label} {name}", b)
         if name == "prefix":
             counts = run_counts
             d = b.metrics.as_dict(16)
             if d.get("prefix_hits") != 16 or d.get("prefill_tokens_saved", 0) < 16 * 63:
                 raise AssertionError(f"{label}: prefix hits {d.get('prefix_hits')}, expected 16")
+        replayed_kernels(f"{label} {name}", b, att, sk, qk, torch)
     ids, _ = requests[0]
     floor_bf16 = bf16_floor(gpt2, pkg[6], engine, ids, served["plain"][0][:32], torch, label)
     near_tie_pair(label, gpt2, engine, requests, served["prefix"], served["plain"],
@@ -2100,6 +2198,9 @@ def serve_batcher_spec_1p5b(pkg, batcher_mod, torch, config, params, engine, flo
     log(f"{label} with the default spec_min_tpr: auto-off "
         f"{'did not fire' if off is None else f'fired at step {off}'}; "
         f"metrics {json.dumps(auto.metrics.as_dict(16))} ({card})")
+    expect_replays(f"{label} default spec_min_tpr", auto)
+    if off is not None:
+        replayed_kernels(f"{label} default spec_min_tpr", auto, att, sk, qk, torch)
     near_tie_pair(f"{label} default spec_min_tpr", gpt2, engine, requests, auto_served,
                   plain_served, tol, torch)
     return counts
@@ -2316,6 +2417,9 @@ def fused_qkv_phase(pkg, batcher_mod, sampling, torch, encoder, config_1p5b, par
         log(f"fused-qkv 1.5B batcher ZG2_FUSE_QKV={fused}: {steps} steps, {per_pass + 1} qmm "
             f"per decode step, metrics {json.dumps(b.metrics.as_dict(16))} (B=16, ring, "
             f"packed, INT4 + INT8 KV, {card})")
+        expect_replays(f"fused-qkv 1.5B batcher ZG2_FUSE_QKV={fused}", b)
+        replayed_kernels(f"fused-qkv 1.5B batcher ZG2_FUSE_QKV={fused}", b, att, sk, qk,
+                         torch)
         if fused == "1":
             total = {k: total[k] + counts[k] for k in total}
         del b

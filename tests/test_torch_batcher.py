@@ -140,8 +140,11 @@ def test_window_retirement_queue_and_streaming(params, rng):
 
 
 def test_metrics_fields_match_jax():
+    """The JAX batcher's fields, then the port's CUDA graph counters, which
+    ``as_dict`` shows only once a graph was captured."""
     assert [f.name for f in dataclasses.fields(BatcherMetrics)] == \
-        [f.name for f in dataclasses.fields(JMetrics)]
+        [f.name for f in dataclasses.fields(JMetrics)] + ["decode_graph_captures",
+                                                         "decode_graph_replays"]
     t, j = BatcherMetrics(), JMetrics()
     for m in (t, j):
         m.steps, m.tokens_emitted, m.decode_s = 4, 8, 0.5

@@ -34,6 +34,7 @@ from zig_gpt2_tpu_torch.models import gpt2
 from zig_gpt2_tpu_torch.ops import attention as att
 from zig_gpt2_tpu_torch.ops import layers as ops
 from zig_gpt2_tpu_torch.ops import sampling_kernel as sk
+from zig_gpt2_tpu_torch.ops import tallies
 from zig_gpt2_tpu_torch.quant import kernels as qk
 from zig_gpt2_tpu_torch.quant import quantize as quant
 from zig_gpt2_tpu_torch.runtime.batcher import ContinuousBatcher
@@ -1195,3 +1196,149 @@ def test_engine_and_batcher_bf16_cache_under_f32_weights_match_cpu(dev, monkeypa
             assert (sum(_counts(att.decode_attention_deferred)) - before
                     == cfg.n_layers * (16 + b.metrics.steps))
     assert out["cuda"] == out["cpu"]
+
+
+# --- the batcher's decode step replayed from a CUDA graph --------------------
+
+def _cell_model(name, dev):
+    """A benchmark cell's model at its published widths, two layers deep:
+    GPT-2 1.5B with INT4 block linears, an INT8 lm_head and an INT8 KV
+    cache in bf16, or 124M in float32 with a float cache."""
+    if name == "xl-int4-kv8":
+        cfg = tconfig.GPTConfig(vocab_size=50257, context_size=1024, n_layers=2, n_heads=25,
+                                n_embed=1600)
+        params = gpt2.init_params(cfg, torch.Generator(device=dev).manual_seed(11),
+                                  dtype=torch.bfloat16)
+        return cfg, quant.quantize_params(params, "int4"), "int8"
+    cfg = tconfig.GPTConfig(vocab_size=50257, context_size=1024, n_layers=2, n_heads=12,
+                            n_embed=768)
+    return cfg, gpt2.init_params(cfg, torch.Generator(device=dev).manual_seed(12)), None
+
+
+def _serve_recorded(b, seed, min_steps):
+    """A closed loop over the batcher's slots until ``min_steps`` steps have
+    run, then drained: prompts of 3-150 tokens, some opening with the
+    registered prefix, budgets of 1-40 tokens, a stop token. Returns
+    (tokens per request in submit order, every logits tensor the batcher
+    drew from, cloned)."""
+    rng = np.random.default_rng(seed)
+    drawn, draw = [], b._sample
+    b._sample = lambda logits: (drawn.append(logits.clone()), draw(logits))[1]
+    prefix = [int(t) for t in rng.integers(0, 50257, 48)]
+    b.register_prefix(prefix)
+    rids = []
+
+    def submit():
+        n = int(rng.integers(3, 150))
+        prompt = [int(t) for t in rng.integers(0, 50257, n)]
+        if rng.random() < 0.4:
+            prompt = prefix[:int(rng.integers(8, 49))] + prompt[:100]
+        rids.append(b.submit(prompt, int(rng.integers(1, 41)), stop_tokens=(7,)))
+
+    for _ in range(b.batch_size + 4):
+        submit()
+    while b.metrics.steps < min_steps:
+        b.step()
+        while b.pending < b.batch_size + 4:
+            submit()
+    by_rid = {r.rid: r.generated for r in b.run()}
+    return [by_rid[r] for r in rids], drawn
+
+
+@pytest.mark.parametrize("name,lanes", [("xl-int4-kv8", 32), ("124m-fp32", 64)])
+def test_decode_graph_bit_identical_to_eager(dev, name, lanes):
+    """One batcher run replaying the decode step's graph and one eager,
+    over 220+ steps with admissions, prefix hits and retirements between:
+    every logits tensor drawn from is bit-identical, so are the greedy
+    tokens; one capture, a replay per plain decode step; and the launch
+    tallies the run leaves equal the eager run's."""
+    cfg, params, kv = _cell_model(name, dev)
+    runs = {}
+    for mode in ("graph", "eager"):
+        b = ContinuousBatcher(cfg, params, batch_size=lanes, sampling=SamplingConfig(temperature=0.0),
+                              kv_quant=kv, device="cuda")
+        assert (b._graph is not None) and b.cache["k"].is_cuda
+        if mode == "eager":
+            b._graph = None
+        before = tallies.snapshot()
+        tokens, drawn = _serve_recorded(b, 5, 220)
+        torch.cuda.synchronize()
+        runs[mode] = (tokens, drawn, b.metrics,
+                      tallies.delta(before, tallies.snapshot()))
+    (gt, gd, gm, gc), (et, ed, em, ec) = runs["graph"], runs["eager"]
+    assert gm.steps == em.steps >= 220 and gm.prefix_hits == em.prefix_hits > 0
+    assert gt == et and len(gd) == len(ed)
+    assert all(torch.equal(g, e) for g, e in zip(gd, ed))
+    assert (gm.decode_graph_captures, gm.decode_graph_replays) == (1, gm.steps)
+    assert (em.decode_graph_captures, em.decode_graph_replays) == (0, 0)
+    assert gc == ec and gc  # the tallies count what the eager run launched
+    assert gm.as_dict(lanes)["decode_graph_replays"] == gm.steps
+
+
+def test_decode_graph_after_speculation_auto_off(dev):
+    """Prompt-lookup serving whose auto-off fires (its threshold above the
+    k + 1 tokens a round can commit, so it fires once its window fills):
+    the plain decode it hands over to captures once (its rounds rebound the
+    cache's length) and replays every plain step after, and its greedy
+    tokens are the plain batcher's."""
+    cfg = tconfig.GPT2_NANO
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(7))
+    params = {k: (v * 3 if k == "wte" else v) for k, v in params.items()}
+    greedy = SamplingConfig(temperature=0.0)
+    prompts = [[int(t) for t in np.random.default_rng(i).integers(0, 512, 5 + i % 9)]
+               for i in range(40)]
+    out = []
+    for kw in ({}, dict(speculative="ngram", spec_k=3, spec_min_tpr=5.0)):
+        b = ContinuousBatcher(cfg, params, batch_size=16, max_seq=64, prompt_buckets=(16,),
+                              sampling=greedy, device="cuda", **kw)
+        rids = [b.submit(p, 30) for p in prompts]
+        by_rid = {r.rid: r.generated for r in b.run()}
+        out.append([by_rid[r] for r in rids])
+        m = b.metrics
+        if kw:
+            assert m.spec_auto_off_step is not None and 0 < m.spec_rounds < m.steps
+            assert m.decode_graph_replays == m.steps - m.spec_rounds
+        else:
+            assert m.decode_graph_replays == m.steps
+        assert m.decode_graph_captures == 1
+    assert out[0] == out[1]
+
+
+def test_decode_graph_stays_eager_where_the_step_rebinds_its_cache(dev, monkeypatch, caplog):
+    """A decode step that rebinds the cache's tensors instead of updating
+    them cannot be replayed: the batcher keeps its warm-up call as the
+    step, serves from the cache the step returns (the same dict or a new
+    one), stays eager and logs it once, with the eager run's tokens. (Large
+    position embeddings, so that a stale length changes the tokens.)"""
+    cfg = tconfig.GPT2_NANO
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(7))
+    params = {k: (v * 30 if k == "wpe" else v) for k, v in params.items()}
+    real = gpt2.decode_step
+
+    def rebinding(new_dict):
+        def step(p, cache, tokens, config):
+            old = cache["length"].clone()
+            cache, logits = real(p, cache, tokens, config)
+            length = cache["length"].clone()
+            cache["length"].copy_(old)  # the dict given keeps the old lengths
+            out = dict(cache) if new_dict else cache
+            out["length"] = length
+            return out, logits
+        return step
+
+    out = []
+    for step in (real, rebinding(False), rebinding(True)):
+        monkeypatch.setattr(gpt2, "decode_step", step)
+        caplog.clear()
+        b = ContinuousBatcher(cfg, params, batch_size=2, max_seq=32, prompt_buckets=(8,),
+                              sampling=SamplingConfig(temperature=0.0), device="cuda")
+        rids = [b.submit(p, 10) for p in ([1, 2, 3], [9, 8, 7, 6, 5], [4])]
+        by_rid = {r.rid: r.generated for r in b.run()}
+        out.append([by_rid[r] for r in rids])
+        warned = [r for r in caplog.records if "runs eagerly" in r.getMessage()]
+        if step is real:
+            assert not b._graph.eager and b.metrics.decode_graph_captures == 1
+            continue
+        assert b._graph.eager and b.metrics.decode_graph_captures == 0
+        assert b.metrics.decode_graph_replays == 0 and len(warned) == 1
+    assert out[0] == out[1] == out[2]

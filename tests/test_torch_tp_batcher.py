@@ -73,3 +73,12 @@ def test_batcher_tokens_identical_to_jax_mesh_batcher(runs, name):
         assert r[name]["tokens"] == ref[name]
         assert r[name]["ring"] == (ring == "1") and not r[name]["kv_packed"]
     assert [len(ref[name][i]) for i in range(len(REQUESTS))] == [b for _, b in REQUESTS]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_mesh_batcher_stays_eager(runs, name):
+    """No rank's batcher builds or captures a decode graph, and none would
+    on a card: gloo's collectives are staged through the host."""
+    shape = CASES[name][0]
+    for r in runs[0][shape]:
+        assert r[name]["decode_graph"] == {"built": False, "captures": 0, "on_card": False}

@@ -109,7 +109,7 @@ def test_step_span_tree(params, monkeypatch):
     siblings = [r for r in recs if r.parent == 0]
     assert all(a.t1 <= c.t0 for a, c in zip(siblings, siblings[1:]))
     assert _named(recs, "model.prefill")[0].attrs == {"B": 2, "T": 8}
-    assert _named(recs, "model.decode_step")[0].attrs == {"B": 4, "T": 1}
+    assert _named(recs, "model.decode_step")[0].attrs == {"B": 4, "T": 1, "graph": 0}
     assert _named(recs, "batcher.consume")[0].attrs == {"tokens": 2, "retired": 0}
 
 
@@ -232,7 +232,7 @@ def test_engine_gets_model_spans(params):
     assert len(out) == 3
     assert [r.attrs for r in _named(recs, "model.prefill")] == [{"B": 1, "T": 32}]
     decodes = _named(recs, "model.decode_step")
-    assert decodes and all(r.attrs == {"B": 1, "T": 1} for r in decodes)
+    assert decodes and all(r.attrs == {"B": 1, "T": 1, "graph": 0} for r in decodes)
 
 
 def test_spans_put_nothing_among_the_profilers_events(params, monkeypatch):
@@ -305,11 +305,11 @@ def test_chrome_spans_rows():
 
 # -- the benchmark's readers and trace reduction on program spans -------------------
 
-def _step_records(t, admit=None, sync=0.004, decode_attrs=None, extra_step=0.0):
+def _step_records(t, admit=None, sync=0.004, decode_attrs=None, extra_step=0.0, graph=None):
     """One batcher step at host time t, its records' parents indices among
     them: the step [t, t + 0.020 + extra_step], an admission (a 3 ms
-    prefill) if ``admit``, a decode dispatch with a 6 ms model step, a sync
-    of ``sync`` seconds."""
+    prefill) if ``admit``, a decode dispatch with a 6 ms model step (its
+    ``graph`` attribute if given), a sync of ``sync`` seconds."""
     recs = [Span("batcher.step", t, t + 0.020 + extra_step, None)]
 
     def add(name, t0, t1, parent, **attrs):
@@ -322,7 +322,8 @@ def _step_records(t, admit=None, sync=0.004, decode_attrs=None, extra_step=0.0):
         g = add(name, t + 0.001, t + 0.006, admit_i, **attrs)
         add("model.prefill", t + 0.002, t + 0.005, g)
     d = add("batcher.decode", t + 0.006, t + 0.014, 0, **(decode_attrs or {}))
-    add("model.decode_step", t + 0.007, t + 0.013, d)
+    add("model.decode_step", t + 0.007, t + 0.013, d,
+        **({} if graph is None else {"graph": graph}))
     add("batcher.sync", t + 0.014, t + 0.014 + sync, 0)
     return recs
 
@@ -348,16 +349,17 @@ def _read(name, w):
     return Bench().reader(name)(w)
 
 
-def _three_steps():
+def _three_steps(graph=None):
     return [
         _step_records(1.0, ("batcher.admit_group", dict(k=2, bucket=32, rows=40, padded=24)),
-                      sync=0.002, decode_attrs=dict(kv_rows_live=100, kv_rows_reserved=400)),
+                      sync=0.002, decode_attrs=dict(kv_rows_live=100, kv_rows_reserved=400),
+                      graph=graph),
         _step_records(2.0, None, sync=0.004,
-                      decode_attrs=dict(kv_rows_live=110, kv_rows_reserved=400)),
+                      decode_attrs=dict(kv_rows_live=110, kv_rows_reserved=400), graph=graph),
         _step_records(3.0, ("batcher.admit_prefix", dict(k=1, bucket=128, rows=100, padded=28,
                                                          prefix_rows=448)),
                       sync=0.010, decode_attrs=dict(kv_rows_live=90, kv_rows_reserved=400),
-                      extra_step=0.006),
+                      extra_step=0.006, graph=graph),
     ]
 
 
@@ -375,13 +377,28 @@ def test_span_readers(monkeypatch, name, want):
     assert _read(name, w) == pytest.approx(want)
 
 
+@pytest.mark.parametrize("graphs,want", [
+    ((1, 1, 1), 100.0),
+    ((1, 0, 1), 200.0 / 3),
+    ((0, 0, 0), 0.0),
+    ((None, None, None), None),  # a program whose decode spans carry no graph flag
+], ids=["replayed", "one-eager", "eager", "no-flag"])
+def test_decode_graph_share_reader(monkeypatch, graphs, want):
+    """The share of the traced steps' decode steps that replay the graph;
+    a capture's eager warm-up step counts as eager."""
+    records, w = _window([_step_records(1.0 + k, graph=g) for k, g in enumerate(graphs)])
+    monkeypatch.setattr(profiling, "spans", lambda: records)
+    got = _read("decode_graph_share", w)
+    assert got == (None if want is None else pytest.approx(want))
+
+
 @pytest.mark.parametrize("name", ["sync_wait_ms_p50", "batcher_host_ms_p50",
-                                  "padded_row_share", "kv_row_share"])
+                                  "padded_row_share", "kv_row_share", "decode_graph_share"])
 def test_span_readers_read_nothing(monkeypatch, name):
-    records, w = _window(_three_steps(), inside=())
+    records, w = _window(_three_steps(graph=1), inside=())
     monkeypatch.setattr(profiling, "spans", lambda: records)
     assert _read(name, w) is None  # no traced step
-    records, w = _window(_three_steps())
+    records, w = _window(_three_steps(graph=1))
     monkeypatch.setattr(profiling, "spans", lambda: [])
     assert _read(name, w) is None  # no spans
     monkeypatch.delattr(profiling, "spans")

@@ -117,6 +117,7 @@ def _run_scan(case, mesh, params):
 
 
 def _run_batcher(case, mesh, params):
+    from zig_gpt2_tpu_torch.runtime import decode_graph
     from zig_gpt2_tpu_torch.runtime.batcher import ContinuousBatcher
 
     b = ContinuousBatcher(_config(case["config"]), params, device="cpu", mesh=mesh,
@@ -130,6 +131,11 @@ def _run_batcher(case, mesh, params):
     m = b.metrics
     return {"tokens": {r.rid: r.generated for r in done}, "ring": b.config.ring_cache,
             "kv_packed": b.config.kv_packed, "op_level": b.config.op_level,
+            # a mesh batcher decodes eagerly, and would on a card too
+            "decode_graph": {"built": b._graph is not None,
+                             "captures": m.decode_graph_captures,
+                             "on_card": decode_graph.usable(torch.device("cuda"), mesh,
+                                                            b.config)},
             "metrics": {"prefix_hits": m.prefix_hits,
                         "prefill_tokens_saved": m.prefill_tokens_saved,
                         "spec_rounds": m.spec_rounds, "tokens_per_round": m.tokens_per_round,

@@ -67,7 +67,9 @@ INT8/INT4 weights, float or INT8 KV cache:
   it; the serving and eval callers run it under ``torch.no_grad`` or
   ``torch.inference_mode``); ``remat=True`` recomputes each block's
   activations in the backward pass (``torch.utils.checkpoint``).
-  ``prefill``, ``decode_step`` and ``extend`` never build a graph.
+  ``prefill``, ``decode_step`` and ``extend`` build no autograd graph. On
+  a card, the single-device batcher replays its plain ``decode_step`` from
+  one captured CUDA graph (``runtime.decode_graph``).
 - Tensor parallelism (a rank's config from ``parallel.mesh.local_config``,
   which carries ``model_group``): the same code runs on the rank's shards
   (H/tp heads, the column linears' N/tp, the row linears' K/tp, V/tp vocab
@@ -98,8 +100,9 @@ INT8/INT4 weights, float or INT8 KV cache:
   way round).
 - ``prefill``, ``extend`` and ``decode_step`` each run inside a
   ``model.prefill`` / ``model.extend`` / ``model.decode_step`` span
-  (``utils.profiling.span``, with the batch ``B`` and window ``T``), kept
-  only while a ``torch.profiler`` session is active.
+  (``utils.profiling.span``, with the batch ``B`` and window ``T``; a
+  decode step also ``graph``, 0 here and 1 around a CUDA graph's replay),
+  kept only while a ``torch.profiler`` session is active.
 """
 
 from __future__ import annotations
@@ -650,7 +653,9 @@ def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
 def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
                 config: GPTConfig) -> Tuple[KVCache, torch.Tensor]:
     """One autoregressive step: (B,) tokens -> (cache, (B, vocab) logits).
-    The cache is updated in place (see the module docstring).
+    The cache is updated in place (see the module docstring), ``length``
+    and ``wptr`` among it: the dict keeps the same tensors, so a CUDA graph
+    captured over a step (``runtime.decode_graph``) replays into them.
 
     A lane may run past its window while idle (the batcher keeps decoding
     a retired slot and discards its tokens); its position embedding index
@@ -659,7 +664,7 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
     clamps. Under the ring the length clamps at rows - 1, so an interval
     never reaches the write row, and ``wptr`` advances by one."""
     _check_packed_weights(config)
-    with span("model.decode_step", B=tokens.shape[0], T=1):
+    with span("model.decode_step", B=tokens.shape[0], T=1, graph=0):
         pos = cache["length"]
         rows = cache["k"].shape[-2]
         x = _embed(params, tokens, pos.clamp(max=params["wpe"].shape[0] - 1), config)
@@ -672,10 +677,10 @@ def decode_step(params: Params, cache: KVCache, tokens: torch.Tensor,
             x = _block_decode(x, params["blocks"], idx, cache, pos, start, wpos, config, wmm)
         x = ops.layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"], config.layer_norm_eps)
         if config.ring_cache:
-            cache["length"] = (pos + 1).clamp(max=rows - 1)
-            cache["wptr"] = (wpos + 1) % rows
+            cache["wptr"].copy_((wpos + 1) % rows)
+            pos.copy_((pos + 1).clamp(max=rows - 1))
         else:
-            cache["length"] = pos + 1
+            pos.copy_(pos + 1)
         return cache, _lm_head(params, x, config)
 
 

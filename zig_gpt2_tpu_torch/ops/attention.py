@@ -30,12 +30,11 @@ q and p * v_scale to bf16.
 
 from __future__ import annotations
 
-import collections
 import math
 
 import torch
 
-from zig_gpt2_tpu_torch.ops import _build
+from zig_gpt2_tpu_torch.ops import _build, tallies
 from zig_gpt2_tpu_torch.ops.layers import decode_valid_mask
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -249,11 +248,8 @@ def attention_splits(B: int, H: int, S: int) -> tuple[int, int]:
     return -(-S // chunk), chunk
 
 
-def _counted(wrapper):
-    for name in ("launches", "ring_launches", "packed_launches", "packed_ring_launches"):
-        setattr(wrapper, name, 0)
-    wrapper.by_dtype = collections.Counter()
-    return wrapper
+_counted = tallies.counted("launches", "ring_launches", "packed_launches",
+                           "packed_ring_launches", counters=("by_dtype",))
 
 
 def _dtype_code(q_dtype, cache_dtype) -> int:

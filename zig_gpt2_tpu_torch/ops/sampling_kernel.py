@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from zig_gpt2_tpu_torch.ops import _build
+from zig_gpt2_tpu_torch.ops import _build, tallies
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -96,6 +96,7 @@ def sample_categorical_plain(logits, seeds, temperature: float,
     return (out, m[:, 0]) if return_max else out
 
 
+@tallies.counted("launches", "max_launches")
 def sample_categorical(logits, seeds, temperature: float,
                        thresh: Optional[torch.Tensor] = None, return_max: bool = False):
     """(B, V) logits -> (B,) int32 ids ~ softmax(logits / temperature),
@@ -151,6 +152,3 @@ def sample_categorical(logits, seeds, temperature: float,
     sample_categorical.max_launches += return_max
     return (out, zmax) if return_max else out
 
-
-sample_categorical.launches = 0
-sample_categorical.max_launches = 0  # the launches with return_max (the vocab-sharded draw)

@@ -35,12 +35,11 @@ passes the view ``qw[idx]``, which copies nothing.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 
 import torch
 
-from zig_gpt2_tpu_torch.ops import _build
+from zig_gpt2_tpu_torch.ops import _build, tallies
 from zig_gpt2_tpu_torch.ops.layers import divide
 
 # Row caps of the GEMV paths (the JAX package's GEMV_MAX_ROWS and
@@ -104,6 +103,7 @@ def qmm_plain(x, qw, scale, *, int4=False, w8a8=False):
     return x.float() @ w
 
 
+@tallies.counted("launches", "w8a8_launches", counters=("by_shape",))
 def qmm(x, qw, scale, *, int4=False, w8a8=False):
     """y = x @ dequant(qw, scale) in f32.
 
@@ -177,10 +177,6 @@ def qmm(x, qw, scale, *, int4=False, w8a8=False):
     return out
 
 
-qmm.launches = 0
-qmm.w8a8_launches = 0
-qmm.by_shape = collections.Counter()
-
 
 def wmm_plain(x, w):
     """The float GEMV's arithmetic in plain PyTorch: the weight rounded to
@@ -188,6 +184,7 @@ def wmm_plain(x, w):
     return x.float() @ w.to(x.dtype).float()
 
 
+@tallies.counted("launches", counters=("by_shape",))
 def wmm(x, w):
     """y = x @ w.astype(x.dtype) in f32: the float-weight decode GEMV.
 
@@ -231,9 +228,6 @@ def wmm(x, w):
     wmm.by_shape[(str(x.dtype).removeprefix("torch."), k, n, rows)] += 1
     return out
 
-
-wmm.launches = 0
-wmm.by_shape = collections.Counter()
 
 # Launch geometry of csrc/wmm.cu: a row tile of x and a column tile per
 # block (64 columns on the CUDA cores, 128 on the tensor cores); K split into

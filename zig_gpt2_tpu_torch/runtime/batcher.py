@@ -12,7 +12,10 @@ requests through the slots:
 - ``step`` runs ``decode_chunk`` decode + sample sub-steps for the whole
   batch and copies one (chunk, B) int32 token block to the host: the one
   host sync of a step. Stop tokens, budgets, retirement and refill are
-  host bookkeeping on that block.
+  host bookkeeping on that block. On a card without a mesh, each plain
+  decode sub-step replays one captured CUDA graph of ``gpt2.decode_step``
+  over every lane (``runtime.decode_graph``; ``decode_graph_captures`` and
+  ``decode_graph_replays`` in the metrics); the draw after it stays eager.
 - A finished slot is refilled from the queue. Until then it keeps decoding
   garbage that the host discards; its next admission resets its rows.
 
@@ -93,6 +96,7 @@ import torch
 
 from zig_gpt2_tpu_torch.config import GPTConfig, SamplingConfig
 from zig_gpt2_tpu_torch.models import gpt2
+from zig_gpt2_tpu_torch.runtime import decode_graph
 from zig_gpt2_tpu_torch.runtime import speculative as spec_mod
 from zig_gpt2_tpu_torch.runtime.engine import _bucket, _check_mesh, match_prefix
 from zig_gpt2_tpu_torch.runtime.sampling import data_rank_seed, sample, sample_manual
@@ -135,6 +139,8 @@ class BatcherMetrics:
     spec_auto_off_step: Optional[int] = None  # step at which auto-off fired
     sync_ms: List[float] = field(default_factory=list)   # per decode dispatch + sync
     request_latency_s: List[float] = field(default_factory=list)
+    decode_graph_captures: int = 0  # CUDA graphs of the decode step captured
+    decode_graph_replays: int = 0   # plain decode sub-steps replayed from one
 
     def slot_utilization(self, batch_size: int) -> float:
         return self.occupied_slot_steps / max(self.steps * batch_size, 1)
@@ -188,6 +194,9 @@ class BatcherMetrics:
             d["tokens_per_round"] = round(self.tokens_per_round, 2)
         if self.spec_auto_off_step is not None:
             d["spec_auto_off_step"] = self.spec_auto_off_step
+        if self.decode_graph_captures:
+            d["decode_graph_captures"] = self.decode_graph_captures
+            d["decode_graph_replays"] = self.decode_graph_replays
         return d
 
 
@@ -323,8 +332,13 @@ class ContinuousBatcher:
         self.finished: List[Request] = []
         self._next_rid = 0
         # Next feed token per slot, on the device: admissions write into it
-        # and each chunk returns the next one, so a step costs one sync.
+        # and each sub-step copies the next one into it, so a step costs one
+        # sync and a captured decode step reads it where it lies.
         self._tokens = torch.zeros((self._lanes,), dtype=torch.int32, device=self.device)
+        # On a card, plain decode replays one captured CUDA graph; the mesh
+        # paths' collectives stay eager.
+        self._graph = (decode_graph.DecodeGraph()
+                       if decode_graph.usable(self.device, mesh, self.config) else None)
 
     # -- client API -----------------------------------------------------------
 
@@ -399,18 +413,15 @@ class ContinuousBatcher:
         with span("batcher.decode") as a:
             if a is not None:
                 a.update(self._kv_rows())
-            consumed = []
-            token = self._tokens
+            consumed = [self._tokens.clone()]  # emit the token each sub-step consumes
             for _ in range(self.decode_chunk):
-                consumed.append(token)  # emit the token each sub-step consumes
-                self.cache, logits = gpt2.decode_step(self.params, self.cache, token,
-                                                      self.config)
-                token = self._sample(logits)
-            self._tokens = token
-            block = torch.stack(consumed)
+                token = self._sample(self._decode())
+                self._tokens.copy_(token)
+                consumed.append(token)
+            block = torch.stack(consumed[:-1])
             if self.mesh is not None and self.mesh.dp > 1:  # (dp, chunk, B/dp) -> (chunk, B)
                 block = self.mesh.data.all_gather(block).permute(1, 0, 2).reshape(
-                    len(consumed), -1)
+                    self.decode_chunk, -1)
         with span("batcher.sync"):
             block = block.cpu().numpy()  # (chunk, B): the one host sync
         dt = time.perf_counter() - t0
@@ -432,6 +443,18 @@ class ContinuousBatcher:
                 a["tokens"] = self.metrics.tokens_emitted - tokens0
                 a["retired"] = self.metrics.requests_finished - retired0
         return emitted
+
+    def _decode(self) -> torch.Tensor:
+        """One plain decode sub-step of every lane from the feed vector, the
+        cache updated in place: (lanes, vocab) logits. A graph replay on a
+        card (``runtime.decode_graph``), else the eager step."""
+        if self._graph is None:
+            self.cache, logits = gpt2.decode_step(self.params, self.cache, self._tokens,
+                                                  self.config)
+        else:
+            self.cache, logits = self._graph.step(self.params, self.cache, self._tokens,
+                                                  self.config, self.metrics)
+        return logits
 
     def _kv_rows(self) -> Dict[str, int]:
         """This rank's live lanes, the cache rows that hold their tokens (a
