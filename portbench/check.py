@@ -4,8 +4,10 @@ Once the window has closed and the program's state is freed, a sample of
 the requests finished by then is drawn from the seed (the request with
 the most served tokens always in it, then others until the mix's
 ``check.tokens`` served tokens or ``check.requests`` requests). The
-reference (``portbench.reference``, float32) runs once over each prompt
-with its served tokens. At each position the gap is how far the served
+configuration's family's plain reference (``Reference`` in
+``portbench/families/<model_type>/model.py``, float32, over the weights the
+family draws from the seed) runs once over each prompt with its served
+tokens. At each position the gap is how far the served
 token's logit lies below the reference's best: 0 where it is the
 reference's argmax, small where a near-tie flipped on the program's
 rounding (the traffic is greedy, so each served token is the program's
@@ -14,8 +16,9 @@ gap, or the mean gap per served token where the widest does not separate
 from the control.
 
 The control puts the reference in the program's place at the precision
-one step below the configuration's (``control_precision``): at each
-position the token it puts first, read by the float32 reference's gap.
+one step below the configuration's (``control_precision``; the same
+reference's ``at``, sharing its weights): at each position the token it
+puts first, read by the float32 reference's gap.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def sample(done: list, check: dict, seed: int) -> list:
     return picked
 
 
-def _positions(ref: Reference, rec, device) -> torch.Tensor:
+def _positions(ref, rec, device) -> torch.Tensor:
     """(m, V) reference logits at the positions that chose the m served tokens."""
     n = len(rec.req.prompt)
     ids = torch.tensor(rec.req.prompt + rec.tokens[:-1], dtype=torch.long, device=device)
@@ -72,7 +75,7 @@ def gaps(config: dict, seed: int, picked: list, device,
     torch.backends.cudnn.allow_tf32 = False
     weights = inputs.make_weights(config, seed, device)
     ref = Reference(weights, config)
-    low = Reference(weights, config, precision=control) if control else None
+    low = ref.at(control) if control else None
     del weights
     sums = {"program": [0.0, 0.0, 0], "control": [0.0, 0.0, 0]}
     compared = 0

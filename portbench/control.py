@@ -37,8 +37,12 @@ def one(workload: str, seed: int, seconds: float, mode: str, root: Path = ROOT,
         device: str = "cuda") -> dict:
     """One run of ``mode`` on ``workload``: its line, as a dict."""
     from portbench import faults, run
+    from portbench.spec import Bench, family
 
-    plant = contextlib.nullcontext() if mode == "control" else faults.plant(mode)
+    if mode == "control":
+        plant = contextlib.nullcontext()
+    else:
+        plant = faults.plant(mode, family(Bench(root).cell(workload).config))
     with plant:
         r = run.run(workload, seed, seconds, False, device=device, root=root,
                     t_start=time.perf_counter(), control=mode == "control",

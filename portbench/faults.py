@@ -54,15 +54,16 @@ def _token(real):
     return altered
 
 
-def plant(name: str):
-    """The context manager that plants fault ``name`` in the program."""
-    from zig_gpt2_tpu_torch.models import gpt2
+def plant(name: str, fam):
+    """The context manager that plants fault ``name`` in the program that
+    family ``fam`` (``portbench.spec.Family``) builds: in the decode step of
+    its ``model_module()``, or in the batcher's draw."""
     from zig_gpt2_tpu_torch.runtime import batcher
 
     if name == "stale":
-        return _patched(gpt2, "decode_step", _stale)
+        return _patched(fam.program.model_module(), "decode_step", _stale)
     if name == "half":
-        return _patched(gpt2, "decode_step", _half)
+        return _patched(fam.program.model_module(), "decode_step", _half)
     if name == "token":
         return _patched(batcher, "sample", _token)
     raise ValueError(f"unknown fault {name!r}; choices: {FAULTS}")

@@ -1,24 +1,32 @@
 """The program's own span records (``zig_gpt2_tpu_torch.utils.profiling``:
 kept while a ``torch.profiler`` session is active, so during the traced
-stretches) that lie inside a window's traced steps, for the per-layer
-readers. A program that keeps no spans gives nothing, and so does a
+stretches): those that lie inside a window's traced steps, for the per-layer
+readers, and those of each stretch, for the trace's idle breakdown. A program that keeps no spans gives nothing, and so does a
 window with no traced step."""
 
 from __future__ import annotations
 
 
-def per_step(w):
-    """(every record, per traced step [(index, record)] of those that lie
-    inside it), or None where no record lies inside a traced step."""
+def records():
+    """Every record the program keeps, in the order they began; None where
+    the program keeps none."""
     try:
         from zig_gpt2_tpu_torch.utils import profiling
 
-        records = profiling.spans()
+        return profiling.spans()
     except (ImportError, AttributeError):
         return None
-    steps = [[(i, r) for i, r in enumerate(records) if st.t0 <= r.t0 and r.t1 <= st.t1]
+
+
+def per_step(w):
+    """(every record, per traced step [(index, record)] of those that lie
+    inside it), or None where no record lies inside a traced step."""
+    recs = records()
+    if recs is None:
+        return None
+    steps = [[(i, r) for i, r in enumerate(recs) if st.t0 <= r.t0 and r.t1 <= st.t1]
              for st in w.steps]
-    return (records, steps) if any(steps) else None
+    return (recs, steps) if any(steps) else None
 
 
 def seconds(spans, name: str) -> float:

@@ -61,7 +61,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
 
     from portbench import check
     from portbench.serve import serve
-    from portbench.spec import Bench
+    from portbench.spec import Bench, family
     from portbench.trace import Tracer, breakdown
     from portbench.traffic import Traffic
 
@@ -69,7 +69,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     cell = bench.cell(workload)
     config = cell.config
     traffic = Traffic(cell.traffic, seed, config["vocab_size"])
-    if traffic.longest() > config["n_positions"] - 24:
+    if traffic.longest() > family(config).model.context_rows(config) - 24:
         raise ValueError(f"{workload}: a request can need {traffic.longest()} rows")
     tracer = Tracer(seconds) if trace else None
     out = serve(config, traffic, seed, seconds, device, t_start, tracer)

@@ -1,11 +1,10 @@
 """Drive the program through one cell: build it, warm it, serve a closed loop
 and measure a window.
 
-The system under test is ``zig_gpt2_tpu_torch.runtime.batcher.
-ContinuousBatcher`` with the program's defaults (no ``ZG2_*`` switch is
-set here): weights from ``portbench.inputs``, quantized by the program's
-``quantize_params`` where the configuration says INT4, prepared by the
-batcher's constructor. As many clients as the mix names each keep one
+The system under test is the program's ``ContinuousBatcher``, as the
+configuration's model family builds it (``build`` in
+``portbench/families/<model_type>/program.py``) from the weights the family
+draws from the seed. As many clients as the mix names each keep one
 request outstanding: the harness submits a client's next request as soon
 as its last one retires, and takes each token's arrival time from the
 batcher's ``on_token`` callback.
@@ -15,7 +14,6 @@ from __future__ import annotations
 
 import bisect
 import contextlib
-import functools
 import gc
 import math
 import time
@@ -25,7 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench import inputs, roofline
+from portbench.spec import family
 from portbench.traffic import Request, Traffic
 
 
@@ -54,51 +52,16 @@ class Window:
     end_to_end: Dict[str, float] = field(default_factory=dict)  # the window's, as measured
 
 
-def model_config(config: dict):
-    from zig_gpt2_tpu_torch.config import GPTConfig
-
-    return GPTConfig(vocab_size=config["vocab_size"], context_size=config["n_positions"],
-                     n_layers=config["n_layer"], n_heads=config["n_head"],
-                     n_embed=config["n_embd"], layer_norm_eps=config["layer_norm_epsilon"])
-
-
 def build(config: dict, traffic: Traffic, seed: int, device, on_token):
-    """The program, from the seed's weights: (batcher, module of the batcher)."""
+    """The program, from the seed's weights, as the configuration's family
+    builds it."""
     from zig_gpt2_tpu_torch.config import SamplingConfig
-    from zig_gpt2_tpu_torch.quant.quantize import quantize_params
-    from zig_gpt2_tpu_torch.runtime import batcher as batcher_mod
 
-    params = inputs.make_weights(config, seed, device)
-    if config["weights"] == "int4":
-        params = quantize_params(params, "int4")
-    elif config["weights"] != "float":
-        raise ValueError(f"unknown weights {config['weights']!r}")
+    fam = family(config)
     sampling = SamplingConfig(temperature=traffic.temperature, seed=seed & (2 ** 63 - 1))
-    batcher = batcher_mod.ContinuousBatcher(
-        model_config(config), params, batch_size=traffic.batch, sampling=sampling,
-        kv_quant="int8" if config["kv_cache"] == "int8" else None, on_token=on_token,
-        device=device)
-    return batcher, batcher_mod
-
-
-@contextlib.contextmanager
-def harness_spans(batcher_mod, tracer):
-    """The harness's spans around the program's model and draw calls
-    (``tracer.span``, logged while a stretch runs), for the traced run;
-    restored on exit."""
-    from zig_gpt2_tpu_torch.models import gpt2
-
-    saved = []
-    for mod, name in ((gpt2, "prefill"), (gpt2, "extend"), (gpt2, "decode_step"),
-                      (batcher_mod, "sample")):
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
-        setattr(mod, name, functools.partial(tracer.span, f"portbench.{name}", fn))
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    # The weights are the callee's alone, so a quantized copy can free them.
+    return fam.program.build(config, fam.model.make_weights(config, seed, device), traffic,
+                             sampling, device, on_token)
 
 
 class Loop:
@@ -212,7 +175,7 @@ def serve(config: dict, traffic: Traffic, seed: int, seconds: float, device, t_s
             torch.cuda.synchronize(dev)
 
     loop = Loop(traffic)
-    batcher, batcher_mod = build(config, traffic, seed, dev, loop.on_token)
+    batcher = build(config, traffic, seed, dev, loop.on_token)
     loop.batcher = batcher
     if traffic.prefix:
         batcher.register_prefix(traffic.prefix)
@@ -223,12 +186,11 @@ def serve(config: dict, traffic: Traffic, seed: int, seconds: float, device, t_s
         loop.step()
     sync()
 
-    spans = harness_spans(batcher_mod, tracer) if tracer else contextlib.nullcontext()
     from zig_gpt2_tpu_torch.quant.kernels import qmm
 
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)  # the window's peak, not the warm-up's
-    with spans, quiet_collector():
+    with quiet_collector():
         loop.tracer = tracer
         before = counters(batcher.metrics)
         submitted0 = loop.next
@@ -264,6 +226,7 @@ def serve(config: dict, traffic: Traffic, seed: int, seconds: float, device, t_s
 def measure(config: dict, records: List[Served], t_open: float, t_close: float):
     """The end-to-end metrics over the window, from the clients' side, and
     the prompt tokens and model FLOPs the window processed."""
+    model = family(config).model
     tokens, ttft, itl = 0, [], []
     prompt_tokens, flops = 0, 0.0
     for r in records:
@@ -275,14 +238,15 @@ def measure(config: dict, records: List[Served], t_open: float, t_close: float):
                 ttft.append((r.times[0] - r.submitted) * 1e3)
                 prompt_tokens += n
                 start = r.float_rows if r.req.shared else 0
-                flops += roofline.prompt_flops(config, start, n)
+                flops += model.prompt_flops(config, start, n)
             elif r.times[i - 1] >= t_open:
                 itl.append((r.times[i] - r.times[i - 1]) * 1e3)
             # the decode step that fed this token attended n + i rows and itself
-            flops += roofline.token_flops(config, n + i + 1)
+            flops += model.token_flops(config, n + i + 1)
     e2e = {"tokens_per_s": tokens / (t_close - t_open),
            "ttft_ms_p95": float(np.percentile(ttft, 95)) if ttft else math.nan,
-           "itl_ms_p95": float(np.percentile(itl, 95)) if itl else math.nan}
+           "itl_ms_p95": float(np.percentile(itl, 95)) if itl else math.nan,
+           "itl_ms_p10": float(np.percentile(itl, 10)) if itl else math.nan}
     return e2e, prompt_tokens, flops
 
 

@@ -6,9 +6,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 
-NANO = {"name": "nano", "source": "test", "vocab_size": 512, "n_positions": 128,
-        "n_embd": 128, "n_layer": 2, "n_head": 2, "layer_norm_epsilon": 1e-5,
-        "initializer_range": 0.02,
+NANO = {"name": "nano", "source": "test", "model_type": "gpt2", "vocab_size": 512,
+        "n_positions": 128, "n_embd": 128, "n_layer": 2, "n_head": 2,
+        "layer_norm_epsilon": 1e-5, "initializer_range": 0.02,
         "reduced": [], "weight_dtype": "float32", "weights": "float", "lm_head": "tied",
         "kv_cache": "float", "compute_dtype": "float32", "peak": "float32",
         "control_precision": "tf32"}
@@ -16,16 +16,23 @@ NANO_Q = dict(NANO, name="nano-q", weight_dtype="bfloat16", weights="int4",
               int4_group={"128": 64, "512": 128}, lm_head="int8", kv_cache="int8",
               kv_scale="head_pair", compute_dtype="bfloat16", peak="bfloat16",
               control_precision="fp8")
+# NANO under the key names of the tests' own family (``renamed/``): no GPT-2 key.
+RENAMED_KEYS = {"n_embd": "hidden_size", "n_layer": "num_hidden_layers",
+                "n_head": "num_attention_heads", "n_positions": "max_position_embeddings",
+                "layer_norm_epsilon": "layer_norm_eps"}
+NANO_R = dict({RENAMED_KEYS.get(k, k): v for k, v in NANO.items()}, name="nano-r",
+              model_type="renamed")
 MIX = {"batch": 4, "clients": 4, "prompt": {"min": 4, "max": 40},
        "output": {"min": 4, "max": 24}, "pool": 64, "temperature": 0.0, "warm_steps": 2,
        "check": {"tokens": 200, "requests": 12}}
 PREFIX_MIX = dict(MIX, prefix=20, prompt={"min": 2, "max": 12})
+CONFIGS = (NANO, NANO_Q, NANO_R)
 CELLS = (("nano-tiny", NANO, "tiny"), ("nanoq-tiny", NANO_Q, "tiny"),
-         ("nanoq-prefix", NANO_Q, "tinyprefix"))
+         ("nanoq-prefix", NANO_Q, "tinyprefix"), ("nanor-tiny", NANO_R, "tiny"))
 # Set from CPU readings: float32 sound runs read 0 on every seed tried;
 # nano-q's bf16 runs up to 4.8e-3 (its fp8 control 0 to 2.6e-2: at two
 # layers the two overlap, so the fault tests run the float32 cell).
-LIMITS = {"nano": 1e-3, "nano-q": 3e-2}
+LIMITS = {"nano": 1e-3, "nano-q": 3e-2, "nano-r": 1e-3}
 
 
 def make(root: Path) -> Path:
@@ -33,13 +40,15 @@ def make(root: Path) -> Path:
     home = root / "portbench"
     shutil.copytree(REPO / "portbench", home,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for c in (NANO, NANO_Q):
+    shutil.copytree(REPO / "portbench" / "tests" / "renamed", home / "families" / "renamed",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for c in CONFIGS:
         (home / "configs" / f"{c['name']}.json").write_text(json.dumps(c))
     (home / "traffic" / "tiny.json").write_text(json.dumps(MIX))
     (home / "traffic" / "tinyprefix.json").write_text(json.dumps(PREFIX_MIX))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     bench["configs"] = [{"name": c["name"], "source": "test", "reduced": [], "why": "test",
-                         "file": f"portbench/configs/{c['name']}.json"} for c in (NANO, NANO_Q)]
+                         "file": f"portbench/configs/{c['name']}.json"} for c in CONFIGS]
     bench["workloads"] = [{"name": n, "config": c["name"], "traffic": t, "chips": 1,
                            "why": "test"} for n, c, t in CELLS]
     for m in bench["per_layer"] + [m for m in bench["end_to_end"] if "workloads" in m]:

@@ -5,6 +5,7 @@ import json
 import math
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from portbench import roofline, trace
@@ -52,10 +53,32 @@ def test_nothing_to_read():
         assert read(name, w) is None, name
 
 
-def test_host_tail_reader():
-    assert read("ttft_ms_p95.host", window(end_to_end={"ttft_ms_p95": 412.5})) == 412.5
-    assert read("ttft_ms_p95.host", window(end_to_end={"ttft_ms_p95": math.nan})) is None
-    assert read("ttft_ms_p95.host", window()) is None
+@pytest.mark.parametrize("name", ["ttft_ms_p95", "tokens_per_s", "itl_ms_p95"])
+def test_host_tail_reader(name):
+    """A host-clock end-to-end number kept per layer in the cells too noisy
+    for a bound on it: read back as the window measured it."""
+    reader = f"{name}.host"
+    assert read(reader, window(end_to_end={name: 412.5})) == 412.5
+    assert read(reader, window(end_to_end={name: math.nan})) is None
+    assert read(reader, window()) is None
+
+
+def test_end_to_end_by_hand():
+    """The clients' numbers over a window of known token times: two
+    requests, one token before the window opens."""
+    from portbench.serve import Served, measure
+    from portbench.traffic import Request
+
+    a = Served(Request(0, [1] * 8, 4, 0), 0.5, 8, times=[0.9, 1.2, 1.25, 1.3],
+               tokens=[1, 2, 3, 4])
+    b = Served(Request(1, [1] * 4, 3, 0), 1.0, 4, times=[1.5, 1.6, 2.6], tokens=[5, 6, 7])
+    e2e, prompt_tokens, flops = measure(XL, [a, b], 1.0, 3.0)
+    gaps = [50.0, 50.0, 100.0, 1000.0]  # a: 1.2->1.25->1.3; b: 1.5->1.6->2.6 (ms)
+    assert e2e["tokens_per_s"] == pytest.approx(6 / 2.0)
+    assert e2e["ttft_ms_p95"] == pytest.approx(500.0)  # b alone: a's first is before
+    assert e2e["itl_ms_p95"] == pytest.approx(float(np.percentile(gaps, 95)))
+    assert e2e["itl_ms_p10"] == pytest.approx(50.0)
+    assert prompt_tokens == 4 and flops > 0
 
 
 def test_trace_readers():

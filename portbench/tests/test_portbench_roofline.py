@@ -6,8 +6,10 @@ from pathlib import Path
 import pytest
 
 from portbench import roofline
+from portbench.spec import load_family
 
 HOME = Path(__file__).resolve().parents[1]
+GPT2 = load_family("gpt2", HOME.parent).model
 XL = json.loads((HOME / "configs" / "gpt2-xl-int4-kv8.json").read_text())
 SMALL = json.loads((HOME / "configs" / "gpt2-124m-fp32.json").read_text())
 
@@ -31,8 +33,8 @@ def test_qmm_int8_lm_head():
 
 def test_kv_row_bytes():
     # XL: 25 heads x 64 int8 for K and V, 13 pair scales each.
-    assert roofline.kv_row_bytes(XL) == 2 * (1600 + 4 * 13)
-    assert roofline.kv_row_bytes(SMALL) == 2 * 768 * 4
+    assert GPT2.kv_row_bytes(XL) == 2 * (1600 + 4 * 13)
+    assert GPT2.kv_row_bytes(SMALL) == 2 * 768 * 4
 
 
 def test_decode_attention_lane():
@@ -60,4 +62,4 @@ def test_phantom_head_is_not_counted():
         XL, "int4", 1600, 1600, 128)
     assert roofline.qmm_call(XL, "int4", 1664, 1600, 1) == roofline.qmm_call(
         XL, "int4", 1600, 1600, 1)
-    assert roofline.model_width(SMALL, 768) == 768
+    assert GPT2.model_width(SMALL, 768) == 768

@@ -22,7 +22,8 @@ def test_untraced_run(nano_root, cell):
     assert list(r) == KEYS + ["checks"]
     assert r["correct"] is True, r["checks"]
     assert r["failed"] == 0 and r["attempted"] > 0
-    assert set(r["metrics"]) == {"tokens_per_s", "ttft_ms_p95", "itl_ms_p95", "setup_s"}
+    assert set(r["metrics"]) == {"tokens_per_s", "ttft_ms_p95", "itl_ms_p95", "itl_ms_p10",
+                                 "setup_s"}
     assert all(m["value"] > 0 for m in r["metrics"].values())
     assert set(r["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
     assert r["checks"]["logit_gap"]["value"] <= r["checks"]["logit_gap"]["limit"]

@@ -9,12 +9,14 @@ first kernels launched into it, and a lost marker takes its step with it:
 the kernels between two markers that both survive are one whole step, and
 the surviving steps are the stretch's last ones.
 
-The harness's own spans (``portbench.*``: the batcher step and the
-program's prefill, extend, decode step and draw inside it) are host-clock
-intervals logged during a stretch. Each step starts with the device idle
-(the step before ended on a host sync), so its marker starts as it is
-launched: that ties the host clock to the device's, and an idle gap on the
-device is put down to the innermost span the host was in.
+What the host was doing is read from spans, host-clock intervals of a
+stretch: the program's own (``portbench.program_spans``: ``batcher.*`` and
+``model.prefill``, ``model.extend``, ``model.decode_step``, a replay of the
+decode step's graph included) and the harness's ``portbench.step`` around
+each batcher step. Each step starts with the device idle (the step before
+ended on a host sync), so its marker starts as it is launched: that ties
+the host clock to the device's, and an idle gap on the device is put down
+to the innermost span the host was in (``harness`` outside every span).
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
+from portbench import program_spans
+
 MARK_CYCLES = 1000
 _MARK = "spin_kernel"
 ACTIVITIES = ("CUDA",)
 STRETCHES, STEPS = 8, 3   # profiled stretches a window, batcher steps a stretch
+# The program's spans of host work (not ``request``: a request's lifetime).
+HOST_SPANS = ("batcher.", "model.")
 
 
 @dataclass
@@ -74,6 +80,7 @@ class Tracer:
         from torch.profiler import ProfilerActivity, profile
 
         marks, self.log = [], []
+        first = len(program_spans.records() or ())
         with profile(activities=[getattr(ProfilerActivity, a) for a in ACTIVITIES]) as prof:
             for _ in range(STEPS):
                 marks.append((time.perf_counter(), dict(qmm_counter())))
@@ -82,7 +89,10 @@ class Tracer:
             marks.append((time.perf_counter(), dict(qmm_counter())))
             torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
-        self._raw.append((prof, marks, self.log))
+        spans = self.log + [(r.name, r.t0, r.t1)
+                            for r in (program_spans.records() or ())[first:]
+                            if r.name.startswith(HOST_SPANS)]
+        self._raw.append((prof, marks, spans))
         self.log = None
 
     def reduce(self) -> List[TracedStep]:
